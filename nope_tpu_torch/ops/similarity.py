@@ -1,0 +1,114 @@
+"""Template-bank similarity and retrieval (``nope_tpu/ops/similarity.py``).
+
+The reference "l2" metric is an L4-flavoured channel reduction:
+
+    sim[b, n] = -sum_{h,w} sqrt(sum_c ((q - t)^2)^2)
+
+:func:`reference_similarity` runs the K1 CUDA kernel
+(``csrc/similarity.cu``) for CUDA tensors and
+:func:`reference_similarity_plain` for CPU tensors.  Both load the
+input dtype, compute in float32 and return float32.  ``l2_true`` and
+``cosine`` are plain PyTorch only.
+
+Layout is NHWC: query (B, h, w, C), bank (B or 1, N, h, w, C).  A bank
+with leading dim 1 is scored against every query without a copy.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from nope_tpu_torch.ops import _build
+
+
+def _check_shapes(query: torch.Tensor, bank: torch.Tensor) -> None:
+    if query.dim() != 4 or bank.dim() != 5 or bank.shape[2:] != query.shape[1:]:
+        raise ValueError(f"expected query (B,h,w,C) and bank (B|1,N,h,w,C), got "
+                         f"{tuple(query.shape)} and {tuple(bank.shape)}")
+    if bank.shape[0] not in (1, query.shape[0]):
+        raise ValueError(f"bank leading dim {bank.shape[0]} is neither 1 nor B={query.shape[0]}")
+
+
+def reference_similarity_plain(query: torch.Tensor, bank: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of K1: (B,h,w,C) x (B|1,N,h,w,C) → (B,N) float32."""
+    _check_shapes(query, bank)
+    diff2 = torch.square(query.float()[:, None] - bank.float())
+    chan = torch.sqrt(torch.sum(torch.square(diff2), dim=-1))
+    return -torch.sum(chan, dim=(-2, -1))
+
+
+def reference_similarity(query: torch.Tensor, bank: torch.Tensor) -> torch.Tensor:
+    """K1: the reference "l2" score, (B, N) float32."""
+    if query.device.type == "cpu" and bank.device.type == "cpu":
+        return reference_similarity_plain(query, bank)
+    _check_shapes(query, bank)
+    _build.check_cuda("query", query)
+    _build.check_cuda("bank", bank)
+    if bank.dtype != query.dtype or bank.device != query.device:
+        raise ValueError("query and bank must share dtype and device")
+    b, h, w, c = query.shape
+    n = bank.shape[1]
+    if c != 4:
+        raise ValueError(f"the kernel reads one 4-channel pixel per load; got C={c}")
+    align = 4 * query.element_size()
+    if query.data_ptr() % align or bank.data_ptr() % align:
+        raise ValueError(f"query and bank must be {align}-byte aligned")
+    out = torch.empty(b, n, dtype=torch.float32, device=query.device)
+    if out.numel():
+        _build.launch(
+            "nope_reference_similarity", query.device, query.data_ptr(), bank.data_ptr(),
+            out.data_ptr(), b, n, h * w, int(bank.shape[0] == b and b > 1),
+            _build.DTYPE_CODES[query.dtype],
+        )
+        reference_similarity.launches += 1
+    return out
+
+
+reference_similarity.launches = 0
+
+
+def _flat(query: torch.Tensor, bank: torch.Tensor):
+    b = query.shape[0]
+    q = query.reshape(b, -1)
+    t = bank.reshape(bank.shape[0], bank.shape[1], -1).expand(b, -1, -1)
+    return q, t
+
+
+def l2_similarity(query: torch.Tensor, bank: torch.Tensor) -> torch.Tensor:
+    """True negative squared L2 distance, expanded as ‖q‖² - 2q·t + ‖t‖²."""
+    q, t = _flat(query, bank)
+    qq = torch.sum(q * q, dim=-1)[:, None]
+    tt = torch.sum(t * t, dim=-1)
+    qt = torch.einsum("bd,bnd->bn", q, t)
+    return -(qq - 2.0 * qt + tt)
+
+
+def cosine_similarity(query: torch.Tensor, bank: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    q, t = _flat(query, bank)
+    qn = torch.linalg.norm(q, dim=-1)[:, None]
+    tn = torch.linalg.norm(t, dim=-1)
+    return torch.einsum("bd,bnd->bn", q, t) / torch.clamp(qn * tn, min=eps)
+
+
+_METRICS = {
+    "l2": reference_similarity,  # the reference calls its quirk metric "l2"
+    "l2_true": l2_similarity,
+    "cosine": cosine_similarity,
+}
+
+
+def similarity_metric(name: str):
+    """Similarity function by config name: (B,h,w,C) query x
+    (B|1,N,h,w,C) bank → (B,N)."""
+    return _METRICS[name]
+
+
+def retrieve(
+    query: torch.Tensor, bank: torch.Tensor, k: int = 5, metric: str = "l2"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """similarity (B, N) + top-k indices (B, k), best first."""
+    sim = _METRICS[metric](query, bank)
+    _, idx = torch.topk(sim, k, dim=-1)
+    return sim, idx

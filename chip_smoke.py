@@ -12,7 +12,9 @@ it fails at once.
    the kernels from ``nope_tpu_torch/csrc`` (into ``build/``).
 2. Holds each kernel against its plain PyTorch version on the card, at
    every shape the flagship configuration sends through it, in float32
-   and bfloat16.
+   and bfloat16; K3 in bfloat16 (its tensor-core route) at B = 3 (a
+   ragged M), 26 and 341 (the registration batch), with two launches on
+   the same inputs bitwise equal.
 3. The main path, at the flagship's full width (192-wide PoseUNet with
    dim_mults (1,2,4,8), the default SD-VAE, 256-px images, 32x32x4
    latents) with seeded random weights: PoseEstimators on the 26-template
@@ -21,7 +23,17 @@ it fails at once.
    queries.  Every kernel's launch count must grow.  The float32 26-grid
    answer to one query must match the CPU (plain versions) on top-1.
 4. Times registration, ``estimate`` and each kernel against its plain
-   version with CUDA events after warm-up.
+   version with CUDA events after warm-up; K3 per block shape beside
+   ``F.conv2d`` over the block's convs (bf16, channels-last), with
+   TFLOP/s.  Each kernel's bound (``bound_ms``) is the larger of the bytes
+   its function must move over 3.35 TB/s and its operations over the
+   peak rate of their type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s
+   float32 CUDA cores, from the H100 SXM data sheet; tensor-core and
+   CUDA-core work overlap, so the larger of their times); a conv counts
+   only its products by inputs inside the image, not by the padding.
+5. One ``torch.profiler`` window each over a bf16 registration (N=26,
+   N=341) and a bf16 ``estimate`` (B=64): wall time, summed kernel time,
+   its share of the wall time, K3's share, and the top kernels.
 
 The last two lines are the kernel table and ``{"ok": true, ...}``.
 """
@@ -49,6 +61,10 @@ TOL = {"float32": {"K1": 1e-5, "K2": 1e-5, "K3": 1e-4}, "bfloat16": {"K1": 1e-5,
 # the float32 GPU path against the CPU path on one query, same weights
 CPU_SIM_RTOL = 1e-3
 FAST_N, FULL_N, QUERIES, REQUESTS = 26, 341, 8, 3
+K3_BATCHES = (3, FAST_N, FULL_N)
+# H100 SXM peaks (NVIDIA data sheet): bytes/s, dense bf16 tensor-core and
+# float32 CUDA-core operations/s
+HBM_BPS, BF16_TC_OPS, F32_OPS = 3.35e12, 989e12, 67e12
 IMAGE = 256
 LATENT = IMAGE // 8
 
@@ -131,8 +147,96 @@ def k3_inputs(torch, shape, batch, dev, dtype, gen):
     return rnd(batch, h, w, cin), (rnd(batch, co) if emb else None), params
 
 
+def k3_work(shape, batch):
+    """(tensor-core operations, float32 operations, bytes) of one K3 block
+    in bf16: its three convs, counting only the products by an input
+    inside the image (a zero-padded 3x3 conv over H x W has (3H-2)(3W-2)
+    such (pixel, tap) pairs of its 9HW); the two GroupNorm+SiLU passes
+    (~12 operations an element with their statistics) and the residual
+    add; x, weights, emb and parameters read once and the output written
+    once."""
+    h, w, cin, co, res, emb = shape[:6]
+    m = batch * h * w
+    taps = batch * (3 * h - 2) * (3 * w - 2)
+    macs = taps * (cin + co) * co + (m * cin * co if res else 0)
+    k = 9 * cin + 9 * co + (cin if res else 0)
+    nbytes = 2 * (m * cin + m * co + k * co + (batch * co if emb else 0) + 8 * co)
+    return 2.0 * macs, 25.0 * m * co, float(nbytes)
+
+
+def bound(tc_ops=0.0, f32_ops=0.0, nbytes=0.0):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    the largest of the tensor cores', the CUDA cores' and the memory's
+    times, which can all run at once."""
+    ops_ms = 1e3 * max(tc_ops / BF16_TC_OPS, f32_ops / F32_OPS)
+    bytes_ms = 1e3 * nbytes / HBM_BPS
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def pack_bytes(fr, module) -> int:
+    """Bytes of the K3 weight packs held for ``module``'s parameters (a
+    pack that is a view of its weight holds none of its own)."""
+    total = 0
+    for w in module.parameters():
+        entry = fr._PACKS.get(w)
+        for p in entry[1].values() if entry else ():
+            if p.untyped_storage().data_ptr() != w.untyped_storage().data_ptr():
+                total += p.numel() * p.element_size()
+    return total
+
+
+def k3_library(torch, F, x, params):
+    """F.conv2d over the block's convs, bf16 channels-last: the yardstick
+    of the convs (no single PyTorch call computes the whole block)."""
+    xc = x.permute(0, 3, 1, 2)
+    act = torch.empty(x.shape[0], params["w1"].shape[0], *x.shape[1:3], dtype=x.dtype,
+                      device=x.device).contiguous(memory_format=torch.channels_last)
+
+    def run():
+        F.conv2d(xc, params["w1"], params["b1"], padding=1)
+        F.conv2d(act, params["w2"], params["b2"], padding=1)
+        if "res_w" in params:
+            F.conv2d(xc, params["res_w"], params["res_b"])
+    return run
+
+
+K3_KERNELS = ("conv_wgmma", "splitk_reduce", "gn_finalize", "gn_silu")  # K3 in bf16
+
+
+def profile_window(torch, label, fn, top=6):
+    """Kernel time by name over one call of ``fn`` (after a warm-up)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    rows = []  # kernels only: an operator's row repeats its kernels' time
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        if us > 0:
+            rows.append((us / 1e3, e.count, e.key))
+    busy = sum(r[0] for r in rows)
+    if not busy:
+        print(f"  profile {label}: wall {wall:.2f} ms; device time not measured (the profiler saw no kernels)")
+        return
+    k3 = sum(r[0] for r in rows if any(k in r[2] for k in K3_KERNELS))
+    print(f"  profile {label}: wall {wall:.2f} ms, kernels {busy:.2f} ms ({100 * busy / wall:.1f}% of wall), "
+          f"K3 {k3:.2f} ms ({100 * k3 / busy:.1f}% of kernel time)")
+    for ms, count, name in sorted(rows, reverse=True)[:top]:
+        print(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}% x{count:<4} {name[:90]}")
+
+
 def main() -> int:
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU only", file=sys.stderr)
@@ -165,8 +269,10 @@ def main() -> int:
     print(f"phase 1 build: {time.perf_counter() - t0:.2f} s (nvcc {nvcc_s:.2f} s) -> {lib_path.relative_to(ROOT)}")
     log = (lib_path.parent / "build.log").read_text()
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+        if "Compiling entry function" in line:
+            print("  ptxas:", line.split("entry function")[1].strip().split("'")[1][:110])
+        elif "registers" in line or "spill" in line:
+            print("  ptxas:   ", line.replace("ptxas info    :", "").strip())
 
     # -- the full-width task; shapes of K3/K2 from a CPU forward --------------
     cfg = flagship_config()
@@ -210,13 +316,19 @@ def main() -> int:
             check("K2", f"BN={FAST_N} n={n}", la.linear_attention_inner(qkv, 4, 32),
                   la.linear_attention_inner_plain(qkv.float(), 4, 32), dn)
             torch.cuda.synchronize()
-        for shape in k3_shapes:
-            x, emb, params = k3_inputs(torch, shape, FAST_N, dev, dtype, gen)
-            f32 = {k: v.float() for k, v in params.items()}
-            label = f"B={FAST_N} {shape[0]}x{shape[1]} {shape[2]}->{shape[3]} res={int(shape[4])} emb={int(shape[5])}"
-            check("K3", label, fr.resnet_block(x, emb, params, shape[6]),
-                  fr.resnet_block_plain(x.float(), None if emb is None else emb.float(), f32, shape[6]), dn)
-            torch.cuda.synchronize()
+        for batch in (K3_BATCHES if dtype == torch.bfloat16 else (FAST_N,)):
+            for shape in k3_shapes:
+                x, emb, params = k3_inputs(torch, shape, batch, dev, dtype, gen)
+                f32 = {k: v.float() for k, v in params.items()}
+                label = (f"B={batch} {shape[0]}x{shape[1]} {shape[2]}->{shape[3]} res={int(shape[4])} "
+                         f"emb={int(shape[5])}")
+                got = fr.resnet_block(x, emb, params, shape[6])
+                check("K3", label, got,
+                      fr.resnet_block_plain(x.float(), None if emb is None else emb.float(), f32, shape[6]), dn)
+                if dtype == torch.bfloat16 and not torch.equal(got, fr.resnet_block(x, emb, params, shape[6])):
+                    raise RuntimeError(f"K3 {label}: two launches on the same inputs differ")
+                torch.cuda.synchronize()
+    print(f"  K3 bf16: two launches bitwise equal at all {len(k3_shapes) * len(K3_BATCHES)} (shape, batch)")
 
     # -- phase 3: the main path -----------------------------------------------
     print("phase 3: main path (full width, seeded random weights)")
@@ -235,6 +347,7 @@ def main() -> int:
     counters = (sim.reference_similarity, la.linear_attention_inner, fr.resnet_block)
     for fn in counters:
         fn.launches = 0
+    fr.resnet_block.tensor_core_launches = 0
     answers = {}
     t0 = time.perf_counter()
     for (dt, n), est in estimators.items():
@@ -242,9 +355,11 @@ def main() -> int:
         answers[(dt, n)] = [est.estimate("object", q) for q in requests]
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counters}
-    print(f"  4 registrations + {4 * REQUESTS} requests: {time.perf_counter() - t0:.1f} s; launches {launches}")
-    if not all(launches.values()):
-        raise RuntimeError(f"a kernel of the main path never launched: {launches}")
+    tc = fr.resnet_block.tensor_core_launches
+    print(f"  4 registrations + {4 * REQUESTS} requests: {time.perf_counter() - t0:.1f} s; launches {launches}; "
+          f"K3 on the tensor cores (bf16) {tc}")
+    if not all(launches.values()) or not tc:
+        raise RuntimeError(f"a kernel of the main path never launched: {launches}, tensor-core K3 {tc}")
     for (dt, n), results in answers.items():
         for r in results:
             ok = (r.nearest_idx.shape == (QUERIES, 5) and r.similarity.shape == (QUERIES, n)
@@ -256,6 +371,10 @@ def main() -> int:
         r = results[0]
         print(f"  {dt:<8} N={n:<3} top-1 of query 0: {r.nearest_idx[0, 0]:>3} sim {r.similarity[0].max():.4f} "
               f"bank {tuple(estimators[(dt, n)]._banks['object'].shape)}")
+    conv_w = sum(m.weight.numel() for m in task32.unet.modules()
+                 if isinstance(m, torch.nn.Conv2d) and fr._PACKS.get(m.weight) is not None)
+    print(f"  K3 weight packs held per U-Net: bf16 {pack_bytes(fr, estimators[('bfloat16', FAST_N)].task.unet) / 1e9:.3f} GB, "
+          f"fp32 {pack_bytes(fr, task32.unet) / 1e9:.3f} GB ({conv_w} packed conv weights)")
     bf, fp = answers[("bfloat16", FAST_N)][0], answers[("float32", FAST_N)][0]
     print(f"  bf16 vs fp32 top-1 agreement (N={FAST_N}, {QUERIES} queries): "
           f"{(bf.nearest_idx[:, 0] == fp.nearest_idx[:, 0]).mean():.3f}")
@@ -287,34 +406,75 @@ def main() -> int:
             q = rng.integers(0, 256, (b, IMAGE, IMAGE, 3), dtype=np.uint8)
             ms = cuda_ms(torch, lambda: est.estimate("object", q), 5, warmup=2)
             print(f"  estimate {dt:<8} N={FAST_N} B={b:<2} {ms:10.2f} ms  {1000 * b / ms:9.1f} queries/s")
-    kernel_ms = {}
+    kernel_ms, bounds = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[-1]
         q = torch.randn(64, LATENT, LATENT, 4, generator=gen).to(dev, dtype)
         bank = torch.randn(1, FULL_N, LATENT, LATENT, 4, generator=gen).to(dev, dtype)
         t_k = cuda_ms(torch, lambda: sim.reference_similarity(q, bank), 20, warmup=3)
         t_p = cuda_ms(torch, lambda: sim.reference_similarity_plain(q, bank), 20, warmup=3)
-        print(f"  K1 B=64 N={FULL_N} bank lead 1 {dn:<8} kernel {t_k:8.3f} ms plain {t_p:8.3f} ms")
-        kernel_ms.setdefault("K1", (t_k, t_p))
+        # per (query, template, pixel): 3 operations a channel, then square, sqrt, accumulate
+        b1 = bound(f32_ops=64.0 * FULL_N * LATENT * LATENT * (3 * 4 + 3),
+                   nbytes=float(q.numel() + bank.numel()) * q.element_size() + 4 * 64 * FULL_N)
+        print(f"  K1 B=64 N={FULL_N} bank lead 1 {dn:<8} kernel {t_k:8.3f} ms plain {t_p:8.3f} ms "
+              f"bound {b1[0]:.4f} ms ({b1[1]})")
+        kernel_ms.setdefault("K1", (t_k, t_p, None))
+        bounds.setdefault("K1", b1)
         n = k2_tokens[0]
         qkv = (2 * torch.randn(FAST_N, n, 384, generator=gen)).to(dev, dtype)
         t_k = cuda_ms(torch, lambda: la.linear_attention_inner(qkv, 4, 32), 20, warmup=3)
         t_p = cuda_ms(torch, lambda: la.linear_attention_inner_plain(qkv, 4, 32), 20, warmup=3)
-        print(f"  K2 BN={FAST_N} n={n} {dn:<8} kernel {t_k:8.3f} ms plain {t_p:8.3f} ms")
-        kernel_ms.setdefault("K2", (t_k, t_p))
-        tot_k = tot_p = 0.0
-        for shape in k3_shapes:
-            x, emb, params = k3_inputs(torch, shape, FAST_N, dev, dtype, gen)
-            t_k = cuda_ms(torch, lambda: fr.resnet_block(x, emb, params, shape[6]), 3)
-            t_p = cuda_ms(torch, lambda: fr.resnet_block_plain(x, emb, params, shape[6]), 3)
-            count = k3_calls.count(shape)
-            tot_k, tot_p = tot_k + count * t_k, tot_p + count * t_p
-            print(f"  K3 B={FAST_N} {shape[0]:>2}x{shape[1]:<2} {shape[2]:>4}->{shape[3]:<4} res={int(shape[4])} "
-                  f"emb={int(shape[5])} x{count} {dn:<8} kernel {t_k:8.3f} ms plain {t_p:8.3f} ms")
-        print(f"  K3 all 22 blocks of one U-Net forward at B={FAST_N} {dn:<8} kernel {tot_k:8.3f} ms "
-              f"plain {tot_p:8.3f} ms")
-        kernel_ms.setdefault("K3", (tot_k, tot_p))
+        # per (item, token, head): k^T v and q·context (2·2·dh² ops) and two softmaxes (~8·dh)
+        b2 = bound(f32_ops=float(FAST_N * n * 4) * (4 * 32 * 32 + 8 * 32),
+                   nbytes=float(qkv.numel() + FAST_N * n * 128) * qkv.element_size())
+        print(f"  K2 BN={FAST_N} n={n} {dn:<8} kernel {t_k:8.3f} ms plain {t_p:8.3f} ms "
+              f"bound {b2[0]:.4f} ms ({b2[1]})")
+        kernel_ms.setdefault("K2", (t_k, t_p, None))
+        bounds.setdefault("K2", b2)
+        for batch in ((FAST_N, FULL_N) if dtype == torch.bfloat16 else (FAST_N,)):
+            tot_k = tot_p = tot_l = tot_h = 0.0
+            work = [0.0, 0.0, 0.0]
+            for shape in k3_shapes:
+                x, emb, params = k3_inputs(torch, shape, batch, dev, dtype, gen)
+                count = k3_calls.count(shape)
+                reps = 5 if batch == FAST_N else 2
+                t_k = cuda_ms(torch, lambda: fr.resnet_block(x, emb, params, shape[6]), reps, warmup=2)
+                t_p = cuda_ms(torch, lambda: fr.resnet_block_plain(x, emb, params, shape[6]), reps, warmup=2)
+                t_l = cuda_ms(torch, k3_library(torch, F, x, params), reps, warmup=2)
+                torch.cuda.synchronize()
+                h0 = time.perf_counter()  # the host's side alone: launches queue up
+                for _ in range(reps):
+                    fr.resnet_block(x, emb, params, shape[6])
+                t_h = 1e3 * (time.perf_counter() - h0) / reps
+                torch.cuda.synchronize()
+                tc_ops, f32_ops, nbytes = k3_work(shape, batch)
+                work = [a + count * b for a, b in zip(work, (tc_ops, f32_ops, nbytes))]
+                tot_k, tot_p, tot_l = tot_k + count * t_k, tot_p + count * t_p, tot_l + count * t_l
+                tot_h += count * t_h
+                print(f"  K3 B={batch} {shape[0]:>2}x{shape[1]:<2} {shape[2]:>4}->{shape[3]:<4} res={int(shape[4])} "
+                      f"emb={int(shape[5])} x{count} {dn:<8} kernel {t_k:8.3f} ms ({tc_ops / t_k / 1e9:6.1f} TFLOP/s) "
+                      f"plain {t_p:8.3f} ms conv2d {t_l:8.3f} ms ({tc_ops / t_l / 1e9:6.1f} TFLOP/s) "
+                      f"host {t_h:6.3f} ms")
+            b3 = bound(*work) if dtype == torch.bfloat16 else bound(f32_ops=work[0] + work[1], nbytes=2 * work[2])
+            print(f"  K3 all 22 blocks of one U-Net forward at B={batch} {dn:<8} kernel {tot_k:8.3f} ms "
+                  f"plain {tot_p:8.3f} ms conv2d {tot_l:8.3f} ms host {tot_h:.3f} ms; {work[0] / 1e12:.3f} TFLOP of conv, "
+                  f"bound {b3[0]:.3f} ms ({b3[1]}), kernel at {100 * b3[0] / tot_k:.1f}% of it")
+            if batch == FAST_N:
+                kernel_ms.setdefault("K3", (tot_k, tot_p, tot_l))
+                bounds.setdefault("K3", b3)
+    if kernel_ms["K3"][0] >= kernel_ms["K3"][1]:
+        print(f"  note: K3 bf16 per forward {kernel_ms['K3'][0]:.3f} ms is not below its plain version "
+              f"{kernel_ms['K3'][1]:.3f} ms")
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # -- phase 5: where the time goes ------------------------------------------
+    print(f"phase 5: profiler windows on {smi}")
+    for n in (FAST_N, FULL_N):
+        profile_window(torch, f"register_object bfloat16 N={n}",
+                       lambda: estimators[("bfloat16", n)].register_object("timed", ref_image))
+    q64 = rng.integers(0, 256, (64, IMAGE, IMAGE, 3), dtype=np.uint8)
+    profile_window(torch, f"estimate bfloat16 N={FAST_N} B=64",
+                   lambda: estimators[("bfloat16", FAST_N)].estimate("object", q64))
 
     table = [
         ("reference_similarity", "K1", "nope_tpu_torch/csrc/similarity.cu",
@@ -328,7 +488,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[fn.__name__], "max_abs_err": worst[k],
-         "ms": kernel_ms[k][0], "plain_ms": kernel_ms[k][1]}
+         "ms": kernel_ms[k][0], "plain_ms": kernel_ms[k][1], "bound_ms": bounds[k][0],
+         "bound_by": bounds[k][1], "library_ms": kernel_ms[k][2]}
         for name, k, src, rep, fn in table
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

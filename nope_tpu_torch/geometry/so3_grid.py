@@ -1,8 +1,8 @@
 """SO(3) viewpoint template grids (icosphere levels 0-3), numpy only.
 
-Loaders of ``nope_tpu/geometry/so3_grid.py``: they read the same
-``.npy`` assets by path, without importing ``nope_tpu`` (which would
-import jax).
+Loaders of ``nope_tpu/geometry/so3_grid.py``, over the port's own copy
+of its ``.npy`` assets (``assets/``, byte-identical to
+``nope_tpu/geometry/assets/predefined_poses/``).
 """
 
 from __future__ import annotations
@@ -12,10 +12,7 @@ import os
 
 import numpy as np
 
-_ASSET_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "nope_tpu", "geometry", "assets", "predefined_poses",
-)
+_ASSET_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
 
 #: number of grid poses per level (icosphere vertex counts)
 LEVEL_SIZES = {0: 42, 1: 162, 2: 642, 3: 2562}

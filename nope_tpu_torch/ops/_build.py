@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` of the package into one shared
-library with a plain C interface, which :mod:`ctypes` loads.  The build
+``nvcc`` compiles every ``csrc/*.cu`` of the package, one process per
+source, all at once, and links the objects into one shared library
+with a plain C interface, which :mod:`ctypes` loads.  The build
 happens at first use, into ``build/nope_tpu_torch/<hash>/`` at the root
 of the checkout, keyed by a hash of the sources, so an edited source
 rebuilds and an unchanged one is reused within a checkout.  Nothing is
@@ -10,6 +11,7 @@ built or imported from CUDA when this module is imported.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -24,7 +26,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "nope_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -34,8 +36,10 @@ SIGNATURES = {
     "nope_reference_similarity": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "nope_linear_attention": (_P, _P, _I, _I, _I, _F, _I, _P),
     "nope_conv_nhwc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    "nope_group_stats": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
-    "nope_gn_silu": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P),
+    "nope_group_stats": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _P),
+    "nope_gn_silu": (_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P),
+    "nope_conv_wgmma": (_P, _P, _P, _I, _P, _P, _P, *[_I] * 10, _P),
+    "nope_gn_finalize": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -76,17 +80,39 @@ def build() -> tuple[Path, float]:
     if lib.exists():
         return lib, 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libnope_kernels.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    tag = os.getpid()
+    nvcc, log = _nvcc(), []
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    seconds = time.perf_counter() - t0
-    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(out_dir / f"{src.stem}.{tag}.o"), str(src)]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    objects = [cmd[-2] for cmd, _ in jobs]
+    tmp = out_dir / f"libnope_kernels.{tag}.tmp.so"
+    link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *objects]
+    try:
+        for cmd, proc in jobs:
+            stdout, stderr = proc.communicate()
+            log.append(" ".join(cmd) + "\n" + stdout + stderr)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}) on {cmd[-1]}:\n{stderr[-4000:]}")
+        linked = subprocess.run(link, capture_output=True, text=True, check=False)
+        log.append(" ".join(link) + "\n" + linked.stdout + linked.stderr)
+        if linked.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({linked.returncode}):\n{linked.stderr[-4000:]}")
+    except BaseException:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        raise
+    finally:
+        for _, job in jobs:  # after a failure the others are stopped
+            if job.poll() is None:
+                job.kill()
+            job.wait()
+        for obj in objects:
+            Path(obj).unlink(missing_ok=True)
+        (out_dir / "build.log").write_text("".join(log))
     os.replace(tmp, lib)  # atomic: a concurrent process sees a whole file or none
-    return lib, seconds
+    return lib, time.perf_counter() - t0
 
 
 def library() -> ctypes.CDLL:
@@ -105,15 +131,28 @@ def library() -> ctypes.CDLL:
     return _library
 
 
-def launch(name: str, device: torch.device, *args) -> None:
-    """Call one C entry point with ``device`` current, on its current
-    stream (passed as the last argument); raise if the launch reports a
-    CUDA error."""
+@contextlib.contextmanager
+def launcher(device: torch.device):
+    """Yield ``call(name, *args)``, which calls one C entry point on
+    ``device``'s current stream (passed as the last argument) and raises
+    if the launch reports a CUDA error.  The device is made current and
+    the stream looked up once for all the calls in the block."""
     lib = library()
     with torch.cuda.device(device):
-        status = getattr(lib, name)(*args, torch.cuda.current_stream(device).cuda_stream)
-    if status != 0:
-        raise RuntimeError(f"{name}: CUDA error {status}: {lib.nope_error_string(status).decode()}")
+        stream = torch.cuda.current_stream(device).cuda_stream
+
+        def call(name: str, *args) -> None:
+            status = getattr(lib, name)(*args, stream)
+            if status != 0:
+                raise RuntimeError(f"{name}: CUDA error {status}: {lib.nope_error_string(status).decode()}")
+
+        yield call
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """One call through :func:`launcher`."""
+    with launcher(device) as call:
+        call(name, *args)
 
 
 def check_cuda(name: str, t: torch.Tensor, dtypes=(torch.float32, torch.bfloat16)) -> None:

@@ -1,6 +1,8 @@
 """nope_tpu_torch.geometry against nope_tpu.geometry: grid loaders, 6d
 round trips and relative rotations (exact float32 math on both sides)."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -34,6 +36,18 @@ def test_level0_in_level2_index_matches(dist):
         so3_grid.load_index_level0_in_level2(dist), jgrid.load_index_level0_in_level2(dist)
     )
     assert len(so3_grid.load_index_level0_in_level2("upper")) == 26
+
+
+def test_assets_are_the_jax_package_files():
+    """The port reads its own copy of the grids, byte for byte the JAX
+    package's, and nothing under nope_tpu/."""
+    port = Path(so3_grid._ASSET_DIR)
+    jax_dir = Path(jgrid.__file__).resolve().parent / "assets" / "predefined_poses"
+    names = sorted(p.name for p in jax_dir.glob("*.npy"))
+    assert names and names == sorted(p.name for p in port.glob("*.npy"))
+    for name in names:
+        assert (port / name).read_bytes() == (jax_dir / name).read_bytes(), name
+    assert Path(__file__).resolve().parents[1] / "nope_tpu" not in port.resolve().parents
 
 
 def test_unknown_distribution_raises():

@@ -13,8 +13,10 @@ it fails at once.
 2. Holds each kernel against its plain PyTorch version on the card, at
    every shape the flagship configuration sends through it, in float32
    and bfloat16; K3 in bfloat16 (its tensor-core route) at B = 3 (a
-   ragged M), 26 and 341 (the registration batch), with two launches on
-   the same inputs bitwise equal.
+   ragged M), 26 and 341 (the registration batch); K2 at 3, 26 and 341
+   items times each of the U-Net's token counts; K1 at the serving
+   requests, B=64, a bank per query and a ragged B.  Two launches on the
+   same inputs must be bitwise equal (K3 bf16, K1 and K2 both dtypes).
 3. The main path, at the flagship's full width (192-wide PoseUNet with
    dim_mults (1,2,4,8), the default SD-VAE, 256-px images, 32x32x4
    latents) with seeded random weights: PoseEstimators on the 26-template
@@ -23,7 +25,11 @@ it fails at once.
    queries.  Every kernel's launch count must grow.  The float32 26-grid
    answer to one query must match the CPU (plain versions) on top-1.
 4. Times registration, ``estimate`` and each kernel against its plain
-   version with CUDA events after warm-up; K3 per block shape beside
+   version with CUDA events after warm-up, back-to-back calls with the
+   host in the loop (``ms``), and each kernel also on the device alone,
+   the stream held while the host queues (``device_ms``); K2 per token
+   count at 26 and 341 items and summed over the 8 calls of one U-Net
+   forward; K1 at B = 8, 64 against N = 26, 341; K3 per block shape beside
    ``F.conv2d`` over the block's convs (bf16, channels-last), with
    TFLOP/s.  Each kernel's bound (``bound_ms``) is the larger of the bytes
    its function must move over 3.35 TB/s and its operations over the
@@ -33,9 +39,11 @@ it fails at once.
    only its products by inputs inside the image, not by the padding.
 5. One ``torch.profiler`` window each over a bf16 registration (N=26,
    N=341) and a bf16 ``estimate`` (B=64): wall time, summed kernel time,
-   its share of the wall time, K3's share, and the top kernels.
+   its share of the wall time, K3's, K2's and K1's kernel time and share,
+   and the top kernels.
 
-The last two lines are the kernel table and ``{"ok": true, ...}``.
+The last two lines are the kernel table (``ms`` with the host in the
+loop, ``device_ms`` on the device alone) and ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -62,6 +70,12 @@ TOL = {"float32": {"K1": 1e-5, "K2": 1e-5, "K3": 1e-4}, "bfloat16": {"K1": 1e-5,
 CPU_SIM_RTOL = 1e-3
 FAST_N, FULL_N, QUERIES, REQUESTS = 26, 341, 8, 3
 K3_BATCHES = (3, FAST_N, FULL_N)
+# K2 items: a ragged batch, the N=26 and the N=341 registration batches
+K2_ITEMS = (3, FAST_N, FULL_N)
+# K1 (B, N, bank lead): a B=64 request, the serving requests (one object's
+# bank), a bank per query, a ragged B
+K1_SHAPES = ((64, FULL_N, 1), (QUERIES, FAST_N, 1), (QUERIES, FULL_N, 1), (QUERIES, FAST_N, QUERIES), (3, FULL_N, 1))
+K1_TIMED = ((QUERIES, FAST_N), (QUERIES, FULL_N), (64, FAST_N), (64, FULL_N))
 # H100 SXM peaks (NVIDIA data sheet): bytes/s, dense bf16 tensor-core and
 # float32 CUDA-core operations/s
 HBM_BPS, BF16_TC_OPS, F32_OPS = 3.35e12, 989e12, 67e12
@@ -98,6 +112,21 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int = 20) -> float:
+    """Device time of ``fn`` alone: the stream is held by a sleep while the
+    host queues ``reps`` calls, so host time does not enter."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -201,6 +230,8 @@ def k3_library(torch, F, x, params):
 
 
 K3_KERNELS = ("conv_wgmma", "splitk_reduce", "gn_finalize", "gn_silu")  # K3 in bf16
+K2_KERNELS = ("la_chunk_kernel", "la_merge_kernel", "la_output_kernel")
+K1_KERNELS = ("similarity_kernel", "reduce_splits_kernel")
 
 
 def profile_window(torch, label, fn, top=6):
@@ -227,9 +258,10 @@ def profile_window(torch, label, fn, top=6):
     if not busy:
         print(f"  profile {label}: wall {wall:.2f} ms; device time not measured (the profiler saw no kernels)")
         return
-    k3 = sum(r[0] for r in rows if any(k in r[2] for k in K3_KERNELS))
+    own = {k: sum(r[0] for r in rows if any(name in r[2] for name in names))
+           for k, names in (("K3", K3_KERNELS), ("K2", K2_KERNELS), ("K1", K1_KERNELS))}
     print(f"  profile {label}: wall {wall:.2f} ms, kernels {busy:.2f} ms ({100 * busy / wall:.1f}% of wall), "
-          f"K3 {k3:.2f} ms ({100 * k3 / busy:.1f}% of kernel time)")
+          + ", ".join(f"{k} {ms:.3f} ms ({100 * ms / busy:.1f}%)" for k, ms in own.items()) + " of kernel time")
     for ms, count, name in sorted(rows, reverse=True)[:top]:
         print(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}% x{count:<4} {name[:90]}")
 
@@ -305,17 +337,23 @@ def main() -> int:
     print("phase 2: kernels vs plain on the card")
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
-        for b, n, lead in ((64, FULL_N, 1), (8, FAST_N, 1), (8, FAST_N, 8)):
+        for b, n, lead in K1_SHAPES:
             q = torch.randn(b, LATENT, LATENT, 4, generator=gen).to(dev, dtype)
             bank = torch.randn(lead, n, LATENT, LATENT, 4, generator=gen).to(dev, dtype)
-            check("K1", f"B={b} N={n} bank lead {lead}", sim.reference_similarity(q, bank),
+            got = sim.reference_similarity(q, bank)
+            check("K1", f"B={b} N={n} bank lead {lead}", got,
                   sim.reference_similarity_plain(q.float(), bank.float()), dn)
+            if not torch.equal(got, sim.reference_similarity(q, bank)):
+                raise RuntimeError(f"K1 B={b} N={n} lead {lead} {dn}: two launches on the same inputs differ")
             torch.cuda.synchronize()
-        for n in k2_tokens:
-            qkv = (2 * torch.randn(FAST_N, n, 384, generator=gen)).to(dev, dtype)
-            check("K2", f"BN={FAST_N} n={n}", la.linear_attention_inner(qkv, 4, 32),
-                  la.linear_attention_inner_plain(qkv.float(), 4, 32), dn)
-            torch.cuda.synchronize()
+        for items in K2_ITEMS:
+            for n in k2_tokens:
+                qkv = (2 * torch.randn(items, n, 384, generator=gen)).to(dev, dtype)
+                got = la.linear_attention_inner(qkv, 4, 32)
+                check("K2", f"items={items} n={n}", got, la.linear_attention_inner_plain(qkv.float(), 4, 32), dn)
+                if not torch.equal(got, la.linear_attention_inner(qkv, 4, 32)):
+                    raise RuntimeError(f"K2 items={items} n={n} {dn}: two launches on the same inputs differ")
+                torch.cuda.synchronize()
         for batch in (K3_BATCHES if dtype == torch.bfloat16 else (FAST_N,)):
             for shape in k3_shapes:
                 x, emb, params = k3_inputs(torch, shape, batch, dev, dtype, gen)
@@ -329,6 +367,8 @@ def main() -> int:
                     raise RuntimeError(f"K3 {label}: two launches on the same inputs differ")
                 torch.cuda.synchronize()
     print(f"  K3 bf16: two launches bitwise equal at all {len(k3_shapes) * len(K3_BATCHES)} (shape, batch)")
+    print(f"  K1 and K2, both dtypes: two launches bitwise equal at all {len(K1_SHAPES)} and "
+          f"{len(K2_ITEMS) * len(k2_tokens)} shapes")
 
     # -- phase 3: the main path -----------------------------------------------
     print("phase 3: main path (full width, seeded random weights)")
@@ -409,36 +449,52 @@ def main() -> int:
     kernel_ms, bounds = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[-1]
-        q = torch.randn(64, LATENT, LATENT, 4, generator=gen).to(dev, dtype)
-        bank = torch.randn(1, FULL_N, LATENT, LATENT, 4, generator=gen).to(dev, dtype)
-        t_k = cuda_ms(torch, lambda: sim.reference_similarity(q, bank), 20, warmup=3)
-        t_p = cuda_ms(torch, lambda: sim.reference_similarity_plain(q, bank), 20, warmup=3)
-        # per (query, template, pixel): 3 operations a channel, then square, sqrt, accumulate
-        b1 = bound(f32_ops=64.0 * FULL_N * LATENT * LATENT * (3 * 4 + 3),
-                   nbytes=float(q.numel() + bank.numel()) * q.element_size() + 4 * 64 * FULL_N)
-        print(f"  K1 B=64 N={FULL_N} bank lead 1 {dn:<8} kernel {t_k:8.3f} ms plain {t_p:8.3f} ms "
-              f"bound {b1[0]:.4f} ms ({b1[1]})")
-        kernel_ms.setdefault("K1", (t_k, t_p, None))
-        bounds.setdefault("K1", b1)
-        n = k2_tokens[0]
-        qkv = (2 * torch.randn(FAST_N, n, 384, generator=gen)).to(dev, dtype)
-        t_k = cuda_ms(torch, lambda: la.linear_attention_inner(qkv, 4, 32), 20, warmup=3)
-        t_p = cuda_ms(torch, lambda: la.linear_attention_inner_plain(qkv, 4, 32), 20, warmup=3)
-        # per (item, token, head): k^T v and q·context (2·2·dh² ops) and two softmaxes (~8·dh)
-        b2 = bound(f32_ops=float(FAST_N * n * 4) * (4 * 32 * 32 + 8 * 32),
-                   nbytes=float(qkv.numel() + FAST_N * n * 128) * qkv.element_size())
-        print(f"  K2 BN={FAST_N} n={n} {dn:<8} kernel {t_k:8.3f} ms plain {t_p:8.3f} ms "
-              f"bound {b2[0]:.4f} ms ({b2[1]})")
-        kernel_ms.setdefault("K2", (t_k, t_p, None))
-        bounds.setdefault("K2", b2)
+        for b, n in K1_TIMED:
+            q = torch.randn(b, LATENT, LATENT, 4, generator=gen).to(dev, dtype)
+            bank = torch.randn(1, n, LATENT, LATENT, 4, generator=gen).to(dev, dtype)
+            t_k = cuda_ms(torch, lambda: sim.reference_similarity(q, bank), 20, warmup=3)
+            t_d = device_ms(torch, lambda: sim.reference_similarity(q, bank))
+            t_p = cuda_ms(torch, lambda: sim.reference_similarity_plain(q, bank), 20, warmup=3)
+            # per (query, template, pixel): 3 operations a channel, then square, sqrt, accumulate
+            b1 = bound(f32_ops=float(b * n * LATENT * LATENT) * (3 * 4 + 3),
+                       nbytes=float(q.numel() + bank.numel()) * q.element_size() + 4 * b * n)
+            print(f"  K1 B={b:<2} N={n:<3} bank lead 1 {dn:<8} kernel {t_k:8.4f} ms (device alone {t_d:.4f}) "
+                  f"plain {t_p:8.3f} ms bound {b1[0]:.4f} ms ({b1[1]}) share {100 * b1[0] / t_k:.1f}% "
+                  f"(device alone {100 * b1[0] / t_d:.1f}%)")
+            if (b, n) == (64, FULL_N):
+                kernel_ms.setdefault("K1", (t_k, t_p, None, t_d))
+                bounds.setdefault("K1", b1)
+        for items in (FAST_N, FULL_N):
+            fwd_k = fwd_d = fwd_p = fwd_b = 0.0
+            for n in k2_tokens:
+                count = sum(1 for c in k2_calls if c[0] == n)
+                qkv = (2 * torch.randn(items, n, 384, generator=gen)).to(dev, dtype)
+                t_k = cuda_ms(torch, lambda: la.linear_attention_inner(qkv, 4, 32), 20, warmup=3)
+                t_d = device_ms(torch, lambda: la.linear_attention_inner(qkv, 4, 32))
+                t_p = cuda_ms(torch, lambda: la.linear_attention_inner_plain(qkv, 4, 32), 10, warmup=2)
+                # per (item, token, head): k^T v and q·context (2·2·dh² ops) and two softmaxes (~8·dh)
+                b2 = bound(f32_ops=float(items * n * 4) * (4 * 32 * 32 + 8 * 32),
+                           nbytes=float(qkv.numel() + items * n * 128) * qkv.element_size())
+                fwd_k, fwd_d = fwd_k + count * t_k, fwd_d + count * t_d
+                fwd_p, fwd_b = fwd_p + count * t_p, fwd_b + count * b2[0]
+                print(f"  K2 items={items:<3} n={n:<4} x{count} {dn:<8} kernel {t_k:8.4f} ms (device alone "
+                      f"{t_d:.4f}) plain {t_p:8.3f} ms bound {b2[0]:.4f} ms ({b2[1]}) share "
+                      f"{100 * b2[0] / t_k:.1f}% (device alone {100 * b2[0] / t_d:.1f}%)")
+                if (items, n) == (FAST_N, k2_tokens[0]):
+                    kernel_ms.setdefault("K2", (t_k, t_p, None, t_d))
+                    bounds.setdefault("K2", b2)
+            print(f"  K2 the {len(k2_calls)} launches of one U-Net forward at items={items} {dn:<8} kernel "
+                  f"{fwd_k:.4f} ms (device alone {fwd_d:.4f}) plain {fwd_p:.4f} ms bound {fwd_b:.4f} ms share "
+                  f"{100 * fwd_b / fwd_k:.1f}% (device alone {100 * fwd_b / fwd_d:.1f}%)")
         for batch in ((FAST_N, FULL_N) if dtype == torch.bfloat16 else (FAST_N,)):
-            tot_k = tot_p = tot_l = tot_h = 0.0
+            tot_k = tot_d = tot_p = tot_l = tot_h = 0.0
             work = [0.0, 0.0, 0.0]
             for shape in k3_shapes:
                 x, emb, params = k3_inputs(torch, shape, batch, dev, dtype, gen)
                 count = k3_calls.count(shape)
                 reps = 5 if batch == FAST_N else 2
                 t_k = cuda_ms(torch, lambda: fr.resnet_block(x, emb, params, shape[6]), reps, warmup=2)
+                t_d = device_ms(torch, lambda: fr.resnet_block(x, emb, params, shape[6]), reps)
                 t_p = cuda_ms(torch, lambda: fr.resnet_block_plain(x, emb, params, shape[6]), reps, warmup=2)
                 t_l = cuda_ms(torch, k3_library(torch, F, x, params), reps, warmup=2)
                 torch.cuda.synchronize()
@@ -450,17 +506,18 @@ def main() -> int:
                 tc_ops, f32_ops, nbytes = k3_work(shape, batch)
                 work = [a + count * b for a, b in zip(work, (tc_ops, f32_ops, nbytes))]
                 tot_k, tot_p, tot_l = tot_k + count * t_k, tot_p + count * t_p, tot_l + count * t_l
-                tot_h += count * t_h
+                tot_d, tot_h = tot_d + count * t_d, tot_h + count * t_h
                 print(f"  K3 B={batch} {shape[0]:>2}x{shape[1]:<2} {shape[2]:>4}->{shape[3]:<4} res={int(shape[4])} "
-                      f"emb={int(shape[5])} x{count} {dn:<8} kernel {t_k:8.3f} ms ({tc_ops / t_k / 1e9:6.1f} TFLOP/s) "
+                      f"emb={int(shape[5])} x{count} {dn:<8} kernel {t_k:8.3f} ms ({tc_ops / t_k / 1e9:6.1f} TFLOP/s; "
+                      f"device alone {t_d:8.3f} ms) "
                       f"plain {t_p:8.3f} ms conv2d {t_l:8.3f} ms ({tc_ops / t_l / 1e9:6.1f} TFLOP/s) "
                       f"host {t_h:6.3f} ms")
             b3 = bound(*work) if dtype == torch.bfloat16 else bound(f32_ops=work[0] + work[1], nbytes=2 * work[2])
             print(f"  K3 all 22 blocks of one U-Net forward at B={batch} {dn:<8} kernel {tot_k:8.3f} ms "
-                  f"plain {tot_p:8.3f} ms conv2d {tot_l:8.3f} ms host {tot_h:.3f} ms; {work[0] / 1e12:.3f} TFLOP of conv, "
-                  f"bound {b3[0]:.3f} ms ({b3[1]}), kernel at {100 * b3[0] / tot_k:.1f}% of it")
+                  f"(device alone {tot_d:.3f} ms) plain {tot_p:8.3f} ms conv2d {tot_l:8.3f} ms host {tot_h:.3f} ms; "
+                  f"{work[0] / 1e12:.3f} TFLOP of conv, bound {b3[0]:.3f} ms ({b3[1]}), kernel at {100 * b3[0] / tot_k:.1f}% of it")
             if batch == FAST_N:
-                kernel_ms.setdefault("K3", (tot_k, tot_p, tot_l))
+                kernel_ms.setdefault("K3", (tot_k, tot_p, tot_l, tot_d))
                 bounds.setdefault("K3", b3)
     if kernel_ms["K3"][0] >= kernel_ms["K3"][1]:
         print(f"  note: K3 bf16 per forward {kernel_ms['K3'][0]:.3f} ms is not below its plain version "
@@ -489,7 +546,7 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[fn.__name__], "max_abs_err": worst[k],
          "ms": kernel_ms[k][0], "plain_ms": kernel_ms[k][1], "bound_ms": bounds[k][0],
-         "bound_by": bounds[k][1], "library_ms": kernel_ms[k][2]}
+         "bound_by": bounds[k][1], "library_ms": kernel_ms[k][2], "device_ms": kernel_ms[k][3]}
         for name, k, src, rep, fn in table
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -243,26 +243,6 @@ constexpr int kRowBytes = kSliceK * 2;     // one 128-byte swizzled smem row
 constexpr int kPitch = kTileN + 8;        // floats per row of the staged tile
 constexpr int kEpiThreads = 1024;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-filled when !valid (halo, ragged edge)
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // wgmma descriptor of a K-major tile of 128-byte rows, 128-byte swizzle:
 // 8-row groups 1024 bytes apart (SBO); the leading offset is unused
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {

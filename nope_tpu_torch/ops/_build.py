@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -33,8 +34,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C entry points and their argument types; every one returns a
 #: cudaError_t as int (0 = success)
 SIGNATURES = {
-    "nope_reference_similarity": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "nope_linear_attention": (_P, _P, _I, _I, _I, _F, _I, _P),
+    "nope_reference_similarity": (_P, _P, _P, _P, *[_I] * 7, _P),
+    "nope_la_chunks": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    "nope_la_merge": (_P, _P, _I, _I, _P),
+    "nope_la_output": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
     "nope_conv_nhwc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "nope_group_stats": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _P),
     "nope_gn_silu": (_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P),
@@ -153,6 +156,13 @@ def launch(name: str, device: torch.device, *args) -> None:
     """One call through :func:`launcher`."""
     with launcher(device) as call:
         call(name, *args)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of ``device`` (the kernels' tiling plans
+    aim to fill them)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_cuda(name: str, t: torch.Tensor, dtypes=(torch.float32, torch.bfloat16)) -> None:

@@ -23,7 +23,6 @@ as the JAX op's custom VJP does.
 
 from __future__ import annotations
 
-import functools
 from typing import Dict, NamedTuple, Optional
 
 import torch
@@ -185,11 +184,6 @@ def _check_aligned(x: torch.Tensor, emb: Optional[torch.Tensor], params: Params)
             raise ValueError(f"{name} must be 16-byte aligned, got address {t.data_ptr():#x}")
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _tensor_core_fits(c_in: int, c_out: int, groups: int) -> bool:
     """Widths the bf16 tensor-core conv tiles: 64-channel K-slices, and
     GroupNorm groups that never straddle a 192-wide N tile."""
@@ -228,7 +222,7 @@ def _block_tensor_cores(x, emb, params, groups, eps, out):
     epilogues, ``act`` kept in bf16."""
     b, h, w, c_in = x.shape
     c_out, m, hw, dev = out.shape[-1], b * h * w, h * w, x.device
-    sms = _sm_count(dev)
+    sms = _build.sm_count(dev)
     plan1 = conv_plan(m, hw, c_out, 9 * c_in // SLICE_K, sms)
     plan2 = conv_plan(m, hw, c_out, 9 * c_out // SLICE_K, sms)
     plan_r = conv_plan(m, hw, c_out, c_in // SLICE_K, sms) if "res_w" in params else None

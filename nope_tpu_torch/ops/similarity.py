@@ -6,8 +6,12 @@ The reference "l2" metric is an L4-flavoured channel reduction:
 
 :func:`reference_similarity` runs the K1 CUDA kernel
 (``csrc/similarity.cu``) for CUDA tensors and
-:func:`reference_similarity_plain` for CPU tensors.  Both load the
-input dtype, compute in float32 and return float32.  ``l2_true`` and
+:func:`reference_similarity_plain` for CPU tensors.  The kernel tiles
+(query, template) pairs and, where the tiles do not fill the card,
+splits the pixels over blocks (:func:`similarity_plan`);
+:func:`similarity_partials_plain` is the plain version of its per-split
+sums.  The kernel and the plain version load the input dtype, compute
+in float32 and return float32.  ``l2_true`` and
 ``cosine`` are plain PyTorch only.
 
 Layout is NHWC: query (B, h, w, C), bank (B or 1, N, h, w, C).  A bank
@@ -16,7 +20,7 @@ with leading dim 1 is scored against every query without a copy.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -39,6 +43,65 @@ def reference_similarity_plain(query: torch.Tensor, bank: torch.Tensor) -> torch
     return -torch.sum(chan, dim=(-2, -1))
 
 
+#: pixels the kernel stages a step; templates a block tiles; queries a
+#: block tiles when the bank is shared (one per block when it is batched)
+PIXEL_STEP, TILE_N, TILE_Q = 64, 32, 8
+
+
+class SimilarityPlan(NamedTuple):
+    pixels: int  # pixels of each split, a whole number of PIXEL_STEP
+    splits: int  # ceil(S / pixels) blocks share a pair's pixels
+
+
+def similarity_plan(b: int, n: int, s: int, batched: bool, sms: int) -> SimilarityPlan:
+    """Tiling of K1 for B = ``b`` queries, ``n`` templates and ``s``
+    pixels on a card with ``sms`` SMs: (TILE_Q or 1) × TILE_N pair tiles,
+    and where they are fewer than 16 blocks an SM (four waves of the four
+    blocks an SM holds), the pixels split over blocks in whole steps.
+    (On an H100, bf16, B=64 N=341: 16 splits took 0.032 ms, 3 splits
+    0.038 ms; at every serving shape more splits were faster;
+    ``scripts/k1_k2_plans.py``.)"""
+    tq = 1 if batched else TILE_Q
+    tiles = -(-b // tq) * -(-n // TILE_N)
+    steps = -(-s // PIXEL_STEP)
+    per_split = -(-steps // min(steps, -(-16 * sms // tiles)))
+    pixels = per_split * PIXEL_STEP
+    return SimilarityPlan(pixels, -(-s // pixels))
+
+
+def similarity_partials_plain(query: torch.Tensor, bank: torch.Tensor, pixels: int) -> torch.Tensor:
+    """What the K1 kernel sums per pixel split: (splits, B, N) float32, the
+    positive sum over each range of ``pixels`` pixels (row-major h·w)."""
+    _check_shapes(query, bank)
+    b, h, w, c = query.shape
+    q = query.float().reshape(b, 1, h * w, c)
+    t = bank.float().reshape(bank.shape[0], bank.shape[1], h * w, c)
+    parts = []
+    for s0 in range(0, h * w, pixels):
+        d2 = torch.square(q[:, :, s0:s0 + pixels] - t[:, :, s0:s0 + pixels])
+        parts.append(torch.sqrt(torch.sum(torch.square(d2), dim=-1)).sum(-1))
+    return torch.stack(parts)
+
+
+def _batched(query: torch.Tensor, bank: torch.Tensor) -> bool:
+    """A bank per query (leading dim B > 1): no template is shared."""
+    return bank.shape[0] == query.shape[0] > 1
+
+
+def _launch(query: torch.Tensor, bank: torch.Tensor, out: torch.Tensor, plan: SimilarityPlan) -> None:
+    """The kernel's launch for query (B, h, w, 4) and bank (B|1, N, h, w, 4)
+    into out (B, N) float32."""
+    b, h, w, _ = query.shape
+    n = bank.shape[1]
+    ws = None
+    if plan.splits > 1:
+        ws = torch.empty(plan.splits * b * n, dtype=torch.float32, device=query.device)
+    with _build.launcher(query.device) as call:
+        call("nope_reference_similarity", query.data_ptr(), bank.data_ptr(), out.data_ptr(),
+             None if ws is None else ws.data_ptr(), b, n, h * w, int(_batched(query, bank)), plan.pixels,
+             plan.splits, _build.DTYPE_CODES[query.dtype])
+
+
 def reference_similarity(query: torch.Tensor, bank: torch.Tensor) -> torch.Tensor:
     """K1: the reference "l2" score, (B, N) float32."""
     if query.device.type == "cpu" and bank.device.type == "cpu":
@@ -52,16 +115,14 @@ def reference_similarity(query: torch.Tensor, bank: torch.Tensor) -> torch.Tenso
     n = bank.shape[1]
     if c != 4:
         raise ValueError(f"the kernel reads one 4-channel pixel per load; got C={c}")
-    align = 4 * query.element_size()
-    if query.data_ptr() % align or bank.data_ptr() % align:
-        raise ValueError(f"query and bank must be {align}-byte aligned")
+    if query.data_ptr() % 16 or bank.data_ptr() % 16:
+        raise ValueError("query and bank must be 16-byte aligned")
+    if (h * w * query.element_size()) % 4:
+        raise ValueError(f"a bfloat16 query needs an even pixel count, got {h * w}")
     out = torch.empty(b, n, dtype=torch.float32, device=query.device)
     if out.numel():
-        _build.launch(
-            "nope_reference_similarity", query.device, query.data_ptr(), bank.data_ptr(),
-            out.data_ptr(), b, n, h * w, int(bank.shape[0] == b and b > 1),
-            _build.DTYPE_CODES[query.dtype],
-        )
+        plan = similarity_plan(b, n, h * w, _batched(query, bank), _build.sm_count(query.device))
+        _launch(query, bank, out, plan)
         reference_similarity.launches += 1
     return out
 

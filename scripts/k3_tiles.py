@@ -26,6 +26,7 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
 from nope_tpu_torch.models.factory import build_task  # noqa: E402
+from nope_tpu_torch.ops import _build  # noqa: E402
 from nope_tpu_torch.ops import fused_resnet as fr  # noqa: E402
 from nope_tpu_torch.ops import linear_attention as la  # noqa: E402
 
@@ -44,17 +45,7 @@ def forced_plan(bm: int):
 
 
 def device_ms(fn) -> float:
-    """Mean device time of ``fn`` over REPS back-to-back calls."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)  # ~50 ms: longer than queueing REPS blocks
-    start.record()
-    for _ in range(REPS):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / REPS
+    return chip_smoke.device_ms(torch, fn, REPS)
 
 
 def main() -> int:
@@ -68,7 +59,7 @@ def main() -> int:
     k3_calls, _ = chip_smoke.record_shapes(torch, fr, la, copy.deepcopy(task.unet).cpu())
     del task
     shapes = sorted(set(k3_calls), key=k3_calls.index)
-    sms = fr._sm_count(dev)
+    sms = _build.sm_count(dev)
     gen = torch.Generator().manual_seed(1)
     chosen_plan = fr.conv_plan
     for batch in chip_smoke.K3_BATCHES:

@@ -296,7 +296,7 @@ def test_block_launches_match_the_plain_block(monkeypatch, route, batch, hw_side
         yield emulated
 
     monkeypatch.setattr(_build, "launcher", launcher)
-    monkeypatch.setattr(fr, "_sm_count", lambda device: sms)
+    monkeypatch.setattr(_build, "sm_count", lambda device: sms)
     gen = torch.Generator().manual_seed(batch * co + cin)
     dtype = torch.bfloat16 if route == "tensor_cores" else torch.float32
     x = torch.randn(batch, hw_side, hw_side, cin, generator=gen).to(dtype)

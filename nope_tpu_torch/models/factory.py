@@ -1,14 +1,15 @@
 """Model factory (``nope_tpu/models/factory.py``): config → task.
 
 ``build_task`` reads any object with ``ModelConfig``'s fields
-(``u_net``, ``encoder``, ``testing_config``), so it
+(``u_net``, ``encoder``, ``optim_config``, ``testing_config``), so it
 needs no import of ``nope_tpu.configs``.  Only ``u_net.variant ==
 "vae_base"`` with ``encoder.kind == "vae"`` is ported.
 
 Weights are random, drawn from an explicit ``torch.Generator`` on the
 CPU (so one seed gives the same weights on every device), then moved to
 the explicit ``device``: LeCun-normal conv and linear weights (Flax's
-default), zero biases, unit norm scales.  Load a checkpoint over them
+default), zero biases, unit norm scales.  The draws run in the order
+VAE encoder side, U-Net, VAE decoder side.  Load a checkpoint over them
 with ``load_state_dict``.
 """
 
@@ -39,22 +40,25 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     return module
 
 
-def _build(ctor, generator: torch.Generator, device: torch.device) -> nn.Module:
+def _empty(ctor) -> nn.Module:
     with torch.device("meta"):  # no throwaway default init
         module = ctor()
-    module = module.to_empty(device="cpu")
-    return init_weights(module, generator).to(device).eval()
+    return module.to_empty(device="cpu")
 
 
-def build_encoder(cfg, generator: torch.Generator, device: torch.device) -> StableDiffusionVAE:
+def _build(ctor, generator: torch.Generator, device: torch.device) -> nn.Module:
+    return init_weights(_empty(ctor), generator).to(device).eval()
+
+
+def _vae(cfg) -> StableDiffusionVAE:
     if cfg.kind != "vae":
         raise NotImplementedError(f"encoder kind {cfg.kind!r} (ROADMAP queue 1 item 13)")
-    return _build(lambda: StableDiffusionVAE(
+    return _empty(lambda: StableDiffusionVAE(
         block_out_channels=tuple(cfg.block_out_channels),
         layers_per_block=cfg.layers_per_block,
         latent_channels=cfg.latent_dim,
         groups=cfg.norm_groups,
-    ), generator, device)
+    ))
 
 
 def build_unet(cfg, latent_dim: int, generator: torch.Generator, device: torch.device) -> PoseUNet:
@@ -72,12 +76,22 @@ def build_unet(cfg, latent_dim: int, generator: torch.Generator, device: torch.d
 
 
 def build_task(cfg, device: torch.device, generator: torch.Generator) -> PoseConditionalTask:
-    """The task with seeded random weights on ``device`` (float32)."""
-    encoder = build_encoder(cfg.encoder, generator, device)
+    """The task with seeded random weights on ``device`` (float32).  The
+    U-Net draws between the VAE's encoder and decoder sides, so a seed
+    gives the encoder and U-Net the weights they had before the decoder
+    was ported."""
+    vae = _vae(cfg.encoder)
+    init_weights(vae.encoder, generator)
+    init_weights(vae.quant_conv, generator)
     unet = build_unet(cfg.u_net, cfg.encoder.latent_dim, generator, device)
+    init_weights(vae.decoder, generator)
+    init_weights(vae.post_quant_conv, generator)
     task_cfg = TaskConfig(
+        loss_type=cfg.optim_config.loss_type,
+        use_inv_deltaR=cfg.optim_config.use_inv_deltaR,
         similarity_metric=cfg.testing_config.similarity_metric,
         retrieval_k=cfg.testing_config.retrieval_k,
+        using_KL=cfg.encoder.using_KL,
         half_precision_eval=cfg.testing_config.half_precision_eval,
     )
-    return PoseConditionalTask(unet, encoder, task_cfg)
+    return PoseConditionalTask(unet, vae.to(device).eval(), task_cfg)

@@ -11,12 +11,13 @@ conv3x3; 4 down stages [ResnetBlock, ResnetBlock, linear attention,
 HardDownsample] (the last uses a conv3x3); a bottleneck
 ResnetBlock / attention / ResnetBlock run twice when
 ``double_bottleneck``; 4 mirrored up stages with skip concatenation; a
-final ResnetBlock on concat(x, r) and a 1x1 conv to the latent width.
+final ResnetBlock on concat(x, r) and a 1x1 conv to the latent width
+(``out_dim`` channels when given: 2C for the Gaussian-KL loss).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -40,6 +41,7 @@ class PoseUNet(nn.Module):
         dim_mults: Sequence[int] = (1, 2, 4, 8),
         resnet_block_groups: int = 8,
         double_bottleneck: bool = True,
+        out_dim: Optional[int] = None,
     ):
         super().__init__()
         self.rot_representation_dim = rot_representation_dim
@@ -85,7 +87,7 @@ class PoseUNet(nn.Module):
         self.final_res_block = block(u_net_dim * 2, u_net_dim)
         self.final_conv = nn.Sequential(
             ResnetBlock(u_net_dim, u_net_dim, time_emb_dim=None, groups=groups),
-            nn.Conv2d(u_net_dim, channels, 1),
+            nn.Conv2d(u_net_dim, channels if out_dim is None else out_dim, 1),
         )
 
     def forward(self, x: torch.Tensor, pose: torch.Tensor) -> torch.Tensor:

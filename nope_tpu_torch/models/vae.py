@@ -1,15 +1,16 @@
-"""Stable-Diffusion VAE encoder (``nope_tpu/models/vae.py``), NCHW inside.
+"""Stable-Diffusion VAE (``nope_tpu/models/vae.py``), NCHW inside.
 
 diffusers ``AutoencoderKL`` state-dict names (``encoder.*``,
-``quant_conv``), so the JAX package's ``port_sd_vae`` maps them.  Only
-the encoder side is ported; the decoder is later work.  These are plain
-PyTorch ops, as they were XLA ops in JAX.  :meth:`encode_image` keeps
-the JAX package's NHWC boundary.
+``quant_conv``, ``decoder.*``, ``post_quant_conv``), so the JAX
+package's ``port_sd_vae`` maps them.  These are plain PyTorch ops, as
+they were XLA ops in JAX.  :meth:`StableDiffusionVAE.encode_image` and
+:meth:`StableDiffusionVAE.decode_latent` keep the JAX package's NHWC
+boundary and the SD latent scale 0.18215.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -70,6 +71,17 @@ class VAEDownsample(nn.Module):
         return self.conv(F.pad(x, (0, 1, 0, 1)))
 
 
+class VAEUpsample(nn.Module):
+    """Nearest-neighbour 2x, then conv3x3."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.conv = nn.Conv2d(dim, dim, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+
+
 class _DownBlock(nn.Module):
     def __init__(self, dim: int, dim_out: int, layers: int, groups: int, downsample: bool):
         super().__init__()
@@ -83,6 +95,22 @@ class _DownBlock(nn.Module):
             x = resnet(x)
         if self.downsamplers is not None:
             x = self.downsamplers[0](x)
+        return x
+
+
+class _UpBlock(nn.Module):
+    def __init__(self, dim: int, dim_out: int, layers: int, groups: int, upsample: bool):
+        super().__init__()
+        self.resnets = nn.ModuleList(
+            [VAEResnetBlock(dim if j == 0 else dim_out, dim_out, groups) for j in range(layers)]
+        )
+        self.upsamplers = nn.ModuleList([VAEUpsample(dim_out)]) if upsample else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for resnet in self.resnets:
+            x = resnet(x)
+        if self.upsamplers is not None:
+            x = self.upsamplers[0](x)
         return x
 
 
@@ -122,17 +150,53 @@ class VAEEncoder(nn.Module):
         return self.conv_out(F.silu(self.conv_norm_out(x)))
 
 
+class VAEDecoder(nn.Module):
+    """conv_in → mid block → up blocks of ``layers_per_block + 1``
+    resnets (channels reversed, 2x upsample but the last) → GN → SiLU →
+    conv_out."""
+
+    def __init__(
+        self, block_out_channels: Sequence[int] = (128, 256, 512, 512),
+        layers_per_block: int = 2, out_channels: int = 3, groups: int = 32,
+        latent_channels: int = 4,
+    ):
+        super().__init__()
+        chans = tuple(reversed(tuple(block_out_channels)))
+        self.conv_in = nn.Conv2d(latent_channels, chans[0], 3, padding=1)
+        self.mid_block = _MidBlock(chans[0], groups)
+        self.up_blocks = nn.ModuleList(
+            [
+                _UpBlock(chans[max(i - 1, 0)], ch, layers_per_block + 1, groups, i < len(chans) - 1)
+                for i, ch in enumerate(chans)
+            ]
+        )
+        self.conv_norm_out = nn.GroupNorm(groups, chans[-1], eps=1e-6)
+        self.conv_out = nn.Conv2d(chans[-1], out_channels, 3, padding=1)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        x = self.mid_block(self.conv_in(z))
+        for block in self.up_blocks:
+            x = block(x)
+        return self.conv_out(F.silu(self.conv_norm_out(x)))
+
+
 class StableDiffusionVAE(nn.Module):
-    """The encoder half of AutoencoderKL with ``quant_conv`` and the SD
-    latent scale."""
+    """AutoencoderKL with ``quant_conv``/``post_quant_conv`` and the SD
+    latent scale.  The decoder is registered after the encoder side, so
+    seeded initialisation in module order draws the encoder's weights
+    first."""
 
     def __init__(
         self, block_out_channels: Sequence[int] = (128, 256, 512, 512),
         layers_per_block: int = 2, latent_channels: int = 4, groups: int = 32,
+        sample_channels: int = 3,
     ):
         super().__init__()
         self.encoder = VAEEncoder(block_out_channels, layers_per_block, latent_channels, groups)
         self.quant_conv = nn.Conv2d(2 * latent_channels, 2 * latent_channels, 1)
+        self.decoder = VAEDecoder(block_out_channels, layers_per_block, sample_channels, groups,
+                                  latent_channels)
+        self.post_quant_conv = nn.Conv2d(latent_channels, latent_channels, 1)
 
     def encode(self, image: torch.Tensor) -> DiagonalGaussian:
         """(B, H, W, 3) NHWC images → distribution over (B, h, w, C) latents."""
@@ -140,8 +204,23 @@ class StableDiffusionVAE(nn.Module):
         moments = self.quant_conv(self.encoder(x))
         return DiagonalGaussian.from_parameters(moments.permute(0, 2, 3, 1))
 
-    def encode_image(self, image: torch.Tensor, mode: str = "mode") -> torch.Tensor:
-        """Scaled latent mean, (B, h, w, C)."""
-        if mode != "mode":
-            raise NotImplementedError(f"encode_image mode {mode!r} (ROADMAP queue 1 item 4)")
-        return (self.encode(image).mode() * SD_LATENT_SCALE).contiguous()
+    def decode(self, latent: torch.Tensor) -> torch.Tensor:
+        """(B, h, w, C) NHWC latents (unscaled) → (B, H, W, 3) images."""
+        z = latent.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        return self.decoder(self.post_quant_conv(z)).permute(0, 2, 3, 1).contiguous()
+
+    def encode_image(self, image: torch.Tensor, mode: Optional[str] = "mode"):
+        """``mode="mode"``: the scaled latent mean, (B, h, w, C);
+        ``mode=None``: the distribution with its *mean* scaled and its
+        logvar not (the reference's KL training quirk,
+        ``AutoencoderKL.py:34-38``)."""
+        dist = self.encode(image)
+        if mode == "mode":
+            return (dist.mode() * SD_LATENT_SCALE).contiguous()
+        if mode is None:
+            return DiagonalGaussian(dist.mean * SD_LATENT_SCALE, dist.logvar)
+        raise NotImplementedError(mode)
+
+    def decode_latent(self, latent: torch.Tensor) -> torch.Tensor:
+        """Scaled (B, h, w, C) latents → (B, H, W, 3) images."""
+        return self.decode(latent / SD_LATENT_SCALE)

@@ -144,6 +144,9 @@ def linear_attention_inner(qkv: torch.Tensor, heads: int, dim_head: int) -> torc
     if qkv.device.type == "cpu":
         return linear_attention_inner_plain(qkv, heads, dim_head)
     _build.check_cuda("qkv", qkv)
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        raise NotImplementedError("K2 has no backward yet (ROADMAP queue 1 item 9): call it under "
+                                  "torch.no_grad on a CUDA tensor")
     if (heads, dim_head) != (HEADS, DIM_HEAD):
         raise ValueError(f"the kernels are built for {HEADS} heads of {DIM_HEAD}, got {heads} of {dim_head}")
     if qkv.data_ptr() % 16:

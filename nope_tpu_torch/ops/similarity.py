@@ -166,10 +166,17 @@ def similarity_metric(name: str):
     return _METRICS[name]
 
 
+def top_k(sim: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices (B, k) of the k largest scores, best first, equal scores
+    in index order, as ``jax.lax.top_k`` orders them (``torch.topk``
+    leaves the order of ties unspecified): the first k of a stable
+    descending sort."""
+    return torch.sort(sim, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
 def retrieve(
     query: torch.Tensor, bank: torch.Tensor, k: int = 5, metric: str = "l2"
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """similarity (B, N) + top-k indices (B, k), best first."""
     sim = _METRICS[metric](query, bank)
-    _, idx = torch.topk(sim, k, dim=-1)
-    return sim, idx
+    return sim, top_k(sim, k)

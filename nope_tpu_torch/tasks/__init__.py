@@ -1,1 +1,1 @@
-"""The pose-conditional task (inference path)."""
+"""The pose-conditional task and its symmetry-aware metrics."""

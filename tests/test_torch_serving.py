@@ -82,14 +82,14 @@ def test_bf16_estimator_top1_on_planted_match(jax_side):
 def test_unported_paths_raise(jax_side):
     _, params = jax_side
     task = _port_task(params, half=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PoseEstimator(task, fast_evaluation=True, bank_dtype="int8")
+    with pytest.raises(ValueError, match="bank_dtype"):
+        PoseEstimator(task, fast_evaluation=True, bank_dtype="int4")
     est = PoseEstimator(task, fast_evaluation=True)
     est.register_object("obj", _images(10, 1)[0])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         est.estimate("obj", _images(11, 1), refine_steps=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        est.estimate_many(["obj"], _images(11, 1))
+        est.estimate_many(["obj"], _images(11, 1), refine_steps=2)
     est.deregister_object("obj")
     with pytest.raises(KeyError, match="not registered"):
         est.estimate("obj", _images(11, 1))
@@ -116,17 +116,20 @@ def test_port_imports_no_jax_in_a_fresh_process():
         import numpy as np, torch
         import nope_tpu_torch
         from nope_tpu_torch import weights
+        from nope_tpu_torch.evaluation import geodesic
         from nope_tpu_torch.geometry import rotations, so3_grid, transforms
         from nope_tpu_torch.models import blocks, distributions, factory, unet, vae
         from nope_tpu_torch.ops import _build, fused_resnet, linear_attention, similarity
-        from nope_tpu_torch.serving import PoseEstimator
-        from nope_tpu_torch.tasks import pose_conditional
+        from nope_tpu_torch.serving import PoseEstimator, engine
+        from nope_tpu_torch.tasks import metrics, pose_conditional
+        from nope_tpu_torch.utils import visualization
         ns = types.SimpleNamespace
         cfg = ns(
             u_net=ns(variant="vae_base", u_net_dim=16, dim_mults=(1, 2), rot_representation_dim=6,
                      pose_mlp_name="single_layer", resnet_block_groups=8, double_bottleneck=True),
             encoder=ns(kind="vae", latent_dim=4, block_out_channels=(8, 8, 8, 8),
-                       layers_per_block=1, norm_groups=4),
+                       layers_per_block=1, norm_groups=4, using_KL=False),
+            optim_config=ns(loss_type="l1", use_inv_deltaR=True),
             testing_config=ns(similarity_metric="l2", retrieval_k=5, half_precision_eval=False),
         )
         torch.set_num_threads(1)
@@ -136,6 +139,17 @@ def test_port_imports_no_jax_in_a_fresh_process():
         est.register_object("o", rng.uniform(-1, 1, (32, 32, 3)).astype(np.float32))
         r = est.estimate("o", rng.integers(0, 256, (2, 32, 32, 3), dtype=np.uint8))
         assert r.nearest_idx.shape == (2, 5) and np.isfinite(r.similarity).all()
+        grid = est.template_poses
+        rel = transforms.relative_rotation(torch.from_numpy(grid)[None].expand(2, -1, -1, -1),
+                                           torch.from_numpy(grid[:1])[None].expand(2, len(grid), -1, -1))
+        batch = dict(query=rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32),
+                     reference=rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32),
+                     gt_relativeR=rotations.matrix_to_rotation_6d(rel[:, 3]).numpy(),
+                     all_relativeR=rotations.matrix_to_rotation_6d(rel).numpy(),
+                     query_pose=grid[[3, 7]], template_poses=np.broadcast_to(grid, (2,) + grid.shape),
+                     symmetry=np.array([0, 2]))
+        scores = geodesic.evaluate_geodesic(task, [batch], chunk_size=13)
+        assert scores["num_images"] == 2 and np.isfinite(scores["top1, median"])
         bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "nope_tpu"))
         assert not bad, bad
         print("ok")

@@ -174,3 +174,27 @@ def test_launch_matches_the_plain_version(monkeypatch, dtype, b, n, lead, sms):
     (call,) = emulated.calls
     assert call[:3] == (qt.data_ptr(), tt.data_ptr(), out.data_ptr())
     assert call[4:] == (b, n, 256, int(lead == b and b > 1), plan.pixels, plan.splits)
+
+
+@pytest.mark.parametrize("n", [8, 26, 341])
+def test_top_k_orders_ties_as_jax(n):
+    """Planted equal scores: ``retrieve`` lists them lower index first, as
+    ``jax.lax.top_k`` does (``torch.topk`` leaves the order of ties open)."""
+    rng = np.random.default_rng(n)
+    scores = rng.normal(size=(5, n)).astype(np.float32)
+    scores[0, [n - 1, 2, n // 2]] = 10.0  # a three-way tie for the best
+    scores[1, :] = 0.5  # every score equal
+    scores[2, [n - 1, 0]] = 3.0
+    scores[2, [n - 2, 1]] = 2.0  # two ties inside the top-5
+    scores[3, rng.choice(n, 7, replace=False)] = 7.0  # more tied than k
+    scores[4, [n - 1, n - 3, n - 5, 4, 1]] = -20.0  # ties at the bottom
+    want = np.asarray(jax.lax.top_k(jnp.asarray(scores), 5)[1])
+    got = sim.top_k(torch.from_numpy(scores), 5).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[1], np.arange(5))
+    # through retrieve, whose scores come from K1's plain version
+    q = torch.zeros(2, 2, 2, 4)
+    bank = torch.ones(1, n, 2, 2, 4)
+    bank[0, [n - 1, 3]] = 0.0  # two exact matches
+    _, idx = sim.retrieve(q, bank, k=5)
+    np.testing.assert_array_equal(idx.numpy(), [[3, n - 1, 0, 1, 2]] * 2)

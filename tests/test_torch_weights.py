@@ -43,5 +43,9 @@ def test_vae_round_trip_is_bit_exact():
 
 
 def test_vae_encoder_side_loads_strict():
+    """The encoder side and, since the decoder was ported, the whole VAE."""
     model = torch_vae(jax_vae_params())  # load_state_dict(strict=True)
-    assert all(k.startswith(("encoder.", "quant_conv.")) for k in model.state_dict())
+    keys = set(model.state_dict())
+    assert all(k.startswith(("encoder.", "quant_conv.", "decoder.", "post_quant_conv.")) for k in keys)
+    assert any(k.startswith("encoder.") for k in keys) and "quant_conv.weight" in keys
+    assert "decoder.up_blocks.0.resnets.1.conv2.weight" in keys and "post_quant_conv.weight" in keys

@@ -40,10 +40,28 @@ def torch_unet(params) -> PoseUNet:
 
 
 def torch_vae(params) -> StableDiffusionVAE:
+    """The whole VAE, encoder and decoder sides, loaded strictly."""
     model = StableDiffusionVAE(**VAE).eval()
-    encoder_side = {k: params[k] for k in ("encoder", "quant_conv")}
-    model.load_state_dict(vae_state_dict_from_jax(encoder_side), strict=True)
+    model.load_state_dict(vae_state_dict_from_jax(params), strict=True)
     return model
+
+
+def seeded_port_modules(seed: int, out_dim=None):
+    """Port modules with seeded weights and the same weights as JAX params,
+    through ``nope_tpu.training.port`` (no JAX init to compile):
+    (unet, vae, {"unet": ..., "vae": ...})."""
+    from nope_tpu.training import port
+    from nope_tpu_torch.models.factory import init_weights
+
+    gen = torch.Generator().manual_seed(seed)
+    unet = init_weights(PoseUNet(**UNET, out_dim=out_dim), gen).eval()
+    vae = init_weights(StableDiffusionVAE(**VAE), gen).eval()
+    params = {
+        "unet": port.port_pose_unet(to_numpy_tree(unet.state_dict()), dim_mults=UNET["dim_mults"]),
+        "vae": port.port_sd_vae(to_numpy_tree(vae.state_dict()), num_blocks=len(VAE["block_out_channels"]),
+                                layers_per_block=VAE["layers_per_block"]),
+    }
+    return unet, vae, params
 
 
 def to_numpy_tree(sd):

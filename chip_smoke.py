@@ -20,6 +20,9 @@ it fails at once.
    requests, B=64, a bank per query (also the evaluation program's
    (64, 31), (128, 26) and (8, 341)) and a ragged B.  Two launches on the
    same inputs must be bitwise equal (K3 bf16, K1 and K2 both dtypes).
+   Past the grid's 65,535 y extent: K3 at B=65,600 (its smallest block,
+   4x4; samples on both sides of 65,535 held) and K1 at B=65,600 with a
+   bank per query of N=1.
 3. The main path, at the flagship's full width (192-wide PoseUNet with
    dim_mults (1,2,4,8), the default SD-VAE, 256-px images, 32x32x4
    latents) with seeded random weights: PoseEstimators on the 26-template
@@ -63,17 +66,37 @@ it fails at once.
    against ``estimate``, an int8 gallery against the bf16 one, and a
    saved and reloaded registry answering bitwise as before.
 
+7. Refinement (``tasks.refinement``, ``refine_steps`` of ``estimate``,
+   ``estimate_many`` and ``evaluate_geodesic``): (a) the gradient of the
+   summed "l2" objective with respect to the pose through the kernels
+   (forward) and their plain recompute (backward) against the U-Net on
+   plain ops, fp32 and bf16, B = 8 and 40, with no weight gradient taken;
+   K2's and K3's autograd Functions alone against autograd of their plain
+   versions; (b) an fp32 refinement on the card against the CPU path;
+   (c) bf16 ``estimate(refine_steps=24)`` with refine_topk 1 and 5,
+   ``estimate_many`` over 4 objects and ``evaluate_geodesic`` on a
+   fast-protocol batch of 16: orthonormal refined rotations, an objective
+   no larger than the top-1 grid pose's, the grid outputs of the
+   unrefined call; (d) ``cli.infer.run`` on uint8 arrays.
+
 Phases run in the order 1 to 6, so phases 4 and 5 time the serving
 path and the kernels in a process that holds only phase 3's modules
 (more live modules slow the host's side of each call); then 4b times the evaluation program (images/s of both
-protocols, ``estimate_many``) and 5b profiles one full-protocol eval
-step.  The last two lines are the kernel table (``ms`` with the host
+protocols, ``estimate_many``), 4c refinement (one refine step split into
+kernels forward, backward and its plain recompute; refined ``estimate``
+at B=8 against the unrefined call; a refined eval batch), 5b profiles
+one full-protocol eval step and one refined ``estimate``, and phase 7
+runs.  The last two lines are the kernel table (``ms`` with the host
 in the loop, ``device_ms`` on the device alone, ``launches`` of phase 3,
-``eval_launches`` of phase 6 (a)) and ``{"ok": true, ...}``.
+``eval_launches`` of phase 6 (a), ``refine_launches`` of one refined
+``estimate`` in phase 7 (c), and for K2 and K3 that call's
+``refine_recomputes``, their Functions' ``backward_max_rel`` and the
+pose gradient's ``unet_pose_grad_rel``) and ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -81,7 +104,6 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from types import SimpleNamespace as NS
 
 import numpy as np
 
@@ -118,18 +140,21 @@ BF16_SIM_RTOL = 1e-2
 HBM_BPS, BF16_TC_OPS, F32_OPS = 3.35e12, 989e12, 67e12
 IMAGE = 256
 LATENT = IMAGE // 8
+# past the 65,535 a grid's y extent holds: K3's gn_silu and K1 with a bank
+# per query put samples (queries) on that axis and stride beyond it
+BIG_B = 65_600
+# refinement (phase 7): the serving default of 24 Adam steps; multi-start
+# from the top 5; gradients held against the plain U-Net as max|Δ| / max|ref|
+REFINE_STEPS, REFINE_TOPK = 24, 5
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
 def flagship_config():
-    """The flagship configuration, with ``ModelConfig``'s fields."""
-    return NS(
-        u_net=NS(variant="vae_base", u_net_dim=192, dim_mults=(1, 2, 4, 8), rot_representation_dim=6,
-                 pose_mlp_name="single_layer", resnet_block_groups=8, double_bottleneck=True),
-        encoder=NS(kind="vae", latent_dim=4, block_out_channels=(128, 256, 512, 512),
-                   layers_per_block=2, norm_groups=32, using_KL=False),
-        optim_config=NS(loss_type="l1", use_inv_deltaR=True),
-        testing_config=NS(similarity_metric="l2", retrieval_k=5, half_precision_eval=True),
-    )
+    """The flagship configuration: the defaults the CLIs run
+    (``nope_tpu_torch.configs``'s ``ModelConfig``)."""
+    from nope_tpu_torch.configs import load_config
+
+    return load_config(None).model
 
 
 def nvidia_smi_line() -> str:
@@ -547,6 +572,303 @@ def evaluation_phase(torch, dev, task32, variant, grids, counters, unet_cpu, vae
     return {"launches": launches, "half": half, "batches": batches, "chunks": chunks, "gallery": est}
 
 
+@contextlib.contextmanager
+def plain_ops():
+    """Every op of the U-Net on its plain version: no kernel, plain autograd."""
+    from nope_tpu_torch.models import blocks
+    from nope_tpu_torch.ops import fused_resnet as fr
+    from nope_tpu_torch.ops import linear_attention as la
+
+    saved = blocks.fused_resnet_block, blocks.linear_attention
+    blocks.fused_resnet_block, blocks.linear_attention = fr.resnet_block_plain, la.linear_attention_inner_plain
+    try:
+        yield
+    finally:
+        blocks.fused_resnet_block, blocks.linear_attention = saved
+
+
+@contextlib.contextmanager
+def weight_grad_spy(torch):
+    """For each K3 recompute inside a backward: whether any of the block's
+    parameters asked for a gradient."""
+    from nope_tpu_torch.ops import fused_resnet as fr
+
+    asked, plain = [], fr.resnet_block_plain
+
+    def spy(x, emb, params, groups=8, eps=1e-5):
+        if torch.is_grad_enabled():
+            asked.append(any(p.requires_grad for p in params.values()))
+        return plain(x, emb, params, groups, eps)
+
+    fr.resnet_block_plain = spy
+    try:
+        yield asked
+    finally:
+        fr.resnet_block_plain = plain
+
+
+def pose_objective(task, r_lat, q_lat, r6):
+    """(B,) "l2" refinement objective of the U-Net's prediction at pose r6."""
+    from nope_tpu_torch.tasks import refinement as ref
+
+    return ref._per_sample_objective("l2")(task.predict_latent(r_lat, r6.to(r_lat.dtype)).float(), q_lat.float())
+
+
+def pose_grad(torch, task, r_lat, q_lat, r6):
+    """d(Σ objective)/d(r6) with the U-Net's parameters out of the graph."""
+    from nope_tpu_torch.tasks import refinement as ref
+
+    leaf = r6.detach().clone().requires_grad_(True)
+    with ref.frozen(task.unet), torch.enable_grad():
+        (g,) = torch.autograd.grad(pose_objective(task, r_lat, q_lat, leaf).sum(), leaf)
+    return g
+
+
+def random_rotations(torch, n, seed, dev):
+    from nope_tpu_torch.geometry.rotations import quaternion_to_matrix
+
+    q = np.random.default_rng(seed).normal(size=(n, 4)).astype(np.float32)
+    return quaternion_to_matrix(torch.from_numpy(q / np.linalg.norm(q, axis=1, keepdims=True))).to(dev)
+
+
+def top1_inits(torch, est, object_ids, result):
+    """What the estimator refines from: the top-1 grid ΔR of each query,
+    through the refiner's own 6d round trip (a sample that falls back
+    returns exactly this)."""
+    from nope_tpu_torch.geometry.rotations import matrix_to_rotation_6d, rotation_6d_to_matrix
+
+    reps = torch.stack([est._bank_reps[o] for o in object_ids])
+    idx = torch.from_numpy(result.nearest_idx[:, 0]).to(reps.device)
+    return matrix_to_rotation_6d(rotation_6d_to_matrix(reps[torch.arange(len(object_ids)), idx]))
+
+
+def check_refined(torch, label, est, object_ids, queries, plain, result, tol):
+    """A refined estimate: the grid outputs of the unrefined call, refined
+    rotations orthonormal, and an objective no larger than the top-1 grid
+    pose's (within ``tol`` of it: the multi-start batch tiles the kernels
+    otherwise).  Returns the worst objective ratio."""
+    same = (np.array_equal(result.nearest_idx, plain.nearest_idx)
+            and np.array_equal(result.similarity, plain.similarity))
+    eye = np.eye(3, dtype=np.float32)
+    ortho = max(np.abs(np.swapaxes(r, -1, -2) @ r - eye).max()
+                for r in (result.refined_relative_rotation, result.refined_rotation))
+    dets = np.linalg.det(result.refined_rotation.astype(np.float64))
+    with torch.no_grad():
+        q_lat = est.task.encode(est._queries(queries))
+        r_lat = torch.cat([est._ref_latents[o] for o in object_ids])
+        r6 = top1_inits(torch, est, object_ids, result)
+        d0 = pose_objective(est.task, r_lat, q_lat, r6).cpu().numpy()
+    ratio = float((result.refined_distance / d0).max())
+    ok = same and ortho <= 1e-4 and (np.abs(dets - 1) <= 1e-4).all() and ratio <= 1 + tol
+    print(f"  {label}: grid outputs {'equal to the unrefined call' if same else 'DIFFER'}; refined rotations "
+          f"|RᵀR - I| {ortho:.2e} (tol 1e-4); objective / top-1 grid objective max {ratio:.6f} (tol 1+{tol:.0e}); "
+          f"objective {result.refined_distance.mean():.6f} vs {d0.mean():.6f} mean {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"refinement {label} failed its checks")
+    return ratio
+
+
+def refinement_phase(torch, dev, task32, half, estimators, cpu_est, gallery, grids, requests, counters, k2_calls,
+                     k3_calls, gen):
+    """Phase 7: refinement on the card, full width, seeded weights.
+    Returns the K2 and K3 backward checks and the refine path's launches."""
+    from nope_tpu_torch.cli import infer
+    from nope_tpu_torch.configs import load_config
+    from nope_tpu_torch.evaluation.geodesic import evaluate_geodesic
+    from nope_tpu_torch.geometry.rotations import matrix_to_rotation_6d
+    from nope_tpu_torch.ops import fused_resnet as fr
+    from nope_tpu_torch.ops import linear_attention as la
+
+    print("phase 7: refinement on the card (full width, seeded random weights)")
+    out = {"backward": {"K2": 0.0, "K3": 0.0}, "unet_grad": {}}
+    k3_shapes = sorted(set(k3_calls), key=k3_calls.index)
+
+    # (a) gradients through the kernels against the plain U-Net
+    rng = np.random.default_rng(70)
+    for dn, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        task = estimators[(dn, FAST_N)].task
+        imgs = torch.from_numpy(rng.uniform(-1, 1, (80, IMAGE, IMAGE, 3)).astype(np.float32)).to(dev, dtype)
+        with torch.no_grad():
+            q_lat, r_lat = task.encode(imgs[:40]), task.encode(imgs[40:])
+        del imgs
+        r6 = matrix_to_rotation_6d(random_rotations(torch, 40, 71, dev))
+        worst = 0.0
+        for b in (QUERIES, QUERIES * REFINE_TOPK):
+            with weight_grad_spy(torch) as asked:
+                g_k = pose_grad(torch, task, r_lat[:b], q_lat[:b], r6[:b])
+            with plain_ops():
+                g_p = pose_grad(torch, task, r_lat[:b], q_lat[:b], r6[:b])
+            err, rel = rel_err(g_k, g_p)
+            no_w = len(asked) == len(k3_calls) and not any(asked) and all(p.grad is None for p in task.unet.parameters())
+            ok = rel <= GRAD_TOL[dn] and bool(torch.isfinite(g_k).all()) and no_w
+            worst = max(worst, rel)
+            print(f"  d(sum l2)/d(r6) B={b:<2} {dn:<8} kernels forward + plain recompute vs plain U-Net: max_abs "
+                  f"{err:.3e} rel {rel:.3e} tol {GRAD_TOL[dn]:.0e}; {len(asked)} K3 recomputes, weight gradients "
+                  f"asked {sum(asked)}, .grad written {sum(p.grad is not None for p in task.unet.parameters())} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"the pose gradient through the kernels disagrees ({dn}, B={b})")
+        out["unet_grad"][dn] = worst
+        # each op's Function alone against autograd of its plain version
+        for dtype_k in (dtype,):
+            for n, heads, dh in k2_calls:
+                qkv = (2 * torch.randn(QUERIES, n, 3 * heads * dh, generator=gen)).to(dev, dtype_k).requires_grad_(True)
+                g_out = torch.randn(QUERIES, n, heads * dh, generator=gen).to(dev, dtype_k)
+                (g_k,) = torch.autograd.grad(la.linear_attention(qkv, heads, dh), qkv, g_out)
+                (g_p,) = torch.autograd.grad(la.linear_attention_inner_plain(qkv, heads, dh), qkv, g_out)
+                _, rel = rel_err(g_k, g_p)
+                out["backward"]["K2"] = max(out["backward"]["K2"], rel)
+                if rel > GRAD_TOL[dn]:
+                    raise RuntimeError(f"K2's backward disagrees at n={n} {dn}: rel {rel:.3e}")
+            for shape in k3_shapes:
+                x, emb, params = k3_inputs(torch, shape, QUERIES, dev, dtype_k, gen)
+                x.requires_grad_(True)
+                leaves = [x] + ([emb.requires_grad_(True)] if emb is not None else [])
+                g_out = torch.randn(QUERIES, shape[0], shape[1], shape[3], generator=gen).to(dev, dtype_k)
+                got = torch.autograd.grad(fr.fused_resnet_block(x, emb, params, shape[6]), leaves, g_out)
+                want = torch.autograd.grad(fr.resnet_block_plain(x, emb, params, shape[6]), leaves, g_out)
+                for a, w in zip(got, want):
+                    _, rel = rel_err(a, w)
+                    out["backward"]["K3"] = max(out["backward"]["K3"], rel)
+                    if rel > GRAD_TOL[dn]:
+                        raise RuntimeError(f"K3's backward disagrees at {shape} {dn}: rel {rel:.3e}")
+        print(f"  {dn}: K2's Function alone at the {len(k2_calls)} stage shapes (B={QUERIES}) and K3's at the "
+              f"{len(k3_shapes)} block shapes (dx, d(emb); parameters frozen): worst rel so far "
+              f"K2 {out['backward']['K2']:.3e}, K3 {out['backward']['K3']:.3e} (tol {GRAD_TOL[dn]:.0e}) ok")
+
+    # (b) float32 refinement on the card against the CPU path
+    t0 = time.perf_counter()
+    q2 = requests[0][:2]
+    gpu_est = estimators[("float32", FAST_N)]
+    gpu = gpu_est.estimate("object", q2, refine_steps=3)
+    cpu = cpu_est.estimate("object", q2, refine_steps=3)
+
+    def kept(est, result):
+        from nope_tpu_torch.geometry.rotations import rotation_6d_to_matrix
+
+        back = rotation_6d_to_matrix(top1_inits(torch, est, ["object"] * 2, result)).cpu().numpy()
+        return ~np.all(result.refined_relative_rotation == back, axis=(1, 2))
+
+    same_top1 = np.array_equal(gpu.nearest_idx[:, 0], cpu.nearest_idx[:, 0])
+    keep_g, keep_c = kept(gpu_est, gpu), kept(cpu_est, cpu)
+    r_err = np.abs(gpu.refined_relative_rotation - cpu.refined_relative_rotation).max()
+    d_rel = (np.abs(gpu.refined_distance - cpu.refined_distance) / np.abs(cpu.refined_distance)).max()
+    ok = same_top1 and np.array_equal(keep_g, keep_c) and r_err <= 1e-3 and d_rel <= 1e-4
+    print(f"  fp32 refinement, card vs CPU path, B=2 N={FAST_N} 3 steps: top-1 {'equal' if same_top1 else 'DIFFER'}, "
+          f"keep-mask {keep_g.tolist()} vs {keep_c.tolist()}, refined ΔR max diff {r_err:.2e} (tol 1e-03), "
+          f"distance rel {d_rel:.2e} (tol 1e-04); {time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("the float32 refinement on the card disagrees with the CPU path")
+
+    # (c) the paths, bf16: estimate (top-1 and multi-start), estimate_many, evaluate_geodesic
+    est = estimators[("bfloat16", FAST_N)]
+    q8 = requests[1]
+    plain = est.estimate("object", q8)
+    for fn in counters:
+        fn.launches = 0
+    fr._ResnetBlockFn.recomputes = la._LinearAttentionFn.recomputes = 0
+    t0 = time.perf_counter()
+    r1 = est.estimate("object", q8, refine_steps=REFINE_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["launches"] = {fn.__name__: fn.launches for fn in counters}
+    out["recomputes"] = {"K3": fr._ResnetBlockFn.recomputes, "K2": la._LinearAttentionFn.recomputes}
+    print(f"  estimate bf16 B={QUERIES} N={FAST_N} refine_steps={REFINE_STEPS} refine_topk=1: {wall:.2f} s; launches "
+          f"{out['launches']}, recompute backwards {out['recomputes']}")
+    if not all(out["launches"].values()) or not all(out["recomputes"].values()):
+        raise RuntimeError(f"a kernel of the refine path never ran: {out['launches']} {out['recomputes']}")
+    check_refined(torch, "estimate refine_topk=1", est, ["object"] * QUERIES, q8, plain, r1, 1e-5)
+    r5 = est.estimate("object", q8, refine_steps=REFINE_STEPS, refine_topk=REFINE_TOPK)
+    check_refined(torch, f"estimate refine_topk={REFINE_TOPK}", est, ["object"] * QUERIES, q8, plain, r5, 1e-3)
+    ids = [GALLERY[i % len(GALLERY)] for i in range(QUERIES)]
+    q_many = requests[2]
+    many_plain = gallery.estimate_many(ids, q_many)
+    many = gallery.estimate_many(ids, q_many, refine_steps=REFINE_STEPS)
+    check_refined(torch, f"estimate_many over {len(GALLERY)} objects", gallery, ids, q_many, many_plain, many, 1e-5)
+
+    batch = eval_batch(torch, grids[FAST_N], 16, 30)
+    root = ROOT / "build" / "chip_smoke" / "refine"
+    scores = evaluate_geodesic(task32, [batch], refine_steps=REFINE_STEPS, save_dir=str(root), tag="fast")
+    step = task32.eval_geodesic_step(on_device(torch, batch, dev), infer_task=half)  # unrefined
+    with np.load(root / "pred_fast_batch0_rank0.npz") as b:
+        dump = {k: b[k] for k in b.files}
+    refined_R = dump["refined_R"]
+    ortho = np.abs(np.swapaxes(refined_R, -1, -2) @ refined_R - np.eye(3)).max()
+    same = all(np.array_equal(dump[k], step[k].cpu().numpy()) for k in ("similarity", "nearest_idx", "error_deg"))
+    ok = (same and ortho <= 1e-4 and refined_R.shape == (16, 3, 3)
+          and all(0 <= scores[k] <= (100 if "accuracy" in k else 180) for k in scores if k.startswith("refined")))
+    print(f"  evaluate_geodesic fast protocol B=16 N={FAST_N} refine_steps={REFINE_STEPS}: grid outputs "
+          f"{'equal to the unrefined step' if same else 'DIFFER'}; refined_R |RᵀR - I| {ortho:.2e}; refined "
+          f"acc15 {scores['refined, accuracy_15']:.2f} acc30 {scores['refined, accuracy_30']:.2f} median "
+          f"{scores['refined, median']:.2f} deg vs top1 median {scores['top1, median']:.2f}; dump keys {sorted(dump)} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("the refined evaluation program failed its checks")
+
+    # (d) the CLI's run() on uint8 arrays
+    t0 = time.perf_counter()
+    payload = infer.run(load_config(None), rng.integers(0, 256, (IMAGE, IMAGE, 3), dtype=np.uint8),
+                        rng.integers(0, 256, (2, IMAGE, IMAGE, 3), dtype=np.uint8), dev, fast=True, refine_steps=2,
+                        names=["q0", "q1"])
+    entry = payload["results"][1]
+    ok = (payload["num_templates"] == FAST_N and len(payload["results"]) == 2
+          and np.asarray(entry["refined_relative_rotation"]).shape == (3, 3)
+          and np.isfinite(entry["similarity"]).all())
+    print(f"  cli.infer.run on uint8 arrays (seeded weights, --fast, --refine-steps 2): {time.perf_counter() - t0:.1f} "
+          f"s; num_templates {payload['num_templates']}, keys {sorted(entry)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("cli.infer.run's payload is malformed")
+    return out
+
+
+def refinement_timings(torch, smi, est, task32, half, requests, grids, dev):
+    """Phase 4c: one refine step split into its parts, refined ``estimate``
+    against the unrefined call, and a refined evaluation batch."""
+    print(f"phase 4c: timings of refinement on {smi} (CUDA events after warm-up, median of 3)")
+    q8 = requests[0]
+    from nope_tpu_torch.geometry.rotations import matrix_to_rotation_6d
+    from nope_tpu_torch.tasks import refinement as ref
+
+    with torch.no_grad():
+        q_lat = est.task.encode(est._queries(q8))
+        r_lat = est._ref_latents["object"].expand(QUERIES, -1, -1, -1)
+        r6 = matrix_to_rotation_6d(random_rotations(torch, QUERIES, 72, dev))
+
+    def forward():
+        with ref.frozen(est.task.unet), torch.enable_grad():
+            pose_objective(est.task, r_lat, q_lat, r6.clone().requires_grad_(True)).sum()
+
+    def step():
+        pose_grad(torch, est.task, r_lat, q_lat, r6)
+
+    def recompute():
+        with plain_ops(), torch.no_grad():
+            pose_objective(est.task, r_lat, q_lat, r6)
+
+    t_fwd, t_step, t_plain = (median_ms(torch, fn) for fn in (forward, step, recompute))
+    # warm-ups of one step (the same shapes as 24), then no warm-up call below
+    for k in (1, REFINE_TOPK):
+        est.estimate("object", q8, refine_steps=1, refine_topk=k)
+    print(f"  one refine step, bf16 B={QUERIES}: {t_step:.2f} ms = kernels forward {t_fwd:.2f} ms + backward "
+          f"{t_step - t_fwd:.2f} ms, of which the plain recompute (the U-Net forward on plain ops) ~{t_plain:.2f} ms "
+          f"[{smi}]")
+    times = {"unrefined": median_ms(torch, lambda: est.estimate("object", q8))}
+    for k in (1, REFINE_TOPK):
+        times[f"topk {k}"] = median_ms(
+            torch, lambda: est.estimate("object", q8, refine_steps=REFINE_STEPS, refine_topk=k), warmup=0)
+    print(f"  estimate bf16 B={QUERIES} N={FAST_N}: unrefined {times['unrefined']:.2f} ms; refine_steps={REFINE_STEPS} "
+          f"refine_topk=1 {times['topk 1']:.2f} ms ({times['topk 1'] / times['unrefined']:.1f}x), refine_topk="
+          f"{REFINE_TOPK} {times[f'topk {REFINE_TOPK}']:.2f} ms ({times[f'topk {REFINE_TOPK}'] / times['unrefined']:.1f}x) "
+          f"[{smi}]")
+    db = on_device(torch, eval_batch(torch, grids[FAST_N], 16, 31), dev)
+    task32.eval_geodesic_step(db, refine_steps=1, infer_task=half)  # the warm-up of both
+    t_off = median_ms(torch, lambda: task32.eval_geodesic_step(db, infer_task=half), warmup=0)
+    t_on = median_ms(torch, lambda: task32.eval_geodesic_step(db, refine_steps=REFINE_STEPS, infer_task=half),
+                     warmup=0)
+    print(f"  eval step fast protocol B=16 N={FAST_N} bf16 (+ fp32 loss): unrefined {t_off:.2f} ms, refine_steps="
+          f"{REFINE_STEPS} {t_on:.2f} ms ({1000 * 16 / t_on:.2f} img/s) [{smi}]")
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -673,6 +995,25 @@ def main() -> int:
             del x, emb, params, got
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
+    # past the grid's 65,535 y extent: K3 at its smallest block shape (4x4),
+    # held on samples both sides of 65,535; K1 with a bank per query
+    small = min((sh for sh in k3_shapes if sh[0] == 4), key=lambda sh: sh[2] + sh[3])
+    x, emb, params = k3_inputs(torch, small, BIG_B, dev, torch.bfloat16, dgen)
+    got = fr.resnet_block(x, emb, params, small[6])
+    rows = torch.cat([torch.arange(8), torch.arange(BIG_B - 72, BIG_B)]).to(dev)
+    want = fr.resnet_block_plain(x[rows].float(), None if emb is None else emb[rows].float(),
+                                 {k: v.float() for k, v in params.items()}, small[6])
+    check("K3", f"B={BIG_B} {small[0]}x{small[1]} {small[2]}->{small[3]} rows 0-7, {BIG_B - 72}-{BIG_B - 1}",
+          got[rows], want, "bfloat16")
+    del x, emb, params, got, want
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn(BIG_B, LATENT, LATENT, 4, generator=dgen, device=dev).to(dtype)
+        bank = torch.randn(BIG_B, 1, LATENT, LATENT, 4, generator=dgen, device=dev).to(dtype)
+        check("K1", f"B={BIG_B} N=1 bank per query", sim.reference_similarity(q, bank),
+              sim.reference_similarity_plain(q.float(), bank.float()), str(dtype).split(".")[-1])
+        del q, bank
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     print(f"  K3 bf16: two launches bitwise equal at all {len(k3_shapes) * len(K3_BATCHES) + len(big_k3) * len(EVAL_ITEMS)}"
           f" (shape, batch)")
     print(f"  K1 and K2, both dtypes: two launches bitwise equal at all {len(K1_SHAPES)} and "
@@ -864,10 +1205,18 @@ def main() -> int:
     t_many = median_ms(torch, lambda: ev["gallery"].estimate_many(ids64, q64))
     print(f"  estimate_many bfloat16 N={FAST_N} B=64 over {len(GALLERY)} objects {t_many:9.2f} ms "
           f"{64000 / t_many:7.1f} queries/s [{smi}]")
+    refinement_timings(torch, smi, estimators[("bfloat16", FAST_N)], task32, half, requests, grids, dev)
     b, n, chunk = EVAL["full"]
-    print(f"phase 5b: profiler window on {smi}")
+    print(f"phase 5b: profiler windows on {smi}")
     profile_window(torch, f"eval step, full protocol B={b} N={n} chunk_size {chunk} (bf16 retrieval, fp32 loss)",
                    lambda: task32.eval_geodesic_step(eval_dev["full"], chunk_size=chunk, infer_task=half), top=10)
+    # 4 steps: each step repeats the same kernels; 24 would only lengthen the trace
+    profile_window(torch, f"estimate bfloat16 N={FAST_N} B={QUERIES} refine_steps=4",
+                   lambda: estimators[("bfloat16", FAST_N)].estimate("object", requests[0], refine_steps=4), top=10)
+
+    # -- phase 7: refinement ---------------------------------------------------
+    rf = refinement_phase(torch, dev, task32, half, estimators, cpu_est, ev["gallery"], grids, requests, counters,
+                          k2_calls, k3_calls, gen)
 
     table = [
         ("reference_similarity", "K1", "nope_tpu_torch/csrc/similarity.cu",
@@ -884,7 +1233,9 @@ def main() -> int:
          "launches": launches[fn.__name__], "max_abs_err": worst[k],
          "ms": kernel_ms[k][0], "plain_ms": kernel_ms[k][1], "bound_ms": bounds[k][0],
          "bound_by": bounds[k][1], "library_ms": kernel_ms[k][2], "device_ms": kernel_ms[k][3],
-         "eval_launches": ev["launches"][fn.__name__]}
+         "eval_launches": ev["launches"][fn.__name__], "refine_launches": rf["launches"][fn.__name__],
+         **({"refine_recomputes": rf["recomputes"][k], "backward_max_rel": rf["backward"][k],
+             "unet_pose_grad_rel": rf["unet_grad"]} if k in rf["backward"] else {})}
         for name, k, src, rep, fn in table
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -203,33 +203,37 @@ group_stats_kernel(const float* __restrict__ h, const void* __restrict__ gamma, 
 __device__ __forceinline__ float silu(float y) { return y / (1.f + expf(-y)); }
 
 // out = SiLU((h - mean[b, c]) * scale[b, c] + beta[c]) [+ emb[b, c]] [+ res]
-// Block (C / 4, ny) covers `rows` pixels of sample blockIdx.y; thread
-// (tx, ty) owns channels 4 tx .. 4 tx + 3 and every ny-th pixel, so each
-// load and store is 4 channels wide and the tables are read once.
+// Block (C / 4, ny) covers `rows` pixels of samples blockIdx.y,
+// blockIdx.y + gridDim.y, ... (the grid's y extent is capped at 65,535,
+// so a block strides over the samples); thread (tx, ty) owns channels
+// 4 tx .. 4 tx + 3 and every ny-th pixel, so each load and store is 4
+// channels wide and the tables are read once a sample.
 __global__ void __launch_bounds__(kEltThreads)
 gn_silu_kernel(const float* __restrict__ h, const float* __restrict__ mean,
                const float* __restrict__ scale, const void* __restrict__ beta, int pdt,
                const void* __restrict__ emb, int edt, const void* __restrict__ res, int rdt,
-               void* __restrict__ out, int odt, int HW, int C, int rows) {
-  const int c = 4 * threadIdx.x, b = blockIdx.y;
-  const size_t bc = static_cast<size_t>(b) * C + c;
-  const float4 mu = *reinterpret_cast<const float4*>(mean + bc);
-  const float4 sc = *reinterpret_cast<const float4*>(scale + bc);
+               void* __restrict__ out, int odt, int B, int HW, int C, int rows) {
+  const int c = 4 * threadIdx.x;
   const float4 be = load4(beta, c, pdt);
-  const float4 em = emb != nullptr ? load4(emb, bc, edt) : make_float4(0.f, 0.f, 0.f, 0.f);
   const int p0 = static_cast<int>(blockIdx.x) * rows, p1 = min(HW, p0 + rows);
-  for (int p = p0 + static_cast<int>(threadIdx.y); p < p1; p += static_cast<int>(blockDim.y)) {
-    const size_t i = (static_cast<size_t>(b) * HW + p) * C + c;
-    const float4 v = *reinterpret_cast<const float4*>(h + i);
-    float4 y = make_float4(silu((v.x - mu.x) * sc.x + be.x) + em.x,
-                           silu((v.y - mu.y) * sc.y + be.y) + em.y,
-                           silu((v.z - mu.z) * sc.z + be.z) + em.z,
-                           silu((v.w - mu.w) * sc.w + be.w) + em.w);
-    if (res != nullptr) {
-      const float4 r = load4(res, i, rdt);
-      y = make_float4(y.x + r.x, y.y + r.y, y.z + r.z, y.w + r.w);
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {
+    const size_t bc = static_cast<size_t>(b) * C + c;
+    const float4 mu = *reinterpret_cast<const float4*>(mean + bc);
+    const float4 sc = *reinterpret_cast<const float4*>(scale + bc);
+    const float4 em = emb != nullptr ? load4(emb, bc, edt) : make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int p = p0 + static_cast<int>(threadIdx.y); p < p1; p += static_cast<int>(blockDim.y)) {
+      const size_t i = (static_cast<size_t>(b) * HW + p) * C + c;
+      const float4 v = *reinterpret_cast<const float4*>(h + i);
+      float4 y = make_float4(silu((v.x - mu.x) * sc.x + be.x) + em.x,
+                             silu((v.y - mu.y) * sc.y + be.y) + em.y,
+                             silu((v.z - mu.z) * sc.z + be.z) + em.z,
+                             silu((v.w - mu.w) * sc.w + be.w) + em.w);
+      if (res != nullptr) {
+        const float4 r = load4(res, i, rdt);
+        y = make_float4(y.x + r.x, y.y + r.y, y.z + r.z, y.w + r.w);
+      }
+      store4(out, i, odt, y);
     }
-    store4(out, i, odt, y);
   }
 }
 
@@ -659,16 +663,19 @@ NOPE_API int nope_group_stats(const float* h, const void* gamma, int pdt, float*
 }
 
 // C % 4 == 0 and C <= 4 * kEltThreads; emb and res may be null, their
-// dtype codes are then ignored.
+// dtype codes are then ignored.  grid_y (1 .. 65,535) blocks share the
+// B samples along the grid's y axis.
 NOPE_API int nope_gn_silu(const float* h, const float* mean, const float* scale,
                           const void* beta, int pdt, const void* emb, int edt, const void* res,
-                          int rdt, void* out, int odt, int B, int HW, int C, void* stream) {
+                          int rdt, void* out, int odt, int B, int HW, int C, int grid_y,
+                          void* stream) {
   const int tx = C / 4;
-  if (C % 4 || tx > kEltThreads) return static_cast<int>(cudaErrorInvalidValue);
+  if (C % 4 || tx > kEltThreads || grid_y < 1 || grid_y > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int ny = max(1, 256 / tx), rows = 8 * ny;
-  const dim3 grid((HW + rows - 1) / rows, B);
+  const dim3 grid((HW + rows - 1) / rows, grid_y);
   gn_silu_kernel<<<grid, dim3(tx, ny), 0, static_cast<cudaStream_t>(stream)>>>(
-      h, mean, scale, beta, pdt, emb, edt, res, rdt, out, odt, HW, C, rows);
+      h, mean, scale, beta, pdt, emb, edt, res, rdt, out, odt, B, HW, C, rows);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,10 +7,11 @@ kernels take cost no copy.
 
 ``ResnetBlock`` always runs :func:`ops.fused_resnet.fused_resnet_block`
 (K3) and ``LinearAttention`` always runs
-:func:`ops.linear_attention.linear_attention_inner` (K2): each op runs
-its CUDA kernel for a CUDA tensor and its plain version for a CPU
-tensor.  ``Attention``, the up/down-samplers and every 1x1 conv stay
-plain PyTorch, as they were XLA ops in JAX.
+:func:`ops.linear_attention.linear_attention` (K2): each op runs its
+CUDA kernel for a CUDA tensor and its plain version for a CPU tensor,
+and takes its gradient through the plain version.  ``Attention``, the
+up/down-samplers and every 1x1 conv stay plain PyTorch, as they were
+XLA ops in JAX.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from nope_tpu_torch.ops.fused_resnet import fused_resnet_block
-from nope_tpu_torch.ops.linear_attention import linear_attention_inner
+from nope_tpu_torch.ops.linear_attention import linear_attention
 
 
 def nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -92,7 +93,7 @@ class LinearAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, _, hh, ww = x.shape
         qkv = nhwc(self.to_qkv(x)).reshape(b, hh * ww, -1)
-        out = linear_attention_inner(qkv, self.heads, self.dim_head)
+        out = linear_attention(qkv, self.heads, self.dim_head)
         return self.to_out(nchw(out.reshape(b, hh, ww, -1)))
 
 

@@ -6,4 +6,7 @@
 
 Each runs its kernel for a CUDA tensor and its plain version for a CPU
 tensor, and counts its kernel launches in a ``launches`` attribute.
+K2 and K3 take gradients through :func:`linear_attention.linear_attention`
+and :func:`fused_resnet.fused_resnet_block`, whose backward recomputes
+the plain version.
 """

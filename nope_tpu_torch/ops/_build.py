@@ -34,18 +34,20 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C entry points and their argument types; every one returns a
 #: cudaError_t as int (0 = success)
 SIGNATURES = {
-    "nope_reference_similarity": (_P, _P, _P, _P, *[_I] * 7, _P),
+    "nope_reference_similarity": (_P, _P, _P, _P, *[_I] * 8, _P),
     "nope_la_chunks": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
     "nope_la_merge": (_P, _P, _I, _I, _P),
     "nope_la_output": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
     "nope_conv_nhwc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "nope_group_stats": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _P),
-    "nope_gn_silu": (_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P),
+    "nope_gn_silu": (_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P),
     "nope_conv_wgmma": (_P, _P, _P, _I, _P, _P, _P, *[_I] * 10, _P),
     "nope_gn_finalize": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the largest y (and z) extent of a CUDA grid
+MAX_GRID_Y = 65535
 
 _library: ctypes.CDLL | None = None
 
@@ -163,6 +165,13 @@ def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of ``device`` (the kernels' tiling plans
     aim to fill them)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def grid_y(tiles: int) -> int:
+    """The y extent of a grid whose blocks walk ``tiles`` tiles (samples,
+    query tiles) along y: one block each, up to :data:`MAX_GRID_Y`, beyond
+    which each block strides over several."""
+    return max(1, min(tiles, MAX_GRID_Y))
 
 
 def check_cuda(name: str, t: torch.Tensor, dtypes=(torch.float32, torch.bfloat16)) -> None:

@@ -242,7 +242,7 @@ def _block_tensor_cores(x, emb, params, groups, eps, out):
             call("nope_gn_finalize", ptr["part"], gamma.data_ptr(), dt, ptr["mean"], ptr["scale"],
                  b, hw, c_out, groups, plan1.bm, plan1.segmax, eps)
             call("nope_gn_silu", ptr["conv"], ptr["mean"], ptr["scale"], beta.data_ptr(), dt,
-                 emb_ptr, dt, res_ptr, res_dt, dst.data_ptr(), dt, b, hw, c_out)
+                 emb_ptr, dt, res_ptr, res_dt, dst.data_ptr(), dt, b, hw, c_out, _build.grid_y(b))
 
         _conv_wgmma(call, x.data_ptr(), w1, params["b1"], ptr["conv"], ptr["part"], ptr["ws"],
                     x.shape, 3, groups, plan1)
@@ -275,7 +275,7 @@ def _block_cuda_cores(x, emb, params, groups, eps, out):
             call("nope_group_stats", ptr["conv"], gamma.data_ptr(), dt, ptr["mean"], ptr["scale"],
                  b, hw, c_out, groups, eps)
             call("nope_gn_silu", ptr["conv"], ptr["mean"], ptr["scale"], beta.data_ptr(), dt,
-                 emb_ptr, dt, res_ptr, res_dt, dst_ptr, dst_dt, b, hw, c_out)
+                 emb_ptr, dt, res_ptr, res_dt, dst_ptr, dst_dt, b, hw, c_out, _build.grid_y(b))
 
         call("nope_conv_nhwc", x.data_ptr(), w1.data_ptr(), params["b1"].data_ptr(), ptr["conv"],
              b, h, w, c_in, c_out, 3, dt, dt)
@@ -331,7 +331,12 @@ resnet_block.tensor_core_launches = 0
 
 
 class _ResnetBlockFn(torch.autograd.Function):
-    """K3 forward; backward by recomputing the plain version."""
+    """K3 forward; backward by recomputing the plain version.  It takes
+    the gradient of only the inputs that ask for one: with frozen
+    parameters, no weight gradient is computed."""
+
+    #: backward passes taken (each recomputes one plain forward)
+    recomputes = 0
 
     @staticmethod
     def forward(ctx, groups, eps, x, emb, *ps):
@@ -342,6 +347,7 @@ class _ResnetBlockFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         inputs = ctx.saved_tensors
+        _ResnetBlockFn.recomputes += 1
         with torch.enable_grad():
             leaves = [
                 None if t is None else t.detach().requires_grad_(need)

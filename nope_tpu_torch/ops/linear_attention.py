@@ -14,6 +14,10 @@ softmax partials, merge them in chunk order and apply q; with one chunk
 a single launch does the whole chain.  :func:`attention_partials_plain`,
 :func:`attention_merge_plain` and :func:`attention_output_plain` are the
 plain versions of those three steps, for the tests.
+
+:func:`linear_attention` adds the gradient: its backward recomputes
+through :func:`linear_attention_inner_plain` in qkv's dtype (the JAX op
+has no VJP of its own; JAX differentiates its XLA composition).
 """
 
 from __future__ import annotations
@@ -144,9 +148,6 @@ def linear_attention_inner(qkv: torch.Tensor, heads: int, dim_head: int) -> torc
     if qkv.device.type == "cpu":
         return linear_attention_inner_plain(qkv, heads, dim_head)
     _build.check_cuda("qkv", qkv)
-    if torch.is_grad_enabled() and qkv.requires_grad:
-        raise NotImplementedError("K2 has no backward yet (ROADMAP queue 1 item 9): call it under "
-                                  "torch.no_grad on a CUDA tensor")
     if (heads, dim_head) != (HEADS, DIM_HEAD):
         raise ValueError(f"the kernels are built for {HEADS} heads of {DIM_HEAD}, got {heads} of {dim_head}")
     if qkv.data_ptr() % 16:
@@ -160,3 +161,36 @@ def linear_attention_inner(qkv: torch.Tensor, heads: int, dim_head: int) -> torc
 
 
 linear_attention_inner.launches = 0
+
+
+class _LinearAttentionFn(torch.autograd.Function):
+    """K2 forward; backward by recomputing the plain version."""
+
+    #: backward passes taken (each recomputes one plain forward)
+    recomputes = 0
+
+    @staticmethod
+    def forward(ctx, qkv, heads, dim_head):
+        ctx.heads, ctx.dim_head = heads, dim_head
+        ctx.save_for_backward(qkv)
+        return linear_attention_inner(qkv, heads, dim_head)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (qkv,) = ctx.saved_tensors
+        _LinearAttentionFn.recomputes += 1
+        with torch.enable_grad():
+            leaf = qkv.detach().requires_grad_(True)
+            out = linear_attention_inner_plain(leaf, ctx.heads, ctx.dim_head)
+            (dqkv,) = torch.autograd.grad(out, leaf, grad)
+        return dqkv, None, None
+
+
+def linear_attention(qkv: torch.Tensor, heads: int, dim_head: int) -> torch.Tensor:
+    """Linear attention's inner chain through :func:`linear_attention_inner`,
+    with exact gradients through the plain version.  Where no gradient can
+    flow (no grad mode, or a qkv that requires none, as when serving) it
+    calls :func:`linear_attention_inner` directly, with no autograd node."""
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _LinearAttentionFn.apply(qkv, heads, dim_head)
+    return linear_attention_inner(qkv, heads, dim_head)

@@ -93,13 +93,14 @@ def _launch(query: torch.Tensor, bank: torch.Tensor, out: torch.Tensor, plan: Si
     into out (B, N) float32."""
     b, h, w, _ = query.shape
     n = bank.shape[1]
+    batched = _batched(query, bank)
     ws = None
     if plan.splits > 1:
         ws = torch.empty(plan.splits * b * n, dtype=torch.float32, device=query.device)
     with _build.launcher(query.device) as call:
         call("nope_reference_similarity", query.data_ptr(), bank.data_ptr(), out.data_ptr(),
-             None if ws is None else ws.data_ptr(), b, n, h * w, int(_batched(query, bank)), plan.pixels,
-             plan.splits, _build.DTYPE_CODES[query.dtype])
+             None if ws is None else ws.data_ptr(), b, n, h * w, int(batched), plan.pixels,
+             plan.splits, _build.grid_y(-(-b // (1 if batched else TILE_Q))), _build.DTYPE_CODES[query.dtype])
 
 
 def reference_similarity(query: torch.Tensor, bank: torch.Tensor) -> torch.Tensor:

@@ -13,10 +13,13 @@ batch and one scoring pass (K1) against the bank::
     result.relative_rotations  # (B, k, 3, 3) ΔR reference→query
     result.similarity          # (B, N) viewpoint-bin pose distribution
     est.estimate_many(["mug0", "cup1", ...], query_images)  # mixed objects
+    est.estimate("mug0", query_images, refine_steps=24)  # + continuous ΔR
     est.save_registry("gallery.npz")  # the JAX package's .npz format
 
-The task's modules fix the device.  With ``half_precision_eval`` the
-estimator serves a bfloat16 copy of them.
+With ``refine_steps`` > 0 the retrieved top-1 (or top-K) pose is refined
+by gradient descent through the U-Net (``tasks.refinement``) into a
+continuous ΔR.  The task's modules fix the device.  With
+``half_precision_eval`` the estimator serves a bfloat16 copy of them.
 """
 
 from __future__ import annotations
@@ -33,8 +36,10 @@ from nope_tpu_torch.geometry.rotations import (
     matrix_to_euler_angles,
     matrix_to_quaternion,
     matrix_to_rotation_6d,
+    rotation_6d_to_matrix,
 )
 from nope_tpu_torch.geometry.transforms import relative_rotation
+from nope_tpu_torch.tasks.refinement import make_multistart_refiner, make_pose_refiner
 
 #: a stored bank: (M, N, h, w, C) in the serving dtype, or for int8
 #: ((M, N, h, w, C) int8, (M, N, 1, 1, C) float32 scale)
@@ -51,6 +56,12 @@ class PoseEstimate:
     rotations: np.ndarray
     similarity: np.ndarray  # (B, N) float32 pose distribution over viewpoint bins
     template_poses: np.ndarray  # (N, 3, 3) the grid (shared)
+    #: (B, 3, 3) the continuous ΔR from refinement; None unless it ran
+    refined_relative_rotation: Optional[np.ndarray] = None
+    #: (B, 3, 3) the refined absolute query rotation ΔR̂ · R_ref
+    refined_rotation: Optional[np.ndarray] = None
+    #: (B,) the refinement objective at the refined pose (lower is better)
+    refined_distance: Optional[np.ndarray] = None
 
 
 def quantize_bank(bank: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -271,30 +282,67 @@ class PoseEstimator:
 
     # -- requests -----------------------------------------------------------
 
-    @torch.no_grad()
-    def estimate(self, object_id: str, query_images: np.ndarray,
-                 refine_steps: int = 0) -> PoseEstimate:
-        """Score (B, H, W, 3) query images (or one (H, W, 3)) against the
-        object's bank."""
-        if refine_steps:
-            raise NotImplementedError("pose refinement is ROADMAP queue 1 item 10")
-        if object_id not in self._banks:
-            raise KeyError(f"object {object_id!r} is not registered")
-        queries = self._queries(query_images)
-        sim, idx = self.task.retrieval(queries, self._dense(self._banks[object_id]))
-        ref_pose = np.broadcast_to(self._ref_poses[object_id], (queries.shape[0], 3, 3))
-        return self._assemble(sim, idx, ref_pose)
+    def _check_topk(self, topk: int) -> None:
+        k = int(self.task.config.retrieval_k)
+        if not 1 <= int(topk) <= k:
+            raise ValueError(
+                f"refine_topk={topk} outside [1, {k}] (retrieval returns "
+                f"the top-{k} templates; raise task config retrieval_k "
+                "for wider multi-start)")
+
+    def _refine(self, q_lat: torch.Tensor, ref_lat: torch.Tensor, reps: torch.Tensor, idx: torch.Tensor,
+                steps: int, lr: float, objective: str, topk: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Refine from the retrieved top-``topk`` of each query: ref_lat
+        (B, h, w, C) and reps (B, N, dim) float32 per query.  Returns the
+        refined ΔR (B, 3, 3) and its objective (B,), float32 on the host."""
+        init_R = rotation_6d_to_matrix(torch.gather(reps, 1, idx[:, :topk, None].expand(-1, -1, reps.shape[2])))
+        if topk > 1:
+            rel, dist, _ = make_multistart_refiner(self.task, steps, lr, objective)(q_lat, ref_lat, init_R)
+        else:
+            rel, dist = make_pose_refiner(self.task, steps, lr, objective)(q_lat, ref_lat, init_R[:, 0])
+        return rel.cpu().numpy(), dist.cpu().numpy()
 
     @torch.no_grad()
-    def estimate_many(self, object_ids: Sequence[str], query_images: np.ndarray,
-                      refine_steps: int = 0) -> PoseEstimate:
+    def estimate(self, object_id: str, query_images: np.ndarray, refine_steps: int = 0,
+                 refine_lr: float = 2e-2, refine_objective: str = "l2", refine_topk: int = 1) -> PoseEstimate:
+        """Score (B, H, W, 3) query images (or one (H, W, 3)) against the
+        object's bank.
+
+        ``refine_steps`` > 0 also refines each query's retrieved top-1
+        ΔR by gradient descent (:mod:`nope_tpu_torch.tasks.refinement`)
+        or, with ``refine_topk`` > 1, from each of its top-K and keeps
+        the start with the lowest final objective; the estimate then
+        carries ``refined_relative_rotation`` and ``refined_rotation``."""
+        if object_id not in self._banks:
+            raise KeyError(f"object {object_id!r} is not registered")
+        if refine_steps:
+            if self._ref_latents.get(object_id) is None:
+                raise ValueError(
+                    f"object {object_id!r} was loaded from a registry without "
+                    "reference latents; re-register it to enable refinement")
+            self._check_topk(refine_topk)
+        q_lat = self.task.encode(self._queries(query_images))
+        sim, idx = self.task.retrieval(None, self._dense(self._banks[object_id]), query_latent=q_lat)
+        b = q_lat.shape[0]
+        ref_pose = np.broadcast_to(self._ref_poses[object_id], (b, 3, 3))
+        if not refine_steps:
+            return self._assemble(sim, idx, ref_pose)
+        rel, dist = self._refine(q_lat, self._ref_latents[object_id].expand(b, -1, -1, -1),
+                                 self._bank_reps[object_id].expand(b, -1, -1), idx,
+                                 refine_steps, refine_lr, refine_objective, refine_topk)
+        return self._assemble(sim, idx, ref_pose, rel, dist)
+
+    @torch.no_grad()
+    def estimate_many(self, object_ids: Sequence[str], query_images: np.ndarray, refine_steps: int = 0,
+                      refine_lr: float = 2e-2, refine_objective: str = "l2",
+                      refine_topk: int = 1) -> PoseEstimate:
         """Mixed-object batch: query i is scored against the bank of
         ``object_ids[i]``.  The banks of the unique objects are stacked
         once (and kept while the gallery does not change); each request
         gathers a bank per query from that stack on the device, and K1
-        scores all queries in one launch."""
-        if refine_steps:
-            raise NotImplementedError("pose refinement is ROADMAP queue 1 item 10")
+        scores all queries in one launch.  ``refine_steps`` > 0 refines
+        as :meth:`estimate` does, each query against its own object's
+        reference latent."""
         queries = self._queries(query_images)
         if len(object_ids) != queries.shape[0]:
             raise ValueError(f"{len(object_ids)} object ids for {queries.shape[0]} queries")
@@ -312,11 +360,27 @@ class PoseEstimator:
             stacked = (tuple(torch.cat(p) for p in zip(*parts)) if self.bank_dtype == "int8"
                        else torch.cat(parts))
             self._stacked_cache = (key, stacked)
-        sim, idx = self.task.retrieval(queries, self._dense(_gather(stacked, inv)))
+        if refine_steps:
+            bare = [oid for oid in uniq if self._ref_latents.get(oid) is None]
+            if bare:
+                raise ValueError(
+                    f"objects {bare!r} were loaded from a registry without "
+                    "reference latents; re-register them to enable refinement")
+            self._check_topk(refine_topk)
+        q_lat = self.task.encode(queries)
+        sim, idx = self.task.retrieval(None, self._dense(_gather(stacked, inv)), query_latent=q_lat)
         ref_poses = np.stack([self._ref_poses[oid] for oid in object_ids])
-        return self._assemble(sim, idx, ref_poses)
+        if not refine_steps:
+            return self._assemble(sim, idx, ref_poses)
+        ref_lats = torch.cat([self._ref_latents[oid] for oid in uniq]).index_select(0, inv)
+        reps = torch.stack([self._bank_reps[oid] for oid in uniq]).index_select(0, inv)
+        rel, dist = self._refine(q_lat, ref_lats, reps, idx, refine_steps, refine_lr, refine_objective,
+                                 refine_topk)
+        return self._assemble(sim, idx, ref_poses, rel, dist)
 
-    def _assemble(self, sim: torch.Tensor, idx: torch.Tensor, ref_poses: np.ndarray) -> PoseEstimate:
+    def _assemble(self, sim: torch.Tensor, idx: torch.Tensor, ref_poses: np.ndarray,
+                  refined_rel: Optional[np.ndarray] = None,
+                  refined_distance: Optional[np.ndarray] = None) -> PoseEstimate:
         idx_np = idx.cpu().numpy()
         retrieved = self.template_poses[idx_np]  # (B, k, 3, 3)
         rel = retrieved @ np.swapaxes(ref_poses, -1, -2)[:, None]  # ΔR_i = T_i · R_ref,iᵀ
@@ -326,4 +390,7 @@ class PoseEstimator:
             rotations=retrieved,
             similarity=sim.float().cpu().numpy(),
             template_poses=self.template_poses,
+            refined_relative_rotation=refined_rel,
+            refined_rotation=None if refined_rel is None else refined_rel @ ref_poses,
+            refined_distance=refined_distance,
         )

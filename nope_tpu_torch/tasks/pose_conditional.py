@@ -9,10 +9,11 @@ NHWC layout: images (B, H, W, 3), latents (B, h, w, C), banks
 (B, N, h, w, C).
 
 The encoder is frozen: :meth:`PoseConditionalTask.encode` runs without
-gradient.  The losses are differentiable wherever the ops have a
-backward: on the CPU (plain versions) everywhere; on the card K2 has no
-backward yet, so there they run under ``torch.no_grad``.  Inference
-methods run under ``torch.no_grad``.
+gradient.  The losses are differentiable on every device: on the card
+K3 and K2 run their kernels forward and recompute their plain versions
+backward.  Inference methods run under ``torch.no_grad``; the eval
+step's refinement (``tasks.refinement``) opens grad mode for the pose
+alone.
 """
 
 from __future__ import annotations
@@ -24,9 +25,11 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 from torch import nn
 
+from nope_tpu_torch.geometry.rotations import matmul3, rotation_6d_to_matrix
 from nope_tpu_torch.models.distributions import DiagonalGaussian
 from nope_tpu_torch.ops.similarity import retrieve, similarity_metric, top_k
 from nope_tpu_torch.tasks.metrics import GeodesicError
+from nope_tpu_torch.tasks.refinement import make_pose_refiner
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,9 +48,11 @@ class TaskConfig:
 
 def cast_half(x: Union[torch.Tensor, nn.Module]):
     """float32 → bfloat16: a tensor is cast; a module is copied and the
-    copy cast, so the caller's float32 module stays as it was."""
+    copy cast, so the caller's float32 module stays as it was.  The copy
+    serves inference only: its parameters are frozen (``requires_grad``
+    off), so a gradient through it (refinement) takes none of theirs."""
     if isinstance(x, nn.Module):
-        return copy.deepcopy(x).to(torch.bfloat16)
+        return copy.deepcopy(x).to(torch.bfloat16).requires_grad_(False)
     return x.to(torch.bfloat16) if x.dtype == torch.float32 else x
 
 
@@ -231,6 +236,7 @@ class PoseConditionalTask:
         batch: Dict[str, torch.Tensor],
         chunk_size: Optional[int] = None,
         refine_steps: int = 0,
+        refine_lr: float = 2e-2,
         infer_task: Optional["PoseConditionalTask"] = None,
     ) -> Dict[str, Any]:
         """One batch of the geodesic eval (``model.py:268-376``): the loss,
@@ -245,26 +251,29 @@ class PoseConditionalTask:
         ``half_precision_eval``, else this task), with images and poses
         cast to its dtype.  With ``chunk_size`` < N retrieval streams
         (:meth:`retrieve_streaming`); otherwise the bank is made whole.
+
+        ``refine_steps`` > 0 also refines each top-1 ΔR on ``infer_task``
+        (:func:`tasks.refinement.make_pose_refiner`, Adam at ``refine_lr``)
+        and adds ``refined_R`` (B, 3, 3), the absolute refined pose
+        ΔR̂ · R_ref, and its symmetry-aware ``refined_error_deg`` (B,).
         """
-        if refine_steps:
-            raise NotImplementedError("pose refinement is ROADMAP queue 1 item 10")
         loss = self.forward_loss(batch["query"], batch["reference"], batch["gt_relativeR"])
         half = self.config.half_precision_eval
         if infer_task is None:
             infer_task = self.half() if half else self
         cast = cast_half if half else (lambda t: t)
-        reference, query = cast(batch["reference"]), cast(batch["query"])
+        r_lat, q_lat = infer_task.encode(cast(batch["reference"])), infer_task.encode(cast(batch["query"]))
         all_rel = cast(batch["all_relativeR"])
         if chunk_size is not None and chunk_size < all_rel.shape[1]:
-            similarity, nearest = infer_task.retrieve_streaming(query, reference, all_rel, chunk_size)
+            similarity, nearest = infer_task.retrieve_streaming(None, None, all_rel, chunk_size, r_lat, q_lat)
         else:
-            bank = infer_task.generate_template_bank(reference, all_rel, chunk_size=chunk_size)
-            similarity, nearest = infer_task.retrieval(query, bank)
+            bank = infer_task.generate_template_bank(None, all_rel, chunk_size, r_lat)
+            similarity, nearest = infer_task.retrieval(None, bank, q_lat)
             del bank
         pred_R = batch["template_poses"][0][nearest]  # (B, k, 3, 3), the grid is shared
         symmetry = batch["symmetry"].reshape(-1)
         error, acc = self.metric(pred_R, batch["query_pose"], symmetry)
-        return {
+        out = {
             "loss": loss,
             "similarity": similarity.float(),
             "nearest_idx": nearest,
@@ -272,3 +281,15 @@ class PoseConditionalTask:
             "errors_topk": self.metric.topk_errors(pred_R, batch["query_pose"], symmetry),
             **acc,
         }
+        if refine_steps:
+            all_rel = batch["all_relativeR"].float()
+            init_rel = rotation_6d_to_matrix(all_rel[torch.arange(len(nearest)), nearest[:, 0]])
+            refiner = make_pose_refiner(infer_task, steps=refine_steps, lr=refine_lr)
+            rel_refined, _ = refiner(q_lat, r_lat, init_rel)
+            # R_ref from any (template, conditioning) pair of the row: ΔR_0ᵀ · template_0
+            rel0 = rotation_6d_to_matrix(all_rel[:, 0])
+            ref_abs = matmul3(rel0.transpose(-1, -2), batch["template_poses"][:, 0].float())
+            refined = matmul3(rel_refined, ref_abs)
+            out["refined_R"] = refined
+            out["refined_error_deg"] = self.metric.topk_errors(refined[:, None], batch["query_pose"], symmetry)[:, 0]
+        return out

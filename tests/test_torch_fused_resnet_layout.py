@@ -217,6 +217,7 @@ class _EmulatedKernels:
     def __init__(self):
         self.calls = []
         self.tiles = set()  # the bm of every tensor-core conv
+        self.grid_y = []  # the y extent of every gn_silu launch
 
     def __call__(self, name, *args):
         self.calls.append(name)
@@ -262,7 +263,9 @@ class _EmulatedKernels:
         _store(mean, b * c, 0, mu.repeat_interleave(cg, 1))
         _store(scale, b * c, 0, (var + eps).rsqrt().repeat_interleave(cg, 1) * _view(gamma, c, pdt).double())
 
-    def nope_gn_silu(self, hp, mean, scale, beta, pdt, emb, edt, res, rdt, out, odt, b, hw, c):
+    def nope_gn_silu(self, hp, mean, scale, beta, pdt, emb, edt, res, rdt, out, odt, b, hw, c, grid_y):
+        assert grid_y == _build.grid_y(b)
+        self.grid_y.append(grid_y)
         hh = _view(hp, b * hw * c, 0).reshape(b, hw, c).double()
         y = (hh - _view(mean, b * c, 0).reshape(b, 1, c)) * _view(scale, b * c, 0).reshape(b, 1, c)
         y = F.silu(y + _view(beta, c, pdt).double())
@@ -270,7 +273,10 @@ class _EmulatedKernels:
             y = y + _view(emb, b * c, edt).reshape(b, 1, c).double()
         if res is not None:
             y = y + _view(res, b * hw * c, rdt).reshape(b, hw, c).double()
-        _store(out, b * hw * c, odt, y)
+        dst = _view(out, b * hw * c, odt).reshape(b, hw, c)
+        for block_y in range(grid_y):  # each block of the y axis strides over the samples
+            for sample in range(block_y, b, grid_y):
+                dst[sample] = y[sample].to(dst.dtype)
 
     def nope_conv_nhwc(self, x, w, bias, out, b, h, wd, cin, co, ks, xdt, wdt):
         xs = _view(x, b * h * wd * cin, xdt).reshape(b, h, wd, cin)
@@ -289,6 +295,21 @@ class _EmulatedKernels:
 ])
 def test_block_launches_match_the_plain_block(monkeypatch, route, batch, hw_side, cin, co, with_res,
                                                with_emb, sms):
+    _check_block_launches(monkeypatch, route, batch, hw_side, cin, co, with_res, with_emb, sms)
+
+
+@pytest.mark.parametrize("route", ["tensor_cores", "cuda_cores"])
+@pytest.mark.parametrize("max_grid_y", [1, 2, 4])
+def test_block_launches_stride_past_the_grid_limit(monkeypatch, route, max_grid_y):
+    """With the grid's y extent capped below B, each gn_silu block strides
+    over several samples, and the block is still the plain one."""
+    monkeypatch.setattr(_build, "MAX_GRID_Y", max_grid_y)
+    cin, co = (128, 192) if route == "tensor_cores" else (16, 24)
+    emulated = _check_block_launches(monkeypatch, route, 5, 4, cin, co, True, True, 132)
+    assert emulated.grid_y == [max_grid_y, max_grid_y]
+
+
+def _check_block_launches(monkeypatch, route, batch, hw_side, cin, co, with_res, with_emb, sms):
     emulated = _EmulatedKernels()
 
     @contextlib.contextmanager
@@ -325,3 +346,4 @@ def test_block_launches_match_the_plain_block(monkeypatch, route, batch, hw_side
         assert fr.resnet_block.tensor_core_launches == before + 1
     else:
         assert emulated.calls.count("nope_conv_nhwc") == 2 + with_res
+    return emulated

@@ -86,10 +86,11 @@ def test_unported_paths_raise(jax_side):
         PoseEstimator(task, fast_evaluation=True, bank_dtype="int4")
     est = PoseEstimator(task, fast_evaluation=True)
     est.register_object("obj", _images(10, 1)[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        est.estimate("obj", _images(11, 1), refine_steps=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        est.estimate_many(["obj"], _images(11, 1), refine_steps=2)
+    # refinement starts from at most the retrieved top-k
+    with pytest.raises(ValueError, match="refine_topk=6 outside"):
+        est.estimate("obj", _images(11, 1), refine_steps=2, refine_topk=6)
+    with pytest.raises(ValueError, match="refine_topk=0 outside"):
+        est.estimate_many(["obj"], _images(11, 1), refine_steps=2, refine_topk=0)
     est.deregister_object("obj")
     with pytest.raises(KeyError, match="not registered"):
         est.estimate("obj", _images(11, 1))
@@ -123,6 +124,11 @@ def test_port_imports_no_jax_in_a_fresh_process():
         from nope_tpu_torch.serving import PoseEstimator, engine
         from nope_tpu_torch.tasks import metrics, pose_conditional
         from nope_tpu_torch.utils import visualization
+        sys.modules["yaml"] = sys.modules["PIL"] = None  # absent where the card is: imported by no path below
+        from nope_tpu_torch.cli import infer
+        from nope_tpu_torch.configs import load_config
+        from nope_tpu_torch.tasks import refinement
+        from nope_tpu_torch.training import checkpoint
         ns = types.SimpleNamespace
         cfg = ns(
             u_net=ns(variant="vae_base", u_net_dim=16, dim_mults=(1, 2), rot_representation_dim=6,
@@ -139,6 +145,15 @@ def test_port_imports_no_jax_in_a_fresh_process():
         est.register_object("o", rng.uniform(-1, 1, (32, 32, 3)).astype(np.float32))
         r = est.estimate("o", rng.integers(0, 256, (2, 32, 32, 3), dtype=np.uint8))
         assert r.nearest_idx.shape == (2, 5) and np.isfinite(r.similarity).all()
+        r = est.estimate("o", rng.integers(0, 256, (2, 32, 32, 3), dtype=np.uint8), refine_steps=1)
+        assert r.refined_rotation.shape == (2, 3, 3)
+        tiny = load_config(None, ["model.img_size=32", "model.u_net.u_net_dim=16", "model.u_net.dim_mults=1,2",
+                                  "model.encoder.block_out_channels=8,8,8,8", "model.encoder.layers_per_block=1",
+                                  "model.encoder.norm_groups=4"])
+        out = infer.run(tiny, rng.integers(0, 256, (32, 32, 3), dtype=np.uint8),
+                        rng.integers(0, 256, (1, 32, 32, 3), dtype=np.uint8), torch.device("cpu"),
+                        fast=True, refine_steps=1)
+        assert len(out["results"][0]["refined_relative_rotation"]) == 3
         grid = est.template_poses
         rel = transforms.relative_rotation(torch.from_numpy(grid)[None].expand(2, -1, -1, -1),
                                            torch.from_numpy(grid[:1])[None].expand(2, len(grid), -1, -1))
@@ -148,8 +163,9 @@ def test_port_imports_no_jax_in_a_fresh_process():
                      all_relativeR=rotations.matrix_to_rotation_6d(rel).numpy(),
                      query_pose=grid[[3, 7]], template_poses=np.broadcast_to(grid, (2,) + grid.shape),
                      symmetry=np.array([0, 2]))
-        scores = geodesic.evaluate_geodesic(task, [batch], chunk_size=13)
+        scores = geodesic.evaluate_geodesic(task, [batch], chunk_size=13, refine_steps=1)
         assert scores["num_images"] == 2 and np.isfinite(scores["top1, median"])
+        assert np.isfinite(scores["refined, median"])
         bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "nope_tpu"))
         assert not bad, bad
         print("ok")

@@ -134,16 +134,21 @@ class _EmulatedKernel:
     def __init__(self):
         self.calls = []
 
-    def __call__(self, name, q, bank, out, ws, b, n, s, batched, pixels, splits, dt):
+    def __call__(self, name, q, bank, out, ws, b, n, s, batched, pixels, splits, grid_y, dt):
         assert name == "nope_reference_similarity"
         assert (ws is None) == (splits == 1) and splits == -(-s // pixels)
-        self.calls.append((q, bank, out, ws, b, n, s, batched, pixels, splits))
         tq = 1 if batched else sim.TILE_Q
+        q_tiles = -(-b // tq)
+        assert grid_y == _build.grid_y(q_tiles)
+        self.calls.append((q, bank, out, ws, b, n, s, batched, pixels, splits, grid_y))
         qs = _view(q, b * s * 4, dt).reshape(b, s, 4).float()
         ts = _view(bank, (b if batched else 1) * n * s * 4, dt).reshape(-1, n, s, 4).float()
         part = torch.zeros(splits, b, n)
+        # block y walks the query tiles y, y + grid_y, ...
+        tiles = [t for y in range(grid_y) for t in range(y, q_tiles, grid_y)]
+        assert sorted(tiles) == list(range(q_tiles))
         for z in range(splits):
-            for b0 in range(0, b, tq):
+            for b0 in (t * tq for t in tiles):
                 for n0 in range(0, n, sim.TILE_N):
                     qb = qs[b0:b0 + tq, None, z * pixels:(z + 1) * pixels]
                     tb = (ts[b0:b0 + tq] if batched else ts[:1])[:, n0:n0 + sim.TILE_N, z * pixels:(z + 1) * pixels]
@@ -173,7 +178,38 @@ def test_launch_matches_the_plain_version(monkeypatch, dtype, b, n, lead, sms):
     torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-4)
     (call,) = emulated.calls
     assert call[:3] == (qt.data_ptr(), tt.data_ptr(), out.data_ptr())
-    assert call[4:] == (b, n, 256, int(lead == b and b > 1), plan.pixels, plan.splits)
+    tiles = b if lead == b and b > 1 else -(-b // sim.TILE_Q)
+    assert call[4:] == (b, n, 256, int(lead == b and b > 1), plan.pixels, plan.splits, _build.grid_y(tiles))
+
+
+@pytest.mark.parametrize("b,lead,max_grid_y", [(9, 9, 2), (9, 9, 4), (20, 1, 2), (7, 7, 1)])
+def test_launch_strides_past_the_grid_limit(monkeypatch, b, lead, max_grid_y):
+    """With the grid's y extent capped below the query tiles (a bank per
+    query: one query a tile), each block walks several tiles."""
+    monkeypatch.setattr(_build, "MAX_GRID_Y", max_grid_y)
+    emulated = _EmulatedKernel()
+
+    @contextlib.contextmanager
+    def launcher(device):
+        yield emulated
+
+    monkeypatch.setattr(_build, "launcher", launcher)
+    q, t = _split_data(b, 1, lead, seed=b)
+    qt, tt = torch.from_numpy(q), torch.from_numpy(t)
+    out = torch.empty(b, 1)
+    sim._launch(qt, tt, out, sim.similarity_plan(b, 1, 256, lead == b, 132))
+    torch.testing.assert_close(out, sim.reference_similarity_plain(qt, tt), rtol=1e-5, atol=1e-4)
+    assert emulated.calls[0][-1] == max_grid_y
+
+
+@pytest.mark.parametrize("tiles,want", [(0, 1), (1, 1), (3, 3), (65535, 65535), (65536, 65535), (10**6, 65535)])
+def test_grid_y(tiles, want):
+    """The y extent of a launch: one block a tile up to CUDA's 65,535,
+    beyond which the blocks stride; every tile is walked once."""
+    got = _build.grid_y(tiles)
+    assert got == want
+    walked = np.concatenate([np.arange(y, tiles, got) for y in range(got)]) if tiles else np.zeros(0)
+    assert len(walked) == tiles and len(np.unique(walked)) == tiles
 
 
 @pytest.mark.parametrize("n", [8, 26, 341])

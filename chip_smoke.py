@@ -78,6 +78,21 @@ it fails at once.
    fast-protocol batch of 16: orthonormal refined rotations, an objective
    no larger than the top-1 grid pose's, the grid outputs of the
    unrefined call; (d) ``cli.infer.run`` on uint8 arrays.
+8. The ShapeNet evaluation CLI (``cli.test_shapenet.main``): writes a
+   root of 2 unseen categories x 4 objects x 5 queries and 5 references
+   (512-px RGBA PNGs, ``data.png.write_png``) in a temporary directory;
+   requires the native library (built by g++ beside nvcc in phase 1) and
+   holds its uint8 warp against the torch warp on the host, and
+   ``crop_frame_torch`` on the card against the host crop; runs the CLI
+   at full width in bf16 over both categories, the fast protocol whole
+   (batches of 16) and the full one's first batch (chunks of 31), with
+   the host's decoder and crop and again with Pillow and cv2 hidden
+   (``data/png.py`` and the native warp), checking ``scores.json``, the
+   dumps and every kernel's launches; runs the fp32 CLI on the card and
+   on the CPU over one batch of 2 (the same top-1, loss within rel
+   1e-5); and prints the loader's images/s, the decode and crop times of
+   each route and the eval step's time, and from them the share of the
+   CLI's wall time the card waits on the host.
 
 Phases run in the order 1 to 6, so phases 4 and 5 time the serving
 path and the kernels in a process that holds only phase 3's modules
@@ -85,11 +100,12 @@ path and the kernels in a process that holds only phase 3's modules
 protocols, ``estimate_many``), 4c refinement (one refine step split into
 kernels forward, backward and its plain recompute; refined ``estimate``
 at B=8 against the unrefined call; a refined eval batch), 5b profiles
-one full-protocol eval step and one refined ``estimate``, and phase 7
-runs.  The last two lines are the kernel table (``ms`` with the host
+one full-protocol eval step and one refined ``estimate``, and phases 7
+and 8 run.  The last two lines are the kernel table (``ms`` with the host
 in the loop, ``device_ms`` on the device alone, ``launches`` of phase 3,
 ``eval_launches`` of phase 6 (a), ``refine_launches`` of one refined
-``estimate`` in phase 7 (c), and for K2 and K3 that call's
+``estimate`` in phase 7 (c), ``cli_launches`` of phase 8's two bf16 CLI
+runs (fast and full protocol), and for K2 and K3 that call's
 ``refine_recomputes``, their Functions' ``backward_max_rel`` and the
 pose gradient's ``unet_pose_grad_rel``) and ``{"ok": true, ...}``.
 """
@@ -103,6 +119,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -147,6 +164,14 @@ BIG_B = 65_600
 # from the top 5; gradients held against the plain U-Net as max|Δ| / max|ref|
 REFINE_STEPS, REFINE_TOPK = 24, 5
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the evaluation CLI (phase 8): a procedural root of 2 unseen categories x
+# 4 objects x 5 queries and 5 references, 512-px RGBA; bench-size batches
+CLI_CATEGORIES, CLI_OBJECTS, CLI_VIEWS, CLI_BATCH = ("bottle", "mug"), 4, 5, 16
+# the native uint8 warp against the torch warp on the host: the bound
+# tests/test_native.py holds it to against cv2 (>= 99% within 1 LSB, max 4);
+# the crop on the card against the host crop, images in [0, 1]: the mean
+# bound of tests/test_cropping.py; the fp32 CLI, card against CPU: loss rel
+NATIVE_LSB_SHARE, NATIVE_MAX_LSB, CROP_MEAN_TOL, CLI_LOSS_RTOL = 0.99, 4, 5e-3, 1e-5
 
 
 def flagship_config():
@@ -869,6 +894,271 @@ def refinement_timings(torch, smi, est, task32, half, requests, grids, dev):
           f"{REFINE_STEPS} {t_on:.2f} ms ({1000 * 16 / t_on:.2f} img/s) [{smi}]")
 
 
+def write_shapenet_root(root, categories=CLI_CATEGORIES, objects=CLI_OBJECTS, views=CLI_VIEWS, img_px=512, seed=0):
+    """Write a procedural ShapeNet-layout root (``nope_tpu/data/shapenet.py:5-17``)
+    with the port's own PNG writer (no Pillow): ``cad_names.txt``, ``views``
+    query and reference RGBA images per object (seeded colour cells with
+    noise under an alpha disc) and ``object_{query,reference,template}_poses``
+    at level-2 grid poses with the translation doubled, as
+    ``tests/fixtures.py`` places them, 1 m in front of the camera.  Returns
+    the number of queries of each category."""
+    from nope_tpu_torch.data.categories import SHAPENET_CAT2ID
+    from nope_tpu_torch.data.png import write_png
+    from nope_tpu_torch.geometry import so3_grid
+
+    rng = np.random.default_rng(seed)
+    grid = so3_grid.load_obj_poses(2)
+    root = Path(root)
+    cads = [f"{SHAPENET_CAT2ID[c]}_cad{j}" for c in categories for j in range(objects)]
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "cad_names.txt").write_text("\n".join(cads) + "\n")
+    yy, xx = np.mgrid[:img_px, :img_px]
+    alpha = (((yy - img_px / 2) ** 2 + (xx - img_px / 2) ** 2 <= (0.35 * img_px) ** 2) * 255).astype(np.uint8)
+    templates = grid.copy()
+    templates[:, :3, 3] *= 2.0
+    for obj_id in range(len(cads)):
+        name = f"obj_{obj_id:06d}"
+        (root / "images" / name).mkdir(parents=True, exist_ok=True)
+        for kind in ("query", "reference", "template"):
+            (root / f"object_{kind}_poses").mkdir(exist_ok=True)
+            poses = templates if kind == "template" else templates[rng.integers(0, len(grid), views)]
+            np.save(root / f"object_{kind}_poses" / f"{name}.npy", poses)
+            if kind == "template":
+                continue
+            for i in range(views):
+                cells = rng.integers(0, 248, (16, 16, 3), dtype=np.uint8)
+                rgb = np.repeat(np.repeat(cells, img_px // 16, 0), img_px // 16, 1)
+                rgb = rgb + rng.integers(0, 8, rgb.shape, dtype=np.uint8)
+                write_png(str(root / "images" / name / f"{kind}_{i:06d}.png"), np.dstack([rgb, alpha]), level=1)
+    return objects * views
+
+
+def cli_phase(torch, dev, smi, counters, task32, half, native_build):
+    """Phase 8: ``cli.test_shapenet.main`` on the card over a root written
+    here; the native warp and the crop on the card checked first; then the
+    input pipeline's times beside the eval step's.  Returns the kernels'
+    launches over the two bf16 CLI runs."""
+    import importlib.util
+    import io
+    import tempfile
+
+    from nope_tpu_torch import native
+    from nope_tpu_torch.cli import test_shapenet
+    from nope_tpu_torch.configs import load_config
+    from nope_tpu_torch.data.builder import build_dataset
+    from nope_tpu_torch.data.pipeline import DataLoader
+    from nope_tpu_torch.data.shapenet import SHAPENET_INTRINSIC, ShapeNetDataset, decode_png, decoder
+    from nope_tpu_torch.evaluation.geodesic import _to_device
+    from nope_tpu_torch.geometry import cropping
+    from nope_tpu_torch.ops import fused_resnet as fr
+
+    print("phase 8: the ShapeNet evaluation CLI (cli.test_shapenet.main) over a PNG root written here")
+    with tempfile.TemporaryDirectory(prefix="nope_shapenet_") as tmp:
+        tmp = Path(tmp)
+        root = tmp / "shapenet"
+        t0 = time.perf_counter()
+        per_cat = write_shapenet_root(root)
+        pngs = sorted(root.glob("images/*/*.png"))
+        print(f"  root: {len(CLI_CATEGORIES)} categories x {CLI_OBJECTS} objects x {CLI_VIEWS} queries + "
+              f"{CLI_VIEWS} references, 512-px RGBA, {len(pngs)} PNGs "
+              f"({sum(p.stat().st_size for p in pngs) / 2**20:.1f} MiB) written by png.write_png in "
+              f"{time.perf_counter() - t0:.2f} s")
+
+        # (a) the host routes: the decoder, the native warp (required here) and the crop
+        lib = native_build.result()  # a failed g++ build fails the phase
+        if not native.available():
+            raise RuntimeError("the native library did not load: phase 8 runs the native warp")
+        crop_route = "cv2" if importlib.util.find_spec("cv2") else "native"
+        print(f"  host routes: PNG decode {decoder()}, crop {crop_route}; native library "
+              f"{Path(lib).relative_to(ROOT)}")
+        ds = ShapeNetDataset(str(root), CLI_CATEGORIES[0], img_size=IMAGE)
+        paths = ds.query_paths[:4]
+        rgbs = [ds.open_image(p) for p in paths]
+        poses = [ds.get_pose(p) for p in paths]
+        homs = [cropping.crop_homography(SHAPENET_INTRINSIC, pose, IMAGE, virtual_bbox_size=1.0) for pose in poses]
+        diffs = []
+        for rgb, M in zip(rgbs, homs):
+            want = cropping.warp_perspective_torch(torch.from_numpy(rgb.astype(np.float32)), torch.from_numpy(M),
+                                                   IMAGE).numpy()
+            want = np.clip(np.rint(want), 0, 255).astype(np.uint8)
+            diffs.append(np.abs(native.warp_perspective(rgb, M, IMAGE).astype(int) - want))
+        d = np.stack(diffs)
+        share = float(np.mean(d <= 1))
+        ok = share >= NATIVE_LSB_SHARE and d.max() <= NATIVE_MAX_LSB
+        print(f"  native uint8 warp vs the torch warp (host, rounded), {len(rgbs)} x 512 -> {IMAGE}: "
+              f"{share:.5f} of pixels within 1 LSB (tol {NATIVE_LSB_SHARE}), max {d.max()} (tol {NATIVE_MAX_LSB}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("the native warp disagrees with the torch warp")
+        imgs = np.stack(rgbs).astype(np.float32) / 255.0
+        on_card = cropping.crop_frame_torch(torch.from_numpy(imgs).to(dev), torch.from_numpy(SHAPENET_INTRINSIC),
+                                            torch.from_numpy(np.stack(poses)).to(dev), IMAGE, 1.0)
+        host = np.stack([cropping.crop_frame(img, None, SHAPENET_INTRINSIC, pose, IMAGE, virtual_bbox_size=1.0)
+                         for img, pose in zip(imgs, poses)])
+        means = np.abs(on_card.cpu().numpy() - host).mean(axis=(1, 2, 3))
+        ok = on_card.device == dev and means.max() < CROP_MEAN_TOL
+        print(f"  crop_frame_torch on the card vs crop_frame on the host ({crop_route}), {len(imgs)} images in "
+              f"[0, 1]: mean |diff| per image max {means.max():.3e} (tol {CROP_MEAN_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("the crop on the card disagrees with the host crop")
+
+        # (b) the CLI in bf16 over both categories: the fast protocol whole, the full one's first batch
+        data = [f"data.datasets.shapeNet.root_dir={root}"]
+
+        def run(label, flags, overrides, expect_images, expect_batches, n):
+            save = tmp / label
+            for fn in counters:
+                fn.launches = 0
+            fr.resnet_block.tensor_core_launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                results = test_shapenet.main([*flags, *data, *overrides, f"save_dir={save}"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in counters}
+            launches["resnet_block tensor cores"] = fr.resnet_block.tensor_core_launches
+            cats = [c for c in results if c != "mean"]
+            written = json.loads((save / "train" / "scores.json").read_text())
+            dumps = sorted(p.name for p in (save / "train" / "predictions").glob("*.npz"))
+            want_dumps = sorted(f"pred_{c}_batch{i}_rank0.npz" for c in cats for i in range(expect_batches))
+            ok = written == results and dumps == want_dumps and all(launches.values())
+            for cat in cats:
+                sc = results[cat]
+                ok &= (sc["num_images"] == expect_images and all(np.isfinite(v) for v in sc.values())
+                       and all(0 <= v <= (100 if "accuracy" in k else 180) for k, v in sc.items()
+                               if k.startswith("top")))
+                with np.load(save / "train" / "predictions" / f"pred_{cat}_batch0_rank0.npz") as dump:
+                    b = len(dump["query_pose"])
+                    ok &= (dump["similarity"].shape == (b, n) and dump["nearest_idx"].shape == (b, 5)
+                           and ((dump["nearest_idx"] >= 0) & (dump["nearest_idx"] < n)).all()
+                           and dump["error_deg"].shape == (b,))
+                print(f"  {label} {cat}: {sc['num_images']:.0f} images, {sc['images_per_sec']:.2f} img/s; loss "
+                      f"{sc['loss']:.6f}, top1 acc15 {sc['top1, accuracy_15']:.2f}, top5 acc30 "
+                      f"{sc['top5, accuracy_30']:.2f}, top1 median {sc['top1, median']:.2f} deg [{smi}]")
+            print(f"  {label}: {wall:.2f} s in main; categories {cats}; {len(dumps)} dumps; launches {launches} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok or cats != list(CLI_CATEGORIES):
+                raise RuntimeError(f"the CLI's {label} run failed its checks: {results}")
+            return results, wall, launches
+
+        both = ["--categories", ",".join(CLI_CATEGORIES)]
+        fast, _, fast_launches = run(
+            "fast", both, [f"machine.batch_size={CLI_BATCH}"], per_cat, -(-per_cat // CLI_BATCH), FAST_N)
+        full, _, full_launches = run(
+            "full", [*both, "--chunk-size", "31", "--max-batches", "1"],
+            [f"machine.batch_size={CLI_BATCH}", "data.datasets.shapeNet.fast_evaluation=false"],
+            CLI_BATCH, 1, FULL_N)
+        launches = {k: fast_launches[k] + full_launches[k] for k in fast_launches}
+        with hidden("PIL", "cv2"):  # a host without them: png.py decodes, the native warp crops
+            lean, _, _ = run("fast without Pillow and cv2", both, [f"machine.batch_size={CLI_BATCH}"], per_cat,
+                             -(-per_cat // CLI_BATCH), FAST_N)
+
+        # (c) the fp32 CLI, card against CPU, one batch of 2
+        fp32 = ["model.testing_config.half_precision_eval=false", "machine.batch_size=2"]
+        one = ["--categories", CLI_CATEGORIES[0], "--max-batches", "1"]
+        t0 = time.perf_counter()
+        outs = {}
+        for device in ("cuda", "cpu"):
+            save = tmp / f"fp32_{device}"
+            with contextlib.redirect_stdout(io.StringIO()):
+                scores = test_shapenet.main([*one, "--device", device, *data, *fp32, f"save_dir={save}"])
+            with np.load(save / "train" / "predictions" / f"pred_{CLI_CATEGORIES[0]}_batch0_rank0.npz") as dump:
+                outs[device] = (scores[CLI_CATEGORIES[0]]["loss"], dump["nearest_idx"], dump["similarity"])
+        (gl, gi, gs), (cl, ci, cs) = outs["cuda"], outs["cpu"]
+        loss_rel = abs(gl - cl) / abs(cl)
+        _, sim_rel = rel_err(torch.from_numpy(gs), torch.from_numpy(cs))
+        ok = np.array_equal(gi[:, 0], ci[:, 0]) and loss_rel <= CLI_LOSS_RTOL
+        print(f"  fp32 CLI, card vs CPU, B=2 N={FAST_N} through the reader: top-1 {gi[:, 0].tolist()} vs "
+              f"{ci[:, 0].tolist()}, top-5 {'equal' if np.array_equal(gi, ci) else 'differs'}, loss {gl:.6f} vs "
+              f"{cl:.6f} rel {loss_rel:.2e} (tol {CLI_LOSS_RTOL:.0e}), similarity rel {sim_rel:.2e}; "
+              f"{time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("the fp32 CLI on the card disagrees with the CPU path")
+
+        # (d) the input pipeline's times beside the eval step's, with the host's routes and without Pillow and cv2
+        cfg = load_config(None, data)  # the dataset entry and the loader threads the CLI runs with
+
+        def load_all():
+            dataset = build_dataset(dataclasses.replace(cfg.data.datasets["shapeNet"], split=CLI_CATEGORIES[0]))
+            loader = DataLoader(dataset, batch_size=CLI_BATCH, shuffle=False, drop_last=False,
+                                num_workers=cfg.machine.num_workers)
+            t0 = time.perf_counter()
+            batches = list(loader)
+            return batches, len(dataset) / (time.perf_counter() - t0)
+
+        files = [p for p in pngs if p.name.startswith("query_")][:per_cat]
+        batches, rate = load_all()
+        t_decode = median_host_ms([lambda p=p: decode_png(str(p)) for p in files])
+        t_crop = median_host_ms([lambda r=r, q=q: cropping.crop_frame(r, None, SHAPENET_INTRINSIC, q, IMAGE,
+                                                                      virtual_bbox_size=1.0)
+                                 for r, q in zip(rgbs, poses)])
+        with hidden("PIL", "cv2"):
+            lean_batches, lean_rate = load_all()
+            t_png = median_host_ms([lambda p=p: decode_png(str(p)) for p in files])
+            t_native = median_host_ms([lambda r=r, q=q: cropping.crop_frame(r, None, SHAPENET_INTRINSIC, q, IMAGE,
+                                                                             virtual_bbox_size=1.0)
+                                       for r, q in zip(rgbs, poses)])
+        same = all(np.array_equal(a["query_pose"], b["query_pose"]) for a, b in zip(batches, lean_batches))
+        crop_diff = max(float(np.abs(a["query"] - b["query"]).max()) for a, b in zip(batches, lean_batches))
+        # Average and Paeth rows unfilter in a Python loop (data/png.py): one image with every row Paeth
+        from nope_tpu_torch.data.png import read_png, write_png
+
+        write_png(str(tmp / "paeth.png"), read_png(str(files[0])), filter_type=4)
+        t_paeth = median_host_ms([lambda: read_png(str(tmp / "paeth.png"))])
+        db = _to_device(batches[0], dev)
+        t_step = median_ms(torch, lambda: task32.eval_geodesic_step(db, infer_task=half))
+        print(f"  timings on {smi} (host clocks; the eval step by CUDA events, median of 3):")
+        print(f"    loader alone ({len(batches)} batches of <= {CLI_BATCH}, {cfg.machine.num_workers} threads, no "
+              f"model): {rate:.2f} img/s with {decoder()} + {crop_route}, {lean_rate:.2f} img/s with png.py + "
+              f"native (Pillow and cv2 hidden; the same items, crops within {crop_diff * 127.5:.2f} LSB"
+              f"{'' if same else ', ORDER DIFFERS'}) [{smi}]")
+        print(f"    PNG decode per 512-px RGBA image (filter None): {decoder()} {t_decode:.2f} ms, png.py {t_png:.2f} "
+              f"ms; png.py with every row Paeth-filtered {t_paeth:.2f} ms; crop 512 -> {IMAGE}: {crop_route} "
+              f"{t_crop:.2f} ms, native {t_native:.2f} ms [{smi}]")
+        print(f"    eval step alone, fast protocol B={CLI_BATCH} N={FAST_N} bf16 (+ fp32 loss): {t_step:.2f} ms "
+              f"[{smi}]")
+        for label, runs in (("host routes", fast), ("png.py + native", lean)):
+            warm = runs[CLI_CATEGORIES[-1]]
+            cli_ms = 1000 * warm["num_images"] / warm["images_per_sec"]
+            busy_ms = len(batches) * t_step
+            print(f"    CLI fast protocol ({label}), {CLI_CATEGORIES[-1]}: {cli_ms:.2f} ms for {warm['num_images']:.0f} "
+                  f"images in {len(batches)} batches against {busy_ms:.2f} ms of eval steps: the card waits on the "
+                  f"host {100 * max(0.0, 1 - busy_ms / cli_ms):.1f}% of the CLI's wall time [{smi}]")
+        for cat in CLI_CATEGORIES:
+            print(f"    CLI images/s, {cat}: fast {fast[cat]['images_per_sec']:.2f} (png.py + native "
+                  f"{lean[cat]['images_per_sec']:.2f}), full (first batch, chunks of 31) "
+                  f"{full[cat]['images_per_sec']:.2f} [{smi}]")
+        if not same:
+            raise RuntimeError("the loader's batches differ without Pillow and cv2")
+    return launches
+
+
+@contextlib.contextmanager
+def hidden(*names):
+    """Imports of ``names`` raise ImportError inside the block, as on a host
+    without those packages; their modules are back afterwards."""
+    saved = {n: sys.modules[n] for n in names if n in sys.modules}
+    sys.modules.update({n: None for n in names})
+    try:
+        yield
+    finally:
+        for n in names:
+            if n in saved:
+                sys.modules[n] = saved[n]
+            else:
+                del sys.modules[n]
+
+
+def median_host_ms(calls) -> float:
+    """Median host time of each call in ``calls``, once each, in ms."""
+    times = []
+    for call in calls:
+        t0 = time.perf_counter()
+        call()
+        times.append(1000 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -882,6 +1172,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from nope_tpu_torch.models.factory import build_task
+    from nope_tpu_torch.native import build as native_builder
     from nope_tpu_torch.ops import _build
     from nope_tpu_torch.ops import fused_resnet as fr
     from nope_tpu_torch.ops import linear_attention as la
@@ -900,6 +1191,10 @@ def main() -> int:
 
     # -- phase 1: build -------------------------------------------------------
     t0 = time.perf_counter()
+    # the native data-plane library (phase 8) builds with g++ beside nvcc
+    builder_pool = ThreadPoolExecutor(max_workers=1)
+    native_build = builder_pool.submit(native_builder.build)
+    builder_pool.shutdown(wait=False)
     lib_path, nvcc_s = _build.build()
     _build.library()
     print(f"phase 1 build: {time.perf_counter() - t0:.2f} s (nvcc {nvcc_s:.2f} s) -> {lib_path.relative_to(ROOT)}")
@@ -1218,6 +1513,9 @@ def main() -> int:
     rf = refinement_phase(torch, dev, task32, half, estimators, cpu_est, ev["gallery"], grids, requests, counters,
                           k2_calls, k3_calls, gen)
 
+    # -- phase 8: the evaluation CLI ---------------------------------------------
+    cli_launches = cli_phase(torch, dev, smi, counters, task32, half, native_build)
+
     table = [
         ("reference_similarity", "K1", "nope_tpu_torch/csrc/similarity.cu",
          "nope_tpu/ops/experimental/pallas_similarity.py:29", sim.reference_similarity),
@@ -1234,6 +1532,7 @@ def main() -> int:
          "ms": kernel_ms[k][0], "plain_ms": kernel_ms[k][1], "bound_ms": bounds[k][0],
          "bound_by": bounds[k][1], "library_ms": kernel_ms[k][2], "device_ms": kernel_ms[k][3],
          "eval_launches": ev["launches"][fn.__name__], "refine_launches": rf["launches"][fn.__name__],
+         "cli_launches": cli_launches[fn.__name__],
          **({"refine_recomputes": rf["recomputes"][k], "backward_max_rel": rf["backward"][k],
              "unet_pose_grad_rel": rf["unet_grad"]} if k in rf["backward"] else {})}
         for name, k, src, rep, fn in table

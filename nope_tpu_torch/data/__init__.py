@@ -1,0 +1,7 @@
+"""Dataset readers (ShapeNet) and the input pipeline (``nope_tpu/data``)."""
+
+from nope_tpu_torch.data.pipeline import (  # noqa: F401
+    CombinedLoader,
+    ConcatDataset,
+    DataLoader,
+)

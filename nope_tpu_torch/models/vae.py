@@ -192,6 +192,9 @@ class StableDiffusionVAE(nn.Module):
         sample_channels: int = 3,
     ):
         super().__init__()
+        # the latent geometry: downscale 2**(len(block_out_channels) - 1), latent_channels channels
+        self.block_out_channels = tuple(block_out_channels)
+        self.latent_channels = latent_channels
         self.encoder = VAEEncoder(block_out_channels, layers_per_block, latent_channels, groups)
         self.quant_conv = nn.Conv2d(2 * latent_channels, 2 * latent_channels, 1)
         self.decoder = VAEDecoder(block_out_channels, layers_per_block, sample_channels, groups,

@@ -132,6 +132,10 @@ class PoseEstimator:
         #: registry that has none
         self._ref_latents: Dict[str, Optional[torch.Tensor]] = {}
         self._bank_reps: Dict[str, Optional[torch.Tensor]] = {}
+        #: latent geometry (h, w, C) of every bank; pinned by the first
+        #: registration or registry load, checked by later ones (kept after
+        #: deregistration, as the JAX package keeps it)
+        self._latent_hwc: Optional[tuple] = None
         #: (unique-id tuple, banks stacked over them) of the last
         #: estimate_many; dropped on register, deregister and load
         self._stacked_cache: tuple = (None, None)
@@ -176,6 +180,20 @@ class PoseEstimator:
         """A stored bank in the serving dtype, as K1 reads it."""
         return dequantize_bank(*bank, self.dtype) if isinstance(bank, tuple) else bank
 
+    def _pin_latent_hwc(self, image_hw) -> None:
+        """Pin the latent geometry (h, w, C) of (H, W) reference images, or
+        check it against the pinned one: banks of two geometries cannot be
+        stacked (``estimate_many``).  From the VAE config (downscale
+        2**(n_blocks - 1)), so no device work."""
+        vae = self.task.vae
+        f = 2 ** (len(vae.block_out_channels) - 1)
+        hwc = (int(image_hw[0]) // f, int(image_hw[1]) // f, int(vae.latent_channels))
+        if self._latent_hwc is None:
+            self._latent_hwc = hwc
+        elif self._latent_hwc != hwc:
+            raise ValueError("mixed latent geometries in one estimator: "
+                             f"{self._latent_hwc} vs {hwc}")
+
     def _forget_stacks(self) -> None:
         self._stacked_cache = (None, None)
 
@@ -204,7 +222,9 @@ class PoseEstimator:
         ref_R = torch.as_tensor(reference_poses, device=self.device)
         rel = relative_rotation(self._templates[None], ref_R[:, None])  # (M, N, 3, 3)
         rel_rep = self._pose_representation(rel)  # (M, N, dim) float32
-        ref_lat = self.task.encode(self._device_images(reference_images))
+        refs = self._device_images(reference_images)
+        self._pin_latent_hwc(reference_images.shape[1:3])
+        ref_lat = self.task.encode(refs)
         banks = self.task.generate_template_bank(
             None, rel_rep.to(self.dtype), chunk_size=self.chunk_size, reference_latent=ref_lat)
         stored = self._store(banks)
@@ -259,17 +279,22 @@ class PoseEstimator:
                 raise ValueError(f"saved registry layout (bank_dtype={saved_dtype!r}) does "
                                  f"not match this estimator ({self.bank_dtype!r})")
             for key in data.files:
-                if key.startswith("bank:"):
-                    oid = key[len("bank:"):]
-                    bank = torch.from_numpy(data[key]).to(self.device, self.dtype)
-                elif key.startswith("bank_q8:"):
-                    oid = key[len("bank_q8:"):]
-                    bank = (torch.from_numpy(data[key]).to(self.device),
-                            torch.from_numpy(data[f"scale:{oid}"].astype(np.float32)).to(self.device))
-                else:
+                kind, _, oid = key.partition(":")
+                if kind not in ("bank", "bank_q8"):
                     continue
+                dense = data[key]  # (1, N, h, w, C)
+                h, w, c = (int(d) for d in dense.shape[-3:])
+                if self._latent_hwc is None:
+                    self._latent_hwc = (h, w, c)
+                elif self._latent_hwc != (h, w, c):
+                    raise ValueError("registry latent geometry does not match this "
+                                     f"estimator: {(h, w, c)} vs {self._latent_hwc}")
+                if kind == "bank":
+                    bank = torch.from_numpy(dense).to(self.device, self.dtype)
+                else:
+                    bank = (torch.from_numpy(dense).to(self.device),
+                            torch.from_numpy(data[f"scale:{oid}"].astype(np.float32)).to(self.device))
                 n = self.num_templates
-                h, w, c = bank[0].shape[2:] if isinstance(bank, tuple) else bank.shape[2:]
                 self._banks[oid] = bank
                 self._ref_poses[oid] = np.asarray(data[f"pose:{oid}"], np.float32)
                 if f"reflat:{oid}" in data.files:

@@ -124,7 +124,11 @@ def test_port_imports_no_jax_in_a_fresh_process():
         from nope_tpu_torch.serving import PoseEstimator, engine
         from nope_tpu_torch.tasks import metrics, pose_conditional
         from nope_tpu_torch.utils import visualization
-        sys.modules["yaml"] = sys.modules["PIL"] = None  # absent where the card is: imported by no path below
+        from nope_tpu_torch import native
+        from nope_tpu_torch.data import builder, categories, pipeline, png, shapenet
+        from nope_tpu_torch.geometry import cropping
+        # absent where the card is: imported by no path below
+        sys.modules["yaml"] = sys.modules["PIL"] = sys.modules["cv2"] = None
         from nope_tpu_torch.cli import infer
         from nope_tpu_torch.configs import load_config
         from nope_tpu_torch.tasks import refinement
@@ -147,9 +151,10 @@ def test_port_imports_no_jax_in_a_fresh_process():
         assert r.nearest_idx.shape == (2, 5) and np.isfinite(r.similarity).all()
         r = est.estimate("o", rng.integers(0, 256, (2, 32, 32, 3), dtype=np.uint8), refine_steps=1)
         assert r.refined_rotation.shape == (2, 3, 3)
-        tiny = load_config(None, ["model.img_size=32", "model.u_net.u_net_dim=16", "model.u_net.dim_mults=1,2",
-                                  "model.encoder.block_out_channels=8,8,8,8", "model.encoder.layers_per_block=1",
-                                  "model.encoder.norm_groups=4"])
+        tiny_overrides = ["model.img_size=32", "model.u_net.u_net_dim=16", "model.u_net.dim_mults=1,2",
+                          "model.encoder.block_out_channels=8,8,8,8", "model.encoder.layers_per_block=1",
+                          "model.encoder.norm_groups=4"]
+        tiny = load_config(None, tiny_overrides)
         out = infer.run(tiny, rng.integers(0, 256, (32, 32, 3), dtype=np.uint8),
                         rng.integers(0, 256, (1, 32, 32, 3), dtype=np.uint8), torch.device("cpu"),
                         fast=True, refine_steps=1)
@@ -166,6 +171,21 @@ def test_port_imports_no_jax_in_a_fresh_process():
         scores = geodesic.evaluate_geodesic(task, [batch], chunk_size=13, refine_steps=1)
         assert scores["num_images"] == 2 and np.isfinite(scores["top1, median"])
         assert np.isfinite(scores["refined, median"])
+        # the ShapeNet reader, the loader and the evaluation CLI over a root written by png.write_png
+        import tempfile
+        import chip_smoke
+        from nope_tpu_torch.cli import test_shapenet
+        with tempfile.TemporaryDirectory() as tmp:
+            n = chip_smoke.write_shapenet_root(tmp + "/root", categories=("bottle",), objects=1, views=3, img_px=128)
+            ds = shapenet.ShapeNetDataset(tmp + "/root", "bottle", img_size=32)
+            assert shapenet.decoder() == "png" and len(ds) == n == 3
+            batch = next(iter(pipeline.DataLoader(ds, batch_size=2, shuffle=False)))
+            assert batch["query"].shape == (2, 32, 32, 3) and batch["all_relativeR"].shape == (2, 26, 6)
+            scores = test_shapenet.main(["--categories", "bottle", "--device", "cpu", *tiny_overrides,
+                                         f"data.datasets.shapeNet.root_dir={tmp}/root",
+                                         "data.datasets.shapeNet.img_size=32", "machine.batch_size=2",
+                                         f"save_dir={tmp}/out"])
+            assert scores["bottle"]["num_images"] == 3 and np.isfinite(scores["bottle"]["top1, median"])
         bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "nope_tpu"))
         assert not bad, bad
         print("ok")

@@ -93,6 +93,23 @@ it fails at once.
    1e-5); and prints the loader's images/s, the decode and crop times of
    each route and the eval step's time, and from them the share of the
    CLI's wall time the card waits on the host.
+9. Training (``training.train_state``, ``training.trainer``,
+   ``cli.train``): (a) the gradient of one train step's loss (B=2, so a
+   U-Net batch of 4) with respect to every U-Net weight, through K3 and
+   K2 forward and their plain recomputes backward, against the U-Net on
+   plain ops, fp32 and bf16, worst rel by grad-trace group, with every K3
+   recompute asked for its weights' gradients; (b) two fp32 AdamW steps
+   on the card against the CPU's from the same weights and batches
+   (losses; weight deltas, see below); (c) ``cli.train.main`` at full
+   width in bf16 with EMA over a training root it writes (20 steps at
+   B=16, a checkpoint at 10, validation of both streams at 20), then a
+   second ``main`` resumed from the step-10 checkpoint: the same batch
+   stream, losses within rel 2e-2, checkpoint save and restore times,
+   the ``final_params`` exports loaded by ``restore_params``, the steady
+   step in the loop and peak memory; (d) one bf16 step at B=16 split into
+   VAE encode, U-Net forward, backward (of which K3's and K2's plain
+   recomputes) and optimizer + EMA, the same step on plain ops, the share
+   of the loop's step the card waits on the host, and a profile window.
 
 Phases run in the order 1 to 6, so phases 4 and 5 time the serving
 path and the kernels in a process that holds only phase 3's modules
@@ -101,13 +118,23 @@ protocols, ``estimate_many``), 4c refinement (one refine step split into
 kernels forward, backward and its plain recompute; refined ``estimate``
 at B=8 against the unrefined call; a refined eval batch), 5b profiles
 one full-protocol eval step and one refined ``estimate``, and phases 7
-and 8 run.  The last two lines are the kernel table (``ms`` with the host
+and 8, then 9, run.  The last two lines are the kernel table (``ms`` with the host
 in the loop, ``device_ms`` on the device alone, ``launches`` of phase 3,
 ``eval_launches`` of phase 6 (a), ``refine_launches`` of one refined
 ``estimate`` in phase 7 (c), ``cli_launches`` of phase 8's two bf16 CLI
-runs (fast and full protocol), and for K2 and K3 that call's
-``refine_recomputes``, their Functions' ``backward_max_rel`` and the
-pose gradient's ``unet_pose_grad_rel``) and ``{"ok": true, ...}``.
+runs (fast and full protocol), ``train_launches`` and
+``train_recomputes`` of phase 9's uninterrupted CLI run, and for K2 and
+K3 that call's ``refine_recomputes``, their Functions'
+``backward_max_rel``, the pose gradient's ``unet_pose_grad_rel`` and the
+weight gradients' ``unet_weight_grad_rel`` by dtype) and
+``{"ok": true, ...}``.
+
+Weight deltas (phase 9 (b)): AdamW's first update is g/(|g|+eps), about
+sign(g), so an element whose gradient is within float32 rounding of
+zero may move by +lr on one device and -lr on the other.  The first
+step's max|Δgpu-Δcpu|/max|Δcpu| is held on the elements whose |g| is at
+least 1e-4 of their tensor's largest; both steps by the relative L2
+distance and the share of elements off by more than 1e-3 of max|Δcpu|.
 """
 
 from __future__ import annotations
@@ -116,6 +143,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -172,6 +200,15 @@ CLI_CATEGORIES, CLI_OBJECTS, CLI_VIEWS, CLI_BATCH = ("bottle", "mug"), 4, 5, 16
 # the crop on the card against the host crop, images in [0, 1]: the mean
 # bound of tests/test_cropping.py; the fp32 CLI, card against CPU: loss rel
 NATIVE_LSB_SHARE, NATIVE_MAX_LSB, CROP_MEAN_TOL, CLI_LOSS_RTOL = 0.99, 4, 5e-3, 1e-5
+# training (phase 9): a root of 2 training categories x 54 listed objects (4 in
+# each category's training split) with 4 validation objects; the flagship's
+# batch of 16 pairs; 20 steps, a checkpoint at 10, validation at 20
+TRAIN_CATEGORIES, TRAIN_LISTED, TRAIN_VAL_OBJECTS = ("airplane", "car"), 54, 4
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_CKPT = 16, 20, 10
+# the fp32 train step on the card against the CPU's: loss rel; the weights'
+# deltas from the shared start (see phase 9 (b)); the resumed bf16 run's
+# losses against the uninterrupted run's
+TRAIN_LOSS_RTOL, TRAIN_DELTA_RTOL, RESUME_LOSS_RTOL = 1e-5, 1e-3, 2e-2
 
 
 def flagship_config():
@@ -373,8 +410,11 @@ K2_KERNELS = ("la_chunk_kernel", "la_merge_kernel", "la_output_kernel")
 K1_KERNELS = ("similarity_kernel", "reduce_splits_kernel")
 
 
-def profile_window(torch, label, fn, top=6):
-    """Kernel time by name over one call of ``fn`` (after a warm-up)."""
+def profile_window(torch, label, fn, top=6, ranges=()):
+    """Kernel time by name over one call of ``fn`` (after a warm-up), and
+    the device time under each ``torch.profiler.record_function`` range
+    named in ``ranges``.  Returns {wall, kernels, K3, K2, K1, <range>: ms}
+    (empty when the profiler saw no kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -385,24 +425,31 @@ def profile_window(torch, label, fn, top=6):
         fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
-    rows = []  # kernels only: an operator's row repeats its kernels' time
+    rows, spans = [], {}  # kernels only: an operator's row repeats its kernels' time
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", None)
         us = e.self_cuda_time_total if us is None else us
-        if us > 0:
+        if e.key in ranges:  # a range's span on the device's timeline, not a kernel
+            spans[e.key] = (us / 1e3, e.count)
+        elif us > 0:
             rows.append((us / 1e3, e.count, e.key))
     busy = sum(r[0] for r in rows)
     if not busy:
         print(f"  profile {label}: wall {wall:.2f} ms; device time not measured (the profiler saw no kernels)")
-        return
+        return {}
     own = {k: sum(r[0] for r in rows if any(name in r[2] for name in names))
            for k, names in (("K3", K3_KERNELS), ("K2", K2_KERNELS), ("K1", K1_KERNELS))}
     print(f"  profile {label}: wall {wall:.2f} ms, kernels {busy:.2f} ms ({100 * busy / wall:.1f}% of wall), "
           + ", ".join(f"{k} {ms:.3f} ms ({100 * ms / busy:.1f}%)" for k, ms in own.items()) + " of kernel time")
+    for name in ranges:  # first kernel to last of each call, summed: kernels and the gaps between them
+        ms, count = spans.get(name, (0.0, 0))
+        print(f"    range {name!r}: x{count}, on the device " + (f"{ms:.3f} ms ({100 * ms / wall:.1f}% of wall)"
+                                                                 if ms else "not measured"))
     for ms, count, name in sorted(rows, reverse=True)[:top]:
         print(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}% x{count:<4} {name[:90]}")
+    return {"wall": wall, "kernels": busy, **own, **{name: spans.get(name, (0.0, 0))[0] for name in ranges}}
 
 
 GALLERY = ("mug", "cup", "can", "box")
@@ -894,14 +941,18 @@ def refinement_timings(torch, smi, est, task32, half, requests, grids, dev):
           f"{REFINE_STEPS} {t_on:.2f} ms ({1000 * 16 / t_on:.2f} img/s) [{smi}]")
 
 
-def write_shapenet_root(root, categories=CLI_CATEGORIES, objects=CLI_OBJECTS, views=CLI_VIEWS, img_px=512, seed=0):
+def write_shapenet_root(root, categories=CLI_CATEGORIES, objects=CLI_OBJECTS, views=CLI_VIEWS, img_px=512, seed=0,
+                        materialise=None, template_indexes=()):
     """Write a procedural ShapeNet-layout root (``nope_tpu/data/shapenet.py:5-17``)
     with the port's own PNG writer (no Pillow): ``cad_names.txt``, ``views``
     query and reference RGBA images per object (seeded colour cells with
     noise under an alpha disc) and ``object_{query,reference,template}_poses``
     at level-2 grid poses with the translation doubled, as
-    ``tests/fixtures.py`` places them, 1 m in front of the camera.  Returns
-    the number of queries of each category."""
+    ``tests/fixtures.py`` places them, 1 m in front of the camera.  With
+    ``materialise`` (object ids) only those objects get images and poses;
+    ``template_indexes`` adds ``templates_<idx>.png`` per object (one drawn
+    image, hard-linked), which the training split reads.  Returns the
+    number of queries of each category."""
     from nope_tpu_torch.data.categories import SHAPENET_CAT2ID
     from nope_tpu_torch.data.png import write_png
     from nope_tpu_torch.geometry import so3_grid
@@ -916,7 +967,15 @@ def write_shapenet_root(root, categories=CLI_CATEGORIES, objects=CLI_OBJECTS, vi
     alpha = (((yy - img_px / 2) ** 2 + (xx - img_px / 2) ** 2 <= (0.35 * img_px) ** 2) * 255).astype(np.uint8)
     templates = grid.copy()
     templates[:, :3, 3] *= 2.0
+
+    def image():
+        cells = rng.integers(0, 248, (16, 16, 3), dtype=np.uint8)
+        rgb = np.repeat(np.repeat(cells, img_px // 16, 0), img_px // 16, 1)
+        return np.dstack([rgb + rng.integers(0, 8, rgb.shape, dtype=np.uint8), alpha])
+
     for obj_id in range(len(cads)):
+        if materialise is not None and obj_id not in materialise:
+            continue
         name = f"obj_{obj_id:06d}"
         (root / "images" / name).mkdir(parents=True, exist_ok=True)
         for kind in ("query", "reference", "template"):
@@ -926,11 +985,45 @@ def write_shapenet_root(root, categories=CLI_CATEGORIES, objects=CLI_OBJECTS, vi
             if kind == "template":
                 continue
             for i in range(views):
-                cells = rng.integers(0, 248, (16, 16, 3), dtype=np.uint8)
-                rgb = np.repeat(np.repeat(cells, img_px // 16, 0), img_px // 16, 1)
-                rgb = rgb + rng.integers(0, 8, rgb.shape, dtype=np.uint8)
-                write_png(str(root / "images" / name / f"{kind}_{i:06d}.png"), np.dstack([rgb, alpha]), level=1)
+                write_png(str(root / "images" / name / f"{kind}_{i:06d}.png"), image(), level=1)
+        first = None
+        for idx in template_indexes:
+            path = root / "images" / name / f"templates_{idx:06d}.png"
+            if first is None:
+                write_png(str(path), image(), level=1)
+                first = path
+            else:
+                path.hardlink_to(first)
     return objects * views
+
+
+def write_training_root(root):
+    """A root for the training CLI: ``TRAIN_CATEGORIES`` x ``TRAIN_LISTED``
+    objects listed; the training split's (the last ``TRAIN_LISTED`` - 50 of
+    each category's seeded shuffle) and the first ``TRAIN_VAL_OBJECTS`` of
+    the validation split's are written, with the level-2 template images
+    the training split reads as references.  Returns (training items,
+    validation items)."""
+    from nope_tpu_torch.data.categories import SHAPENET_CAT2ID
+    from nope_tpu_torch.data.shapenet import ShapeNetDataset
+    from nope_tpu_torch.geometry import so3_grid
+
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "cad_names.txt").write_text(
+        "\n".join(f"{SHAPENET_CAT2ID[c]}_cad{j}" for c in TRAIN_CATEGORIES for j in range(TRAIN_LISTED)) + "\n")
+
+    class Probe(ShapeNetDataset):
+        def _load_metadata(self):
+            self.selected = self._selected_object_ids()
+            self.query_paths = []
+
+    train = list(Probe(str(root), split="training").selected)
+    val = list(Probe(str(root), split="unseen_training").selected[:TRAIN_VAL_OBJECTS])
+    train_idx, _ = so3_grid.get_obj_poses_from_template_level(2, "upper", return_index=True)
+    write_shapenet_root(root, TRAIN_CATEGORIES, TRAIN_LISTED, CLI_VIEWS, materialise=set(train + val),
+                        template_indexes=train_idx, seed=9)
+    return len(train) * CLI_VIEWS, len(val) * CLI_VIEWS
 
 
 def cli_phase(torch, dev, smi, counters, task32, half, native_build):
@@ -1131,6 +1224,343 @@ def cli_phase(torch, dev, smi, counters, task32, half, native_build):
         if not same:
             raise RuntimeError("the loader's batches differ without Pillow and cv2")
     return launches
+
+
+class _NoUpdate:
+    """The optimizer seat of a train state that only clears gradients: a
+    train step with it leaves the weights as they were and the gradients
+    in ``.grad``."""
+
+    def __init__(self, params):
+        self.params = list(params)
+
+    def zero_grad(self):
+        for p in self.params:
+            p.grad = None
+
+    def step(self):
+        return True
+
+
+def train_pairs(torch, b, seed):
+    """One dataset's batch of ``b`` training pairs on the uint8 wire: seeded
+    images, a seeded ΔR and its inverse (6d)."""
+    from nope_tpu_torch.geometry.rotations import matrix_to_rotation_6d
+
+    rng = np.random.default_rng(seed)
+    mats = random_rotations(torch, b, seed, "cpu")
+    return {"query": rng.integers(0, 256, (b, IMAGE, IMAGE, 3), dtype=np.uint8),
+            "reference": rng.integers(0, 256, (b, IMAGE, IMAGE, 3), dtype=np.uint8),
+            "relativeR": matrix_to_rotation_6d(mats).numpy(),
+            "relativeR_inv": matrix_to_rotation_6d(mats.transpose(-1, -2)).numpy()}
+
+
+def weight_grads(torch, task, batches, half):
+    """d(train loss)/d(every U-Net parameter) of one train step, through
+    whatever ops the U-Net runs; the weights stay as they are."""
+    from nope_tpu_torch.training import train_state
+
+    state = train_state.TrainState(0, task.unet, task.vae, _NoUpdate(task.unet.parameters()))
+    _, metrics = train_state.make_train_step(task, half_precision=half)(state, batches)
+    grads = {n: p.grad for n, p in task.unet.named_parameters()}
+    state.opt.zero_grad()
+    return grads, float(metrics["loss/train_avg"])
+
+
+@contextlib.contextmanager
+def timed_recomputes(torch):
+    """CUDA events and a profiler range ("K3 plain recompute", "K2 plain
+    recompute") around each backward of K3's and K2's autograd Functions."""
+    from nope_tpu_torch.ops import fused_resnet as fr
+    from nope_tpu_torch.ops import linear_attention as la
+
+    spans, saved = {"K3": [], "K2": []}, {}
+    for k, fn_cls in (("K3", fr._ResnetBlockFn), ("K2", la._LinearAttentionFn)):
+        real = saved[fn_cls] = fn_cls.__dict__["backward"]
+
+        def wrapped(ctx, *grads, _real=real.__func__, _k=k):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            with torch.profiler.record_function(f"{_k} plain recompute"):
+                start.record()
+                out = _real(ctx, *grads)
+                end.record()
+            spans[_k].append((start, end))
+            return out
+
+        fn_cls.backward = staticmethod(wrapped)
+    try:
+        yield spans
+    finally:
+        for fn_cls, real in saved.items():
+            fn_cls.backward = real
+
+
+def span_ms(torch, spans):
+    torch.cuda.synchronize()
+    return {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+
+
+def training_phase(torch, dev, smi, counters, task32, unet_cpu, vae_cpu, per_forward):
+    """Phase 9: training at full width.  ``per_forward``: K3's and K2's
+    launches in one U-Net forward.  Returns the kernels' launches and
+    recomputes over the CLI's uninterrupted run, the weight gradients'
+    worst rel in each dtype and the step's timings."""
+    import tempfile
+
+    from nope_tpu_torch.cli import train as train_cli
+    from nope_tpu_torch.data import pipeline
+    from nope_tpu_torch.data.shapenet import ShapeNetDataset
+    from nope_tpu_torch.models.factory import build_task
+    from nope_tpu_torch.ops import fused_resnet as fr
+    from nope_tpu_torch.ops import linear_attention as la
+    from nope_tpu_torch.tasks.pose_conditional import PoseConditionalTask
+    from nope_tpu_torch.training import checkpoint, optim, train_state
+    from nope_tpu_torch.training.checkpoint import CheckpointManager
+
+    print("phase 9: training on the card (full width, seeded random weights)")
+    out = {"grad": {}}
+    groups = train_state._grad_trace_groups(task32.unet)
+
+    # (a) weight gradients through K3, K2 and their recompute backwards against the plain U-Net
+    batches = {"ds": train_pairs(torch, 2, 90)}
+    for dn, half in (("float32", False), ("bfloat16", True)):
+        before = (fr.resnet_block.launches, la.linear_attention_inner.launches)
+        with weight_grad_spy(torch) as asked:
+            g_k, loss_k = weight_grads(torch, task32, batches, half)
+        fwd = (fr.resnet_block.launches - before[0], la.linear_attention_inner.launches - before[1])
+        with plain_ops():
+            g_p, loss_p = weight_grads(torch, task32, batches, half)
+        rels = {}
+        for grp in train_state.GRAD_TRACE_GROUPS:
+            names = [n for n, g in groups.items() if g == grp]
+            num = max(float((g_k[n].float() - g_p[n].float()).abs().max()) for n in names)
+            rels[grp] = num / max(float(g_p[n].float().abs().max()) for n in names)
+        worst = max(rels.values())
+        finite = all(bool(torch.isfinite(g).all()) for g in g_k.values())
+        ok = worst <= GRAD_TOL[dn] and finite and len(asked) == per_forward[0] and all(asked) and fwd == per_forward
+        print(f"  d(train loss)/d(U-Net weights) B=2 (U-Net batch 4) {dn:<8} kernels forward + plain recompute vs "
+              f"plain U-Net: worst rel by group " + ", ".join(f"{g} {r:.3e}" for g, r in rels.items())
+              + f" (tol {GRAD_TOL[dn]:.0e}); loss {loss_k:.6f} vs {loss_p:.6f}; forward K3 x{fwd[0]} K2 x{fwd[1]}; "
+              f"{len(asked)} K3 recomputes, each asked for its weight gradients: {all(asked)} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"the weight gradients through the kernels disagree ({dn})")
+        out["grad"][dn] = worst
+        del g_k, g_p
+
+    # (b) two fp32 AdamW steps on the card against the CPU's, from the same weights and batches
+    def two_steps(unet, vae):
+        task = PoseConditionalTask(unet, vae, task32.config)
+        opt = optim.make_optimizer(unet.parameters(), base_lr=1e-4, warm_up_steps=0)
+        state = train_state.TrainState(0, unet, vae, opt)
+        step = train_state.make_train_step(task)
+        start = {n: p.detach().clone() for n, p in unet.named_parameters()}
+        losses, deltas, first = [], [], None
+        for seed in (91, 92):
+            state, m = step(state, {"ds": train_pairs(torch, 2, seed)})
+            if first is None:
+                first = {n: p.grad.detach().cpu() for n, p in unet.named_parameters()}
+            losses.append(float(m["loss/train_avg"]))
+            deltas.append({n: (p.detach() - start[n]).cpu() for n, p in unet.named_parameters()})
+        return losses, deltas, first
+
+    t0 = time.perf_counter()
+    gl, gd, _ = two_steps(copy.deepcopy(task32.unet), task32.vae)
+    cl, cd, cfirst = two_steps(copy.deepcopy(unet_cpu), vae_cpu)
+    # AdamW's first update is g/(|g|+eps), about sign(g): elements whose gradient is within float32
+    # rounding of zero may take either sign on either device, so the first step's max is held on the
+    # elements whose |g| is at least 1e-4 of their tensor's largest; both steps by the relative L2 distance
+    keep = {n: g.abs() >= 1e-4 * g.abs().max() for n, g in cfirst.items()}
+    kept = sum(int(m.sum()) for m in keep.values()) / sum(m.numel() for m in keep.values())
+    top1 = max(float(d.abs().max()) for d in cd[0].values())
+    step1 = max(float((gd[0][n] - cd[0][n]).abs()[keep[n]].max()) for n in keep) / top1
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
+    ok = loss_rel <= TRAIN_LOSS_RTOL and step1 <= TRAIN_DELTA_RTOL and kept >= 0.99
+    l2s, shares, raw = [], [], []
+    for a, b in zip(gd, cd):
+        diff = torch.cat([(a[n] - b[n]).reshape(-1) for n in b])
+        ref = torch.cat([b[n].reshape(-1) for n in b])
+        l2s.append(float(diff.norm() / ref.norm()))
+        shares.append(float((diff.abs() > TRAIN_DELTA_RTOL * ref.abs().max()).float().mean()))
+        raw.append(float(diff.abs().max() / ref.abs().max()))
+    ok &= max(l2s) <= TRAIN_DELTA_RTOL and max(shares) <= TRAIN_DELTA_RTOL
+    print(f"  fp32 train step, card vs CPU, 2 AdamW steps (lr 1e-4, warm_up_steps=0) at B=2: losses "
+          f"{[round(x, 7) for x in gl]} vs {[round(x, 7) for x in cl]} rel {loss_rel:.2e} (tol {TRAIN_LOSS_RTOL:.0e}); "
+          f"weight deltas: step 1 max|Δgpu-Δcpu|/max|Δcpu| {step1:.2e} over the {100 * kept:.3f}% of elements "
+          f"whose |g| >= 1e-4 of their tensor's max (tol {TRAIN_DELTA_RTOL:.0e}); relative L2 by step "
+          f"{[f'{x:.2e}' for x in l2s]}, share of elements off by > 1e-3 of max|Δcpu| {[f'{x:.1e}' for x in shares]}"
+          f" (tol {TRAIN_DELTA_RTOL:.0e}); unmasked max rel {[f'{x:.2e}' for x in raw]}; "
+          f"{time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("the fp32 train step on the card disagrees with the CPU's")
+    del gd, cd, cfirst
+
+    # (c) cli.train.main at full width in bf16 over a training root, then a resume from its step-10 checkpoint
+    with tempfile.TemporaryDirectory(prefix="nope_train_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        n_train, n_val = write_training_root(tmp / "root")
+        print(f"  training root: {len(TRAIN_CATEGORIES)} categories x {TRAIN_LISTED} listed objects, {n_train} "
+              f"training queries, {n_val} validation queries, 512-px RGBA, written in {time.perf_counter() - t0:.2f} s")
+        fetched = []  # (epoch, index) of each training batch, in fetch order
+        real_item, real_collate = ShapeNetDataset.__getitem__, pipeline.collate
+
+        def item(self, index):
+            it = real_item(self, index)
+            if self.split == "training":
+                it["_idx"] = np.asarray([self._epoch, index], np.int64)
+            return it
+
+        def collate(items):
+            batch = real_collate(items)
+            if "_idx" in batch:
+                fetched.append(batch.pop("_idx").tolist())
+            return batch
+
+        saves, restores = [], []
+        real_save, real_restore = CheckpointManager.save, CheckpointManager.restore_with_ema
+        resume_dir = tmp / "b" / "train" / "checkpoints"
+
+        def timed_save(self, step, state, force=False, ema_params=None):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            done = real_save(self, step, state, force, ema_params)
+            if done:
+                path = Path(self._path(step))
+                saves.append((step, time.perf_counter() - t, path.stat().st_size))
+                if step == TRAIN_CKPT and resume_dir not in path.parents:
+                    resume_dir.mkdir(parents=True, exist_ok=True)
+                    os.link(path, resume_dir / path.name)  # the resumed run's start; survives keep_checkpoints=1
+            return done
+
+        def timed_restore(self, state, ema_params, step=None):
+            t = time.perf_counter()
+            got = real_restore(self, state, ema_params, step)
+            torch.cuda.synchronize()
+            restores.append(time.perf_counter() - t)
+            return got
+
+        common = [f"data.datasets.shapeNet.root_dir={tmp / 'root'}", "model.optim_config.half_precision_train=true",
+                  "model.optim_config.ema_decay=0.999", f"machine.batch_size={TRAIN_BATCH}",
+                  "trainer.keep_checkpoints=1", f"trainer.val_check_interval={TRAIN_STEPS}",
+                  "trainer.media_every_n_steps=0", "trainer.num_sanity_val_steps=0", "trainer.log_every_n_steps=1",
+                  "name_exp=train"]
+        ShapeNetDataset.__getitem__, pipeline.collate = item, collate
+        CheckpointManager.save, CheckpointManager.restore_with_ema = timed_save, timed_restore
+        try:
+            for fn in counters:
+                fn.launches = 0
+            fr._ResnetBlockFn.recomputes = la._LinearAttentionFn.recomputes = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state_a, trainer_a = train_cli.main(["--max-steps", str(TRAIN_STEPS), *common, f"save_dir={tmp / 'a'}",
+                                                 f"trainer.checkpoint_every_n_steps={TRAIN_CKPT}"])
+            torch.cuda.synchronize()
+            wall_a = time.perf_counter() - t0
+            out["launches"] = {fn.__name__: fn.launches for fn in counters}
+            out["recomputes"] = {"K3": fr._ResnetBlockFn.recomputes, "K2": la._LinearAttentionFn.recomputes, "K1": 0}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            log_a, fetched[:] = list(fetched), []
+            # the resumed run saves no checkpoint of its own (its interval is past its steps)
+            t0 = time.perf_counter()
+            state_b, _ = train_cli.main(["--max-steps", str(TRAIN_STEPS), *common, f"save_dir={tmp / 'b'}",
+                                         f"trainer.checkpoint_every_n_steps={10 * TRAIN_STEPS}"])
+            torch.cuda.synchronize()
+            wall_b = time.perf_counter() - t0
+            log_b = list(fetched)
+        finally:
+            ShapeNetDataset.__getitem__, pipeline.collate = real_item, real_collate
+            CheckpointManager.save, CheckpointManager.restore_with_ema = real_save, real_restore
+        rec_a = [json.loads(x) for x in open(tmp / "a" / "train" / "metrics.jsonl")]
+        rec_b = [json.loads(x) for x in open(tmp / "b" / "train" / "metrics.jsonl")]
+        loss_a = {r["step"]: r["loss/train_avg"] for r in rec_a if "loss/train_avg" in r}
+        loss_b = {r["step"]: r["loss/train_avg"] for r in rec_b if "loss/train_avg" in r}
+        val_a = [r for r in rec_a if any(k.startswith("val_ema/") for k in r)]
+        resumed = sorted(loss_b) == list(range(TRAIN_CKPT + 1, TRAIN_STEPS + 1))
+        worst = max(abs(loss_b[s] - loss_a[s]) / abs(loss_a[s]) for s in loss_b) if resumed else float("inf")
+        same_stream = log_b[:TRAIN_STEPS - TRAIN_CKPT] == log_a[TRAIN_CKPT:TRAIN_STEPS]
+        probe = build_task(flagship_config(), dev, torch.Generator().manual_seed(1))
+        exports = tmp / "a" / "train" / "checkpoints"
+        loaded = True
+        for name, unet in (("final_params.pth", state_a.unet), ("final_params_ema.pth", trainer_a.ema_params)):
+            checkpoint.restore_params(str(exports / name), probe)
+            loaded &= all(torch.equal(a, b) for a, b in zip(probe.unet.state_dict().values(),
+                                                            unet.state_dict().values()))
+        export_gb = sum((exports / n).stat().st_size for n in ("final_params.pth", "final_params_ema.pth")) / 1e9
+        rates = [r["steps_per_sec"] for r in rec_a if "steps_per_sec" in r and r["step"] > 1]
+        step_ms = 1000 / float(np.median(rates))
+        ok = (all(out["launches"].values()) and all(np.isfinite(list(loss_a.values()))) and len(loss_a) == TRAIN_STEPS
+              and state_a.step == state_b.step == TRAIN_STEPS and resumed and worst <= RESUME_LOSS_RTOL and same_stream
+              and len(val_a) == 1 and [s for s, _, _ in saves] == [TRAIN_CKPT, TRAIN_STEPS] and len(restores) == 1
+              and loaded)
+        print(f"  cli.train.main bf16, EMA 0.999, B={TRAIN_BATCH}: {TRAIN_STEPS} steps in {wall_a:.2f} s of main "
+              f"(checkpoints at {[s for s, _, _ in saves]}, validation at {TRAIN_STEPS} on both streams: "
+              f"{sorted(k for k in val_a[0] if k.endswith('top1, accuracy_15')) if val_a else 'MISSING'}); launches "
+              f"{out['launches']}, recomputes {out['recomputes']}; loss {loss_a[1]:.5f} -> {loss_a[TRAIN_STEPS]:.5f}")
+        print(f"  resumed from step {TRAIN_CKPT} by a second main ({wall_b:.2f} s): batch (epoch, index) stream "
+              f"{'equal to' if same_stream else 'DIFFERS from'} the uninterrupted run's over steps "
+              f"{TRAIN_CKPT + 1}-{TRAIN_STEPS}; losses worst rel {worst:.3e} (tol {RESUME_LOSS_RTOL:.0e})")
+        print(f"  steady step in the loop (median of steps 2-{TRAIN_STEPS}, host clocks, a metric read every step): "
+              f"{step_ms:.2f} ms, {1000 / step_ms:.3f} steps/s, {TRAIN_BATCH * 1000 / step_ms:.2f} training pairs/s; "
+              f"peak memory {peak:.2f} GiB [{smi}]")
+        print(f"  checkpoints: save " + ", ".join(f"step {s} {t:.2f} s {b / 1e9:.3f} GB" for s, t, b in saves)
+              + f"; restore {restores[0] if restores else float('nan'):.2f} s; final_params + final_params_ema "
+              f"{export_gb:.3f} GB, loaded by restore_params bitwise: {loaded} {'ok' if ok else 'FAIL'} [{smi}]")
+        if not ok:
+            raise RuntimeError("the training CLI on the card failed its checks")
+        del state_a, trainer_a, state_b, probe
+    torch.cuda.empty_cache()
+
+    # (d) one bf16 train step at B=16, split; the same step on plain ops; a profile window
+    unet = copy.deepcopy(task32.unet)
+    task = PoseConditionalTask(unet, task32.vae, task32.config)
+    state = train_state.TrainState(0, unet, task32.vae, optim.make_optimizer(unet.parameters(), warm_up_steps=0))
+    ema = copy.deepcopy(unet).requires_grad_(False)
+    step = train_state.make_train_step(task, half_precision=True, ema_decay=0.999)
+    host = {"ds": train_pairs(torch, TRAIN_BATCH, 93)}
+    batches = {"ds": {k: torch.from_numpy(v).to(dev) for k, v in host["ds"].items()}}
+    t_step = median_ms(torch, lambda: step(state, batches, ema))
+    with plain_ops():
+        t_plain = median_ms(torch, lambda: step(state, batches, ema))
+    half_vae = train_state._HalfCopy()(task32.vae)
+    imgs = {k: train_state.device_batch(batches["ds"][k], dev).to(torch.bfloat16) for k in ("query", "reference")}
+    with torch.no_grad():
+        t_vae = median_ms(torch, lambda: [half_vae.encode_image(imgs[k]) for k in imgs])
+        q_lat, r_lat = (half_vae.encode_image(imgs[k]) for k in ("query", "reference"))
+    poses = torch.cat([batches["ds"]["relativeR"], batches["ds"]["relativeR_inv"]]).to(torch.bfloat16)
+    ref, target = torch.cat([r_lat, q_lat]), torch.cat([q_lat, r_lat])
+
+    def forward():
+        params = {n: p.to(torch.bfloat16) for n, p in unet.named_parameters()}
+        pred = torch.func.functional_call(unet, params, (ref.permute(0, 3, 1, 2), poses))
+        return torch.mean(torch.abs(pred.permute(0, 2, 3, 1) - target)).float()
+
+    with torch.enable_grad():
+        t_fwd = median_ms(torch, forward)
+        state.opt.zero_grad()
+        t_fb = median_ms(torch, lambda: forward().backward())
+        with timed_recomputes(torch) as spans:
+            state.opt.zero_grad()
+            forward().backward()
+        rec = span_ms(torch, spans)
+    t_opt = median_ms(torch, lambda: (state.opt.step(), optim.ema_update(list(ema.parameters()),
+                                                                            list(unet.parameters()), 0.999)))
+    wait = max(0.0, 1.0 - t_step / step_ms)
+    print(f"phase 9 (d): one bf16 train step at B={TRAIN_BATCH} (U-Net batch {2 * TRAIN_BATCH}), EMA on, batch on the "
+          f"card (CUDA events, median of 3 after a warm-up) [{smi}]:")
+    print(f"    whole step {t_step:.2f} ms ({1000 / t_step:.3f} steps/s, {TRAIN_BATCH * 1000 / t_step:.2f} pairs/s); "
+          f"on plain ops (cuDNN convs, plain linear attention) {t_plain:.2f} ms")
+    print(f"    VAE encode (2 x {TRAIN_BATCH} images) {t_vae:.2f} ms; U-Net forward + loss {t_fwd:.2f} ms; backward "
+          f"{t_fb - t_fwd:.2f} ms, of which the plain recomputes K3 {rec['K3']:.2f} ms (x{len(spans['K3'])}), K2 "
+          f"{rec['K2']:.2f} ms (x{len(spans['K2'])}); optimizer + EMA {t_opt:.2f} ms")
+    print(f"    the card waits on the host in the CLI's loop: 1 - {t_step:.2f} / {step_ms:.2f} ms = {100 * wait:.1f}% "
+          f"of its steady step [{smi}]")
+    with timed_recomputes(torch):
+        prof = profile_window(torch, f"bf16 train step B={TRAIN_BATCH}", lambda: step(state, batches, ema), top=10,
+                              ranges=("K3 plain recompute", "K2 plain recompute"))
+    out["timings"] = {"step_ms": t_step, "plain_ms": t_plain, "profile": prof}
+    del unet, ema, state, task
+    torch.cuda.empty_cache()
+    return out
 
 
 @contextlib.contextmanager
@@ -1516,6 +1946,9 @@ def main() -> int:
     # -- phase 8: the evaluation CLI ---------------------------------------------
     cli_launches = cli_phase(torch, dev, smi, counters, task32, half, native_build)
 
+    # -- phase 9: training -------------------------------------------------------
+    tr = training_phase(torch, dev, smi, counters, task32, unet_cpu, vae_cpu, (len(k3_calls), len(k2_calls)))
+
     table = [
         ("reference_similarity", "K1", "nope_tpu_torch/csrc/similarity.cu",
          "nope_tpu/ops/experimental/pallas_similarity.py:29", sim.reference_similarity),
@@ -1532,7 +1965,8 @@ def main() -> int:
          "ms": kernel_ms[k][0], "plain_ms": kernel_ms[k][1], "bound_ms": bounds[k][0],
          "bound_by": bounds[k][1], "library_ms": kernel_ms[k][2], "device_ms": kernel_ms[k][3],
          "eval_launches": ev["launches"][fn.__name__], "refine_launches": rf["launches"][fn.__name__],
-         "cli_launches": cli_launches[fn.__name__],
+         "cli_launches": cli_launches[fn.__name__], "train_launches": tr["launches"][fn.__name__],
+         "train_recomputes": tr["recomputes"][k], "unet_weight_grad_rel": tr["grad"] if k != "K1" else None,
          **({"refine_recomputes": rf["recomputes"][k], "backward_max_rel": rf["backward"][k],
              "unet_pose_grad_rel": rf["unet_grad"]} if k in rf["backward"] else {})}
         for name, k, src, rep, fn in table

@@ -8,17 +8,19 @@ that yields one batch per dataset each step, cycling shorter datasets:
 the semantics of the reference's ``DataLoader`` + Lightning
 ``CombinedLoader(mode="max_size_cycle")`` stack
 (``src/utils/dataloader.py:7-19``), and the JAX package's loader to the
-batch.  The host-to-device prefetch of the JAX package
-(``device_prefetch``) comes with the trainer (ROADMAP queue 1 item 9).
+batch; :func:`device_prefetch` overlaps the host-to-device copies with
+the train step.
 """
 
 from __future__ import annotations
 
+import collections
 import queue
 import threading
 from typing import Any, Dict, Iterator, List, Sequence
 
 import numpy as np
+import torch
 
 
 def collate(items: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
@@ -205,6 +207,51 @@ class ConcatDataset:
     def __getitem__(self, idx: int):
         d = int(np.searchsorted(self._offsets, idx, side="right") - 1)
         return self.datasets[d][idx - int(self._offsets[d])]
+
+
+def device_prefetch(iterator: Iterator, device: torch.device, depth: int = 2) -> Iterator:
+    """Overlap host-to-device copies with compute
+    (``nope_tpu/data/pipeline.py:207-229``): keep ``depth`` batches in
+    flight on ``device``.  Each batch is a (nested) dict of numpy arrays;
+    every array goes through pinned host memory and a ``non_blocking``
+    copy on a side stream, and the consumer's stream waits for that copy
+    before it reads the batch.  dtypes are kept: a uint8 wire stays uint8
+    until the step normalises it on the device.  On the CPU the arrays
+    become tensors that share their memory."""
+    device = torch.device(device)
+    buf: "collections.deque" = collections.deque()
+    stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def put(batch):
+        if isinstance(batch, dict):
+            return {k: put(v) for k, v in batch.items()}
+        t = torch.as_tensor(np.ascontiguousarray(batch))
+        if stream is None:
+            return t.to(device)
+        with torch.cuda.stream(stream):
+            return t.pin_memory().to(device, non_blocking=True)
+
+    def ready(batch):
+        if stream is not None:
+            torch.cuda.current_stream(device).wait_stream(stream)
+            for t in _leaves(batch):
+                t.record_stream(torch.cuda.current_stream(device))
+        return batch
+
+    for batch in iterator:
+        buf.append(put(batch))
+        if len(buf) > depth:
+            yield ready(buf.popleft())
+    while buf:
+        yield ready(buf.popleft())
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def make_native_collate(img_size: int):

@@ -75,6 +75,12 @@ def build_unet(cfg, latent_dim: int, generator: torch.Generator, device: torch.d
     ), generator, device)
 
 
+def build_vae(cfg, generator: torch.Generator, device: torch.device) -> StableDiffusionVAE:
+    """The VAE alone (``cfg``: an ``EncoderConfig``), seeded in module
+    order, float32 on ``device``: what VAE pretraining starts from."""
+    return init_weights(_vae(cfg), generator).to(device).eval()
+
+
 def build_task(cfg, device: torch.device, generator: torch.Generator) -> PoseConditionalTask:
     """The task with seeded random weights on ``device`` (float32).  The
     U-Net draws between the VAE's encoder and decoder sides, so a seed

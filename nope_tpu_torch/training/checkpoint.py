@@ -1,6 +1,15 @@
-"""Restore the port's weights from a reference-format torch checkpoint.
+"""Checkpoints: the trainer's save and resume, and the port's weights
+in the reference's torch format.
 
-The file is what the reference trainer writes (and what
+:class:`CheckpointManager` (``nope_tpu/training/checkpoint.py:22-112``)
+keeps the full train state, one ``torch.save`` file per step (state
+dicts of the U-Net, the VAE, the optimizer with its schedule count and
+skip-spike state, and optionally the EMA U-Net), written to a temporary
+name and renamed, so a crash mid-save leaves no checkpoint behind.
+
+The weights alone (:func:`save_reference_checkpoint`, the trainer's
+``final_params`` and ``best`` exports, :func:`restore_params`) are the
+file the reference trainer writes (and what
 ``nope_tpu/cli/test_shapenet.py`` reads): a dict whose ``state_dict``
 holds the pose U-Net under ``u_net.`` and the SD-VAE under
 ``u_net.encoder.encoder.``.  The port's modules keep the reference's key
@@ -23,6 +32,8 @@ as the JAX package's evaluation CLI does.
 from __future__ import annotations
 
 import os
+import re
+from typing import List, Optional
 
 import torch
 
@@ -44,12 +55,19 @@ def split_state_dict(state_dict):
     return unet, vae
 
 
+def atomic_save(obj, path: str) -> None:
+    """``torch.save`` to a temporary name beside ``path``, then rename."""
+    tmp = os.path.join(os.path.dirname(os.path.abspath(path)), f".{os.path.basename(path)}.tmp")
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
 def save_reference_checkpoint(path: str, unet_state_dict, vae_state_dict) -> None:
     """Write U-Net and VAE state dicts (the port's key names) as a
     reference-format checkpoint that :func:`restore_params` reads."""
     state = {UNET_PREFIX + k: v for k, v in unet_state_dict.items()}
     state.update({VAE_PREFIX + k: v for k, v in vae_state_dict.items()})
-    torch.save({"state_dict": state}, path)
+    atomic_save({"state_dict": state}, path)
 
 
 def _load_state_dict(path: str) -> dict:
@@ -91,3 +109,89 @@ def restore_eval_params(path: str, task) -> bool:
     if vae:
         task.vae.load_state_dict(vae, strict=True)
     return bool(vae)
+
+
+class CheckpointManager:
+    """Save and restore of the train state with the reference's cadence
+    (a checkpoint every ``save_interval_steps`` optimizer steps; keep all,
+    or the newest ``max_to_keep``), as the JAX package's orbax manager:
+    a step that is not a multiple of the interval, or not past the
+    newest checkpoint, is not saved unless forced.  Files are
+    ``<directory>/ckpt_<step>.pt``; anything else there is ignored."""
+
+    _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
+
+    def __init__(self, directory: str, save_interval_steps: int = 100, max_to_keep: Optional[int] = None):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+        self.save_interval_steps = int(save_interval_steps)
+        self.max_to_keep = max_to_keep
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.directory, f"ckpt_{step:08d}.pt")
+
+    def all_steps(self) -> List[int]:
+        steps = (self._NAME.match(name) for name in os.listdir(self.directory))
+        return sorted(int(m.group(1)) for m in steps if m)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, state, force: bool = False, ema_params=None) -> bool:
+        """Save ``state`` (a ``TrainState``) at ``step``; ``ema_params`` (the
+        EMA U-Net) rides in the same file.  Returns whether it saved."""
+        latest = self.latest_step()
+        if not force and ((latest is not None and latest >= step) or step % self.save_interval_steps):
+            return False
+        payload = {
+            "step": int(state.step),
+            "unet": state.unet.state_dict(),
+            "vae": state.vae.state_dict(),
+            "opt": state.opt.state_dict(),
+        }
+        if ema_params is not None:
+            payload["ema"] = ema_params.state_dict()
+        atomic_save(payload, self._path(step))
+        if self.max_to_keep is not None:
+            for old in self.all_steps()[:-self.max_to_keep]:
+                os.remove(self._path(old))
+        return True
+
+    def _load(self, step: Optional[int]) -> dict:
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {self.directory}")
+        return torch.load(self._path(step), map_location="cpu", weights_only=True)
+
+    @staticmethod
+    @torch.no_grad()
+    def _into(state, payload: dict):
+        state.unet.load_state_dict(payload["unet"], strict=True)
+        state.vae.load_state_dict(payload["vae"], strict=True)
+        state.opt.load_state_dict(payload["opt"])
+        state.step = int(payload["step"])
+        return state
+
+    def restore(self, state, step: Optional[int] = None):
+        """Load the checkpoint at ``step`` (default: the newest) into
+        ``state``'s modules and optimizer, in place, on their device; an
+        EMA stream in the file is ignored."""
+        return self._into(state, self._load(step))
+
+    def restore_with_ema(self, state, ema_params, step: Optional[int] = None):
+        """(state, ema_params) restored in place; ``(state, None)`` from a
+        checkpoint saved without an EMA stream (the caller seeds one)."""
+        payload = self._load(step)
+        self._into(state, payload)
+        if "ema" not in payload:
+            return state, None
+        with torch.no_grad():
+            ema_params.load_state_dict(payload["ema"], strict=True)
+        return state, ema_params
+
+    def wait(self) -> None:
+        """Saves are synchronous: nothing to wait for."""
+
+    def close(self) -> None:
+        """Nothing is held open between saves."""

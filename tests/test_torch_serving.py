@@ -127,12 +127,16 @@ def test_port_imports_no_jax_in_a_fresh_process():
         from nope_tpu_torch import native
         from nope_tpu_torch.data import builder, categories, pipeline, png, shapenet
         from nope_tpu_torch.geometry import cropping
-        # absent where the card is: imported by no path below
-        sys.modules["yaml"] = sys.modules["PIL"] = sys.modules["cv2"] = None
+        # absent where the card is, or optional sinks: imported by no path below
+        for name in ("yaml", "PIL", "cv2", "tensorboardX", "wandb"):
+            sys.modules[name] = None
         from nope_tpu_torch.cli import infer
         from nope_tpu_torch.configs import load_config
         from nope_tpu_torch.tasks import refinement
         from nope_tpu_torch.training import checkpoint
+        from nope_tpu_torch.training import optim, pretrain_vae, train_state, trainer
+        from nope_tpu_torch.cli import pretrain_vae as pretrain_vae_cli, train as train_cli
+        from nope_tpu_torch.data.pipeline import device_prefetch
         ns = types.SimpleNamespace
         cfg = ns(
             u_net=ns(variant="vae_base", u_net_dim=16, dim_mults=(1, 2), rot_representation_dim=6,
@@ -186,7 +190,20 @@ def test_port_imports_no_jax_in_a_fresh_process():
                                          "data.datasets.shapeNet.img_size=32", "machine.batch_size=2",
                                          f"save_dir={tmp}/out"])
             assert scores["bottle"]["num_images"] == 3 and np.isfinite(scores["bottle"]["top1, median"])
-        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "nope_tpu"))
+        # training: one train step through device_prefetch, the metric logger without its optional sinks
+        step = train_state.make_train_step(task)
+        state = train_state.create_train_state(task, optim.make_optimizer(task.unet.parameters(), warm_up_steps=0))
+        pairs = dict(query=batch["query"], reference=batch["reference"], relativeR=batch["gt_relativeR"],
+                     relativeR_inv=batch["gt_relativeR"])
+        for b in device_prefetch(iter([{"ds": pairs}]), torch.device("cpu")):
+            state, m = step(state, b)
+        assert state.step == 1 and np.isfinite(train_state.to_numpy_metrics(m)["loss/train_avg"])
+        with tempfile.TemporaryDirectory() as tmp:
+            log = trainer.MetricLogger(tmp)
+            log.log(1, {"loss": 1.0})
+            log.close()
+        bad = sorted(m for m in sys.modules if sys.modules[m] is not None and m.split(".")[0] in (
+            "jax", "jaxlib", "flax", "nope_tpu", "optax", "orbax", "tensorboardX", "wandb"))
         assert not bad, bad
         print("ok")
         """

@@ -110,6 +110,23 @@ it fails at once.
    VAE encode, U-Net forward, backward (of which K3's and K2's plain
    recomputes) and optimizer + EMA, the same step on plain ops, the share
    of the loop's step the card waits on the host, and a profile window.
+10. The parallel paths (``nope_tpu_torch.parallel``), cuDNN
+   deterministic: (a) one NCCL rank in this process, a (1, 1) mesh: the
+   bf16 data-parallel step at B=16 against the single-process step on the
+   same batch and masters (no further apart than the single step from
+   itself), both steps' times in turn, and the template-parallel
+   streaming eval at N=341, B=16 against ``retrieve_streaming``; (b) two
+   fresh ranks on this one card in a gloo group (``parallel_rank``; NCCL
+   refuses a card twice): the fp32 data-parallel step (8 pairs a rank)
+   against one process's 16 (phase 9 (b)'s measures), the bf16 step
+   (the averaged gradients by group, phase 9 (a)'s tolerance), a ZeRO-1
+   step against the replicated one, the streaming eval at meshes (1, 2)
+   and (2, 1) (N=26, B=16) against one process, ``evaluate_geodesic`` in
+   fp32 over a PNG root with each rank scoring its part of every batch
+   and the scores merged, and ``cli.train.main`` on both ranks (3 bf16
+   steps, a checkpoint at 2, merged validation) with a second ``main``
+   resumed from the checkpoint.  Every path's launches are printed; two
+   ranks sharing one card is a correctness check, not a scaling number.
 
 Phases run in the order 1 to 6, so phases 4 and 5 time the serving
 path and the kernels in a process that holds only phase 3's modules
@@ -118,12 +135,13 @@ protocols, ``estimate_many``), 4c refinement (one refine step split into
 kernels forward, backward and its plain recompute; refined ``estimate``
 at B=8 against the unrefined call; a refined eval batch), 5b profiles
 one full-protocol eval step and one refined ``estimate``, and phases 7
-and 8, then 9, run.  The last two lines are the kernel table (``ms`` with the host
+and 8, then 9 and 10, run.  The last two lines are the kernel table (``ms`` with the host
 in the loop, ``device_ms`` on the device alone, ``launches`` of phase 3,
 ``eval_launches`` of phase 6 (a), ``refine_launches`` of one refined
 ``estimate`` in phase 7 (c), ``cli_launches`` of phase 8's two bf16 CLI
 runs (fast and full protocol), ``train_launches`` and
-``train_recomputes`` of phase 9's uninterrupted CLI run, and for K2 and
+``train_recomputes`` of phase 9's uninterrupted CLI run,
+``parallel_launches`` of phase 10 (a) and (b) (both ranks), and for K2 and
 K3 that call's ``refine_recomputes``, their Functions'
 ``backward_max_rel``, the pose gradient's ``unet_pose_grad_rel`` and the
 weight gradients' ``unet_weight_grad_rel`` by dtype) and
@@ -209,6 +227,12 @@ TRAIN_BATCH, TRAIN_STEPS, TRAIN_CKPT = 16, 20, 10
 # deltas from the shared start (see phase 9 (b)); the resumed bf16 run's
 # losses against the uninterrupted run's
 TRAIN_LOSS_RTOL, TRAIN_DELTA_RTOL, RESUME_LOSS_RTOL = 1e-5, 1e-3, 2e-2
+# the parallel paths (phase 10): the global batch of 16 pairs, 8 a rank on a data
+# axis of 2; streamed template chunks of 13 (26 / 2); cli.train's steps and its
+# checkpoint; how long the 2-rank group may take before it is killed
+PAR_BATCH, PAR_CHUNK, PAR_STEPS, PAR_CKPT, PAR_TIMEOUT = TRAIN_BATCH, 13, 3, 2, 480
+# the one-rank step's cost: timed steps of each kind, in turn
+PAR_ROUNDS = 8
 
 
 def flagship_config():
@@ -1563,6 +1587,395 @@ def training_phase(torch, dev, smi, counters, task32, unet_cpu, vae_cpu, per_for
     return out
 
 
+# -- phase 10: the parallel paths --------------------------------------------------
+
+
+def _fresh_state(torch, task32, lr=1e-4):
+    """A train state over a copy of ``task32``'s U-Net (the shared start)
+    and its frozen VAE, AdamW at ``lr`` from step 0."""
+    from nope_tpu_torch.tasks.pose_conditional import PoseConditionalTask
+    from nope_tpu_torch.training import optim, train_state
+
+    unet = copy.deepcopy(task32.unet)
+    task = PoseConditionalTask(unet, task32.vae, task32.config)
+    return task, train_state.TrainState(0, unet, task32.vae, optim.make_optimizer(unet.parameters(), base_lr=lr,
+                                                                                  warm_up_steps=0))
+
+
+def _max_diff(a, b):
+    return max(float((x.detach() - y.detach()).abs().max()) for x, y in zip(a.parameters(), b.parameters()))
+
+
+def _delta_check(torch, dp, single, start):
+    """Phase 9 (b)'s measures of two fp32 steps' weight deltas from
+    ``start``: the max over the elements whose single-process gradient is
+    >= 1e-4 of its tensor's largest, relative to max|Δ_single|; the
+    relative L2 distance over all; the share of elements decided."""
+    num, top, kept, total, sq_diff, sq_ref = 0.0, 0.0, 0, 0, 0.0, 0.0
+    for p_dp, p_1, p_0 in zip(dp.parameters(), single.parameters(), start.parameters()):
+        d_dp, d_1 = (p_dp.detach() - p_0.detach()), (p_1.detach() - p_0.detach())
+        keep = p_1.grad.abs() >= 1e-4 * p_1.grad.abs().max()
+        diff = (d_dp - d_1).abs()
+        num = max(num, float(diff[keep].max()) if bool(keep.any()) else 0.0)
+        top = max(top, float(d_1.abs().max()))
+        kept, total = kept + int(keep.sum()), total + keep.numel()
+        sq_diff, sq_ref = sq_diff + float((diff.double() ** 2).sum()), sq_ref + float((d_1.double() ** 2).sum())
+    return num / top, (sq_diff / sq_ref) ** 0.5, kept / total
+
+
+def _group_grad_rel(torch, got, want):
+    """Worst rel (max|Δg| / max|g|) of ``got``'s gradients against
+    ``want``'s over the grad-trace groups (phase 9 (a)'s measure)."""
+    from nope_tpu_torch.training import train_state
+
+    groups = train_state._grad_trace_groups(want)
+    g_got, g_want = dict(got.named_parameters()), dict(want.named_parameters())
+    rels = {}
+    for grp in train_state.GRAD_TRACE_GROUPS:
+        names = [n for n, g in groups.items() if g == grp]
+        num = max(float((g_got[n].grad.float() - g_want[n].grad.float()).abs().max()) for n in names)
+        rels[grp] = num / max(float(g_want[n].grad.float().abs().max()) for n in names)
+    return rels
+
+
+def _top1_check(torch, got_sim, got_idx, want_sim, want_idx):
+    """Phase 6's bf16 measure: rel of the scores, and the top-1 equal on
+    every row whose margin over the second exceeds BF16_SIM_RTOL of the
+    row's largest |score|."""
+    _, rel = rel_err(got_sim, want_sim)
+    top2 = want_sim.float().topk(2, dim=1).values
+    decided = (top2[:, 0] - top2[:, 1]) > BF16_SIM_RTOL * want_sim.float().abs().amax(1)
+    same = got_idx[:, 0] == want_idx[:, 0]
+    return rel, int(decided.sum()), int(same.sum()), bool(same[decided].all())
+
+
+def parallel_rank(rank, world, init_method, plan):
+    """Phase 10 (b): one of 2 ranks in a gloo group on one card (NCCL
+    refuses a card twice), started fresh by ``parallel.launch``.  Rank 0
+    also runs each path in one process (no collective) and compares; it
+    returns the numbers, every rank its kernels' launches per path."""
+    global IMAGE, LATENT
+    sys.path.insert(0, str(ROOT))
+    import tempfile
+
+    import torch
+
+    from nope_tpu_torch.cli import train as train_cli
+    from nope_tpu_torch.configs import load_config
+    from nope_tpu_torch.data.builder import build_dataset
+    from nope_tpu_torch.data.pipeline import DataLoader
+    from nope_tpu_torch.evaluation.geodesic import evaluate_geodesic
+    from nope_tpu_torch.models.factory import build_task
+    from nope_tpu_torch.ops import fused_resnet as fr
+    from nope_tpu_torch.ops import linear_attention as la
+    from nope_tpu_torch.ops import similarity as sim
+    from nope_tpu_torch.parallel.eval import make_sharded_streaming_eval_fn
+    from nope_tpu_torch.parallel.mesh import create_mesh, initialize_distributed, process_barrier, shard_batch
+    from nope_tpu_torch.parallel.zero import zero1_state_shardings
+    from nope_tpu_torch.tasks.pose_conditional import PoseConditionalTask
+    from nope_tpu_torch.training import train_state
+
+    IMAGE, LATENT = plan["image"], plan["image"] // 8
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # bitwise-repeatable cuDNN backward, so a difference is the path's
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    dev = initialize_distributed("gloo", plan["device"], init_method, rank, world)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    counters = (sim.reference_similarity, la.linear_attention_inner, fr.resnet_block)
+    cfg = load_config(None, plan["overrides"])
+    task32 = build_task(cfg.model, dev, torch.Generator().manual_seed(0))
+    out = {"launches": {}, "seconds": {}}
+
+    def counted(name, fn):
+        for c in counters:
+            c.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        result = fn()
+        sync()
+        out["seconds"][name] = time.perf_counter() - t0
+        out["launches"][name] = {c.__name__: c.launches for c in counters}
+        return result
+
+    # the data-parallel step: fp32 and bf16, ZeRO-1; global B = PAR_BATCH, half a rank
+    mesh = create_mesh(2, 1)
+    batches = {"ds": train_pairs(torch, PAR_BATCH, 95)}
+    local = shard_batch(batches, mesh)
+
+    def dp_step(half, zero=False):
+        task, state = _fresh_state(torch, task32)
+        shardings = zero1_state_shardings(state, mesh) if zero else None
+        _, m = train_state.make_train_step(task, half_precision=half, state_shardings=shardings,
+                                           mesh=mesh)(state, local)
+        return state, float(m["loss/train_avg"])
+
+    def single_step(half):
+        task, state = _fresh_state(torch, task32)
+        _, m = train_state.make_train_step(task, half_precision=half)(state, batches)
+        return state, float(m["loss/train_avg"])
+
+    dp32, loss_dp32 = counted("fp32 step", lambda: dp_step(False))
+    if rank == 0:
+        one, loss_one = single_step(False)
+        step1, l2, kept = _delta_check(torch, dp32.unet, one.unet, task32.unet)
+        out["fp32"] = {"loss": (loss_dp32, loss_one), "loss_rel": abs(loss_dp32 - loss_one) / abs(loss_one),
+                       "step1": step1, "l2": l2, "kept": kept}
+        del one
+    rep, _ = dp_step(False)
+    zero, loss_zero = counted("ZeRO-1 fp32 step", lambda: dp_step(False, zero=True))
+    out["zero"] = {"max_diff": _max_diff(zero.unet, dp32.unet), "repeat_diff": _max_diff(rep.unet, dp32.unet),
+                   "loss": (loss_zero, loss_dp32), "sharded": zero.opt.sharded}
+    del rep, zero, dp32
+    dp16, loss_dp16 = counted("bf16 step", lambda: dp_step(True))
+    if rank == 0:
+        one, loss_one = single_step(True)
+        out["bf16"] = {"loss": (loss_dp16, loss_one), "loss_rel": abs(loss_dp16 - loss_one) / abs(loss_one),
+                       "grad_rel": _group_grad_rel(torch, dp16.unet, one.unet)}
+        del one
+    del dp16
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # the template-parallel streaming eval at N=26, bf16, against one process
+    half = task32.half()
+    hb = eval_batch(torch, plan["grid"], PAR_BATCH, 96)
+    out["stream"] = {}
+    for d, t in ((1, 2), (2, 1)):
+        run = make_sharded_streaming_eval_fn(half, create_mesh(d, t), chunk_size=PAR_CHUNK)
+        got = counted(f"streaming eval {d}x{t}", lambda: run(hb["reference"], hb["query"], hb["all_relativeR"]))
+        if rank == 0:
+            db = on_device(torch, hb, dev, torch.bfloat16)
+            want = half.retrieve_streaming(db["query"], db["reference"], db["all_relativeR"], PAR_CHUNK)
+            out["stream"][f"{d}x{t}"] = _top1_check(torch, *got, *want)
+    del half
+
+    # evaluate_geodesic, fp32, each rank its part of every batch of a PNG root, merged
+    fp32 = PoseConditionalTask(task32.unet, task32.vae, dataclasses.replace(task32.config, half_precision_eval=False))
+    ds_cfg = dataclasses.replace(load_config(None, [f"data.datasets.shapeNet.root_dir={plan['eval_root']}",
+                                                    f"data.datasets.shapeNet.img_size={IMAGE}"]).data.datasets[
+        "shapeNet"], split=CLI_CATEGORIES[0])
+
+    def loader():
+        return DataLoader(build_dataset(ds_cfg), batch_size=CLI_BATCH, shuffle=False, drop_last=False, num_workers=4)
+
+    merged = counted("evaluate_geodesic merged", lambda: evaluate_geodesic(fp32, loader().shard(rank, world)))
+    if rank == 0:
+        out["eval"] = {"merged": merged, "one": evaluate_geodesic(fp32, loader(), sync_processes=False)}
+    del fp32, task32
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # cli.train on both ranks: PAR_STEPS bf16 steps, a checkpoint at PAR_CKPT, then a resume from it
+    shared = Path(plan["tmp"]) / "cli"
+    common = ["--max-steps", str(PAR_STEPS), "--device", plan["device"], "--dist-backend", "gloo",
+              *plan["overrides"], f"data.datasets.shapeNet.root_dir={plan['train_root']}",
+              f"data.datasets.shapeNet.img_size={IMAGE}", "model.optim_config.half_precision_train=true",
+              f"machine.batch_size={PAR_BATCH}", f"trainer.val_check_interval={PAR_STEPS}",
+              "trainer.media_every_n_steps=0", "trainer.num_sanity_val_steps=0", "trainer.log_every_n_steps=1",
+              "name_exp=train"]
+    counted("cli.train", lambda: train_cli.main([*common, f"trainer.checkpoint_every_n_steps={PAR_CKPT}",
+                                                 f"save_dir={shared / 'a'}"]))
+    name = f"ckpt_{PAR_CKPT:08d}.pt"
+    if rank == 0:
+        (shared / "b" / "train" / "checkpoints").mkdir(parents=True)
+        os.link(shared / "a" / "train" / "checkpoints" / name, shared / "b" / "train" / "checkpoints" / name)
+    process_barrier("resume_ready")
+    # the resumed run saves no checkpoint of its own
+    counted("cli.train resumed", lambda: train_cli.main([*common, f"trainer.checkpoint_every_n_steps={10 * PAR_STEPS}",
+                                                         f"save_dir={shared / 'b'}"]))
+    if rank == 0:
+        read = lambda d: [json.loads(x) for x in open(shared / d / "train" / "metrics.jsonl")]  # noqa: E731
+        rec_a, rec_b = read("a"), read("b")
+        out["cli"] = {
+            "loss_a": {r["step"]: r["loss/train_avg"] for r in rec_a if "loss/train_avg" in r},
+            "loss_b": {r["step"]: r["loss/train_avg"] for r in rec_b if "loss/train_avg" in r},
+            "val_images": [v for r in rec_a for k, v in r.items() if k.endswith("num_images")],
+            "checkpoints": sorted(n for n in os.listdir(shared / "a" / "train" / "checkpoints") if n.startswith("ckpt_")),
+        }
+    return out
+
+
+def parallel_phase(torch, dev, smi, counters, task32, half, grids, phase9_step_ms, backend="nccl",
+                   rank_device="cuda:0", overrides=()):
+    """Phase 10: the parallel paths at full width.  (a) one rank of an
+    NCCL group in this process; (b) two fresh ranks on this card in a
+    gloo group (``parallel_rank``).  Returns each kernel's launches in
+    (a) and in (b) (both ranks, every path)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from nope_tpu_torch.parallel.eval import make_sharded_streaming_eval_fn
+    from nope_tpu_torch.parallel.launch import run_ranks
+    from nope_tpu_torch.parallel.mesh import create_mesh, initialize_distributed
+    from nope_tpu_torch.training import train_state
+
+    print(f"phase 10: the parallel paths (full width, seeded random weights; cuDNN deterministic) [{smi}]")
+    names = [fn.__name__ for fn in counters]
+    out = {"a": dict.fromkeys(names, 0), "b": dict.fromkeys(names, 0)}
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+
+    def launches():
+        torch.cuda.synchronize()
+        got = {fn.__name__: fn.launches for fn in counters}
+        for k, v in got.items():
+            out["a"][k] += v
+        return got
+
+    # (a) one rank, NCCL: the data-parallel bf16 step and the streaming eval against one process
+    with tempfile.TemporaryDirectory(prefix="nope_store_") as store:
+        initialize_distributed(backend, dev, f"file://{store}/store", 0, 1)
+        try:
+            mesh = create_mesh(1, 1)
+            batches = {"ds": train_pairs(torch, PAR_BATCH, 94)}
+
+            def bf16(m):
+                task, state = _fresh_state(torch, task32)
+                step = train_state.make_train_step(task, half_precision=True, mesh=m)
+                _, metrics = step(state, batches)
+                return state, float(metrics["loss/train_avg"]), step
+
+            one, loss_one, step_one = bf16(None)
+            again, loss_again, _ = bf16(None)
+            for fn in counters:
+                fn.launches = 0
+            dp, loss_dp, step_dp = bf16(mesh)
+            got = launches()
+            d_dp, d_rep = _max_diff(dp.unet, one.unet), _max_diff(again.unet, one.unet)
+            # the train step runs K3 and K2 (K1 scores retrieval only)
+            ok = (d_dp <= d_rep and abs(loss_dp - loss_one) <= abs(loss_again - loss_one)
+                  and got["resnet_block"] and got["linear_attention_inner"])
+            print(f"  (a) 1 rank, {backend}, mesh (1, 1): bf16 data-parallel step at B={PAR_BATCH} (all-reduce SUM / 1) "
+                  f"vs the single-process step, same batch and masters: loss {loss_dp:.7f} vs {loss_one:.7f}, weights "
+                  f"max|Δ| {d_dp:.3e} (the single step against itself: {d_rep:.3e}, loss {abs(loss_again - loss_one):.3e}); "
+                  f"launches {got} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError("the one-rank data-parallel step differs from the single-process step")
+            del again
+            # the two steps in turn (single, DP, DP, single, ...), so drift on the host hits both
+            times = {"one": [], "dp": []}
+            for order in (("one", "dp"), ("dp", "one")) * (PAR_ROUNDS // 2):
+                for name in order:
+                    st, fn = (one, step_one) if name == "one" else (dp, step_dp)
+                    times[name].append(median_ms(torch, lambda: fn(st, batches), reps=1, warmup=0))
+            t_one, t_dp = (float(np.median(times[k])) for k in ("one", "dp"))
+            print(f"  (a) bf16 step at B={PAR_BATCH}, batch on the host (CUDA events, {PAR_ROUNDS} of each in turn, "
+                  f"medians; spread {min(times['one']):.2f}-{max(times['one']):.2f} and "
+                  f"{min(times['dp']):.2f}-{max(times['dp']):.2f} ms): single-process {t_one:.2f} ms, data-parallel "
+                  f"over 1 {backend} rank {t_dp:.2f} ms ({t_dp - t_one:+.2f} ms, the parallel path's own cost on one "
+                  f"card); phase 9 (d)'s step with EMA {phase9_step_ms:.2f} ms [{smi}]")
+            out["timings"] = {"single_ms": t_one, "dp_ms": t_dp}
+            del one, dp
+            torch.cuda.empty_cache()
+            hb = eval_batch(torch, grids[FULL_N], PAR_BATCH, 97)
+            run = make_sharded_streaming_eval_fn(half, mesh, chunk_size=31)
+            for fn in counters:
+                fn.launches = 0
+            sim_p, idx_p = run(hb["reference"], hb["query"], hb["all_relativeR"])
+            got = launches()
+            db = on_device(torch, hb, dev, torch.bfloat16)
+            sim_w, idx_w = half.retrieve_streaming(db["query"], db["reference"], db["all_relativeR"], 31)
+            err, rel = rel_err(sim_p, sim_w)
+            same = torch.equal(idx_p, idx_w)
+            ok = rel <= BF16_SIM_RTOL and same and all(got.values())
+            print(f"  (a) make_sharded_streaming_eval_fn, mesh (1, 1), bf16 B={PAR_BATCH} N={FULL_N} chunk_size 31 vs "
+                  f"retrieve_streaming: max_abs {err:.3e} rel {rel:.3e} (tol {BF16_SIM_RTOL:.0e}), top-k "
+                  f"{'equal' if same else 'DIFFER'}; launches {got} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError("the one-rank streaming eval differs from retrieve_streaming")
+            del sim_p, sim_w, db
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # (b) two ranks on this one card, gloo (a correctness check, not a scaling number)
+    with tempfile.TemporaryDirectory(prefix="nope_par_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        write_shapenet_root(tmp / "eval", categories=CLI_CATEGORIES[:1])
+        write_training_root(tmp / "train")
+        t_roots = time.perf_counter() - t0
+        plan = {"device": rank_device, "image": IMAGE, "overrides": list(overrides), "grid": grids[FAST_N],
+                "eval_root": str(tmp / "eval"), "train_root": str(tmp / "train"), "tmp": str(tmp)}
+        t0 = time.perf_counter()
+        ranks = run_ranks(parallel_rank, 2, (plan,), timeout=PAR_TIMEOUT)
+        wall = time.perf_counter() - t0
+    for r in ranks:
+        for path in r["launches"].values():
+            for k, v in path.items():
+                out["b"][k] += v
+    r0 = ranks[0]
+    print(f"  (b) 2 ranks on {rank_device}, gloo, started fresh: {wall:.1f} s of wall (roots written in {t_roots:.1f} s "
+          f"before); per path, rank 0's seconds and both ranks' launches (two ranks sharing one card: a correctness "
+          f"check, not a scaling number):")
+    for path, secs in r0["seconds"].items():
+        per_rank = [r["launches"].get(path) for r in ranks]
+        print(f"    {path:<28} {secs:7.2f} s  launches rank 0 {per_rank[0]}, rank 1 {per_rank[1]}")
+    f = r0["fp32"]
+    ok = (f["loss_rel"] <= TRAIN_LOSS_RTOL and f["step1"] <= TRAIN_DELTA_RTOL and f["l2"] <= TRAIN_DELTA_RTOL
+          and f["kept"] >= 0.99)
+    print(f"  (b) fp32 data-parallel step, 2 x {PAR_BATCH // 2} pairs vs one process's {PAR_BATCH}: loss "
+          f"{f['loss'][0]:.7f} vs {f['loss'][1]:.7f} rel {f['loss_rel']:.2e} (tol {TRAIN_LOSS_RTOL:.0e}); weight deltas "
+          f"max over the {100 * f['kept']:.3f}% decided elements {f['step1']:.2e}, relative L2 {f['l2']:.2e} (tol "
+          f"{TRAIN_DELTA_RTOL:.0e}) {'ok' if ok else 'FAIL'}")
+    checks = [("fp32 step", ok)]
+    h = r0["bf16"]
+    worst = max(h["grad_rel"].values())
+    ok = h["loss_rel"] <= GRAD_TOL["bfloat16"] and worst <= GRAD_TOL["bfloat16"]
+    print(f"  (b) bf16 data-parallel step vs one process: loss rel {h['loss_rel']:.2e}, averaged gradients worst rel by "
+          f"group " + ", ".join(f"{g} {v:.2e}" for g, v in h["grad_rel"].items())
+          + f" (tol {GRAD_TOL['bfloat16']:.0e}) {'ok' if ok else 'FAIL'}")
+    checks.append(("bf16 step", ok))
+    for r in ranks:
+        z = r["zero"]
+        ok = z["sharded"] and z["max_diff"] <= z["repeat_diff"] and z["loss"][0] == z["loss"][1]
+        checks.append(("ZeRO-1", ok))
+    z = r0["zero"]
+    print(f"  (b) ZeRO-1 fp32 step vs the replicated step, from the same start: weights max|Δ| {z['max_diff']:.3e} "
+          f"(the replicated step against itself {z['repeat_diff']:.3e}), loss {z['loss'][0]:.7f} vs {z['loss'][1]:.7f} "
+          f"{'ok' if checks[-1][1] and checks[-2][1] else 'FAIL'}")
+    for mesh_name, (rel, decided, same, top1) in r0["stream"].items():
+        ok = rel <= BF16_SIM_RTOL and top1
+        checks.append((f"streaming {mesh_name}", ok))
+        print(f"  (b) make_sharded_streaming_eval_fn, mesh ({mesh_name.replace('x', ', ')}), bf16 B={PAR_BATCH} "
+              f"N={FAST_N} chunk_size {PAR_CHUNK} vs one process: rel {rel:.3e} (tol {BF16_SIM_RTOL:.0e}); top-1 margin "
+              f"above {BF16_SIM_RTOL:.0e} of |score| in {decided} of {PAR_BATCH} rows, top-1 equal in {same} "
+              f"{'ok' if ok else 'FAIL'}")
+    got, want = r0["eval"]["merged"], r0["eval"]["one"]
+    ok = set(got) == set(want) and got["num_images"] == want["num_images"] > 0
+    for key, value in want.items():
+        if "accuracy" in key:
+            ok &= got[key] == value
+        elif "median" in key:
+            ok &= abs(got[key] - value) <= 1e-3
+        elif key == "loss":
+            ok &= abs(got[key] - value) <= 1e-5 * abs(value)
+    checks.append(("merged eval", ok))
+    print(f"  (b) evaluate_geodesic fp32 over a PNG root ({CLI_CATEGORIES[0]}, {int(want['num_images'])} queries, "
+          f"batches of {CLI_BATCH}), each rank its part, merged, vs one process: top1 acc15 {got['top1, accuracy_15']:.2f}"
+          f" vs {want['top1, accuracy_15']:.2f}, top1 median {got['top1, median']:.4f} vs {want['top1, median']:.4f}, "
+          f"loss {got['loss']:.7f} vs {want['loss']:.7f}, images {got['num_images']:.0f} {'ok' if ok else 'FAIL'}")
+    c = r0["cli"]
+    resumed = sorted(c["loss_b"]) == list(range(PAR_CKPT + 1, PAR_STEPS + 1))
+    worst = max(abs(c["loss_b"][s] - c["loss_a"][s]) / abs(c["loss_a"][s]) for s in c["loss_b"]) if resumed else 1.0
+    ok = (sorted(c["loss_a"]) == list(range(1, PAR_STEPS + 1)) and all(np.isfinite(list(c["loss_a"].values())))
+          and resumed and worst <= RESUME_LOSS_RTOL and c["checkpoints"] == [f"ckpt_{PAR_CKPT:08d}.pt"]
+          and c["val_images"])
+    checks.append(("cli.train", ok))
+    print(f"  (b) cli.train.main on 2 ranks, bf16, B={PAR_BATCH} ({PAR_BATCH // 2} a rank): {PAR_STEPS} steps, losses "
+          f"{[round(c['loss_a'][s], 6) for s in sorted(c['loss_a'])]}, rank 0's checkpoints {c['checkpoints']}, merged "
+          f"validation of {c['val_images']} images; a second main resumed from step {PAR_CKPT}: losses worst rel "
+          f"{worst:.3e} (tol {RESUME_LOSS_RTOL:.0e}) {'ok' if ok else 'FAIL'}")
+    print(f"  launches over (a): {out['a']}; over (b), both ranks: {out['b']}")
+    failed = [name for name, good in checks if not good]
+    if failed or not all(out["b"].values()):
+        raise RuntimeError(f"phase 10 (b) failed: {failed or out['b']}")
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    return out
+
+
 @contextlib.contextmanager
 def hidden(*names):
     """Imports of ``names`` raise ImportError inside the block, as on a host
@@ -1949,6 +2362,9 @@ def main() -> int:
     # -- phase 9: training -------------------------------------------------------
     tr = training_phase(torch, dev, smi, counters, task32, unet_cpu, vae_cpu, (len(k3_calls), len(k2_calls)))
 
+    # -- phase 10: the parallel paths ---------------------------------------------
+    par = parallel_phase(torch, dev, smi, counters, task32, half, grids, tr["timings"]["step_ms"])
+
     table = [
         ("reference_similarity", "K1", "nope_tpu_torch/csrc/similarity.cu",
          "nope_tpu/ops/experimental/pallas_similarity.py:29", sim.reference_similarity),
@@ -1967,6 +2383,7 @@ def main() -> int:
          "eval_launches": ev["launches"][fn.__name__], "refine_launches": rf["launches"][fn.__name__],
          "cli_launches": cli_launches[fn.__name__], "train_launches": tr["launches"][fn.__name__],
          "train_recomputes": tr["recomputes"][k], "unet_weight_grad_rel": tr["grad"] if k != "K1" else None,
+         "parallel_launches": {"a": par["a"][fn.__name__], "b": par["b"][fn.__name__]},
          **({"refine_recomputes": rf["recomputes"][k], "backward_max_rel": rf["backward"][k],
              "unet_pose_grad_rel": rf["unet_grad"]} if k in rf["backward"] else {})}
         for name, k, src, rep, fn in table

@@ -10,6 +10,9 @@ state dict (diffusers names) to ``--out``, a torch file that
 
 On the card unless ``--device cpu``.  The destination is checked before
 any training; ``--save-every`` re-saves the weights periodically.
+Under ``torchrun`` the step is data-parallel over the machine's data
+mesh axis, as the trainer's: each rank loads its part of every batch,
+the gradients are averaged over the ranks, and rank 0 writes ``--out``.
 """
 
 from __future__ import annotations
@@ -38,7 +41,10 @@ def main(argv=None):
     parser.add_argument("--save-every", type=int, default=1000,
                         help="periodic re-save interval (0 = only at the end)")
     parser.add_argument("--overwrite", action="store_true", help="replace an existing --out")
-    parser.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (the default: cuda:LOCAL_RANK under torchrun), cuda:<i> or cpu")
+    parser.add_argument("--dist-backend", default=None,
+                        help="process-group backend under torchrun (default: nccl on cuda, gloo on cpu)")
     parser.add_argument("overrides", nargs="*")
     args = parser.parse_args(argv)
 
@@ -46,30 +52,32 @@ def main(argv=None):
     if os.path.exists(out) and not args.overwrite:
         # fail before training, not after a long run
         parser.error(f"--out {out} already exists (pass --overwrite to replace)")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         parser.error("no CUDA device: pass --device cpu to run on the CPU")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("a multi-process launch comes with parallel/ (ROADMAP queue 1 item 12)")
 
     logging.basicConfig(level=logging.INFO)
     from nope_tpu_torch.configs import load_config
     from nope_tpu_torch.data.builder import build_train_loaders
     from nope_tpu_torch.data.pipeline import CombinedLoader, device_prefetch
     from nope_tpu_torch.models.factory import build_vae
+    from nope_tpu_torch.parallel.mesh import DATA_AXIS, create_mesh, initialize_distributed, process_index
     from nope_tpu_torch.training.checkpoint import atomic_save
     from nope_tpu_torch.training.pretrain_vae import create_vae_pretrain_state, make_vae_pretrain_step
-    from nope_tpu_torch.training.trainer import check_one_device
 
+    device = initialize_distributed(backend=args.dist_backend, device=args.device)
     cfg = load_config(args.config, args.overrides)
     if cfg.model.encoder.kind != "vae":
         parser.error(f"pretrain_vae requires model.encoder.kind=vae (got {cfg.model.encoder.kind!r})")
-    check_one_device(cfg.machine)
+    mesh = create_mesh(data=cfg.machine.mesh_data, template=cfg.machine.mesh_template)
     vae = build_vae(cfg.model.encoder, torch.Generator().manual_seed(cfg.trainer.seed), device)
-    combined = CombinedLoader(build_train_loaders(cfg))
+    loaders = build_train_loaders(cfg)
+    if mesh.data > 1:
+        for loader in loaders.values():
+            loader.shard(mesh.index(DATA_AXIS), mesh.data)
+    combined = CombinedLoader(loaders)
     state = create_vae_pretrain_state(vae, lr=args.lr, seed=cfg.trainer.seed)
     step_fn = make_vae_pretrain_step(recon_loss=args.recon_loss, kl_weight=args.kl_weight,
-                                     half_precision=args.half_precision)
+                                     half_precision=args.half_precision, mesh=mesh)
 
     def image_batches():
         # one step per dataset batch (datasets may differ in image size)
@@ -79,7 +87,8 @@ def main(argv=None):
                     yield np.concatenate([np.asarray(b["query"]), np.asarray(b["reference"])])
 
     def save():
-        atomic_save(state.vae.state_dict(), out)
+        if process_index() == 0:
+            atomic_save(state.vae.state_dict(), out)
 
     t0 = time.perf_counter()
     for images in device_prefetch(image_batches(), device, depth=2):

@@ -16,8 +16,15 @@ is a reference-format torch file (``training.checkpoint.
 restore_eval_params``); without one the weights are random (seed 0).
 Per-category and mean top-1/3/5 accuracies at 15° and 30° and medians
 go to stdout and ``<save_dir>/scores.json``, per-batch predictions to
-``<save_dir>/predictions/pred_{category}_batch{i}_rank0.npz``, as the
+``<save_dir>/predictions/pred_{category}_batch{i}_rank{r}.npz``, as the
 JAX CLI writes them.
+
+Under ``torchrun`` with ``--mesh-data D --mesh-template T`` (D x T
+ranks) every rank reads every batch and the step runs over the mesh:
+the batch split over D ranks, each template slice of the grid swept by
+one of T ranks (``parallel.eval``).  Without the mesh flags each rank
+scores its part of every batch and the scores are merged.  Either way
+every rank ends with the global scores; rank 0 writes ``scores.json``.
 """
 
 from __future__ import annotations
@@ -40,24 +47,31 @@ def main(argv=None) -> dict:
     parser.add_argument("--max-batches", type=int, default=None)
     parser.add_argument("--chunk-size", type=int, default=None)
     parser.add_argument("--mesh-data", type=int, default=None,
-                        help="shard eval over a (data, template) mesh (not ported yet)")
+                        help="shard eval over a (data, template) mesh of the ranks")
     parser.add_argument("--mesh-template", type=int, default=1)
     parser.add_argument("--refine-steps", type=int, default=0,
                         help="continuous pose-refinement steps from the "
                              "retrieved top-1 (0 = grid-snapped, the "
                              "reference protocol); adds 'refined, *' scores")
     parser.add_argument("--refine-lr", type=float, default=2e-2)
-    parser.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (the default: cuda:LOCAL_RANK under torchrun), cuda:<i> or cpu")
+    parser.add_argument("--dist-backend", default=None,
+                        help="process-group backend under torchrun (default: nccl on cuda, gloo on cpu)")
     parser.add_argument("overrides", nargs="*")
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         parser.error("no CUDA device: pass --device cpu to run on the CPU")
+    from nope_tpu_torch.parallel.mesh import create_mesh, initialize_distributed, process_count, process_index
+
+    device = initialize_distributed(backend=args.dist_backend, device=args.device)
+    mesh = None
     if args.mesh_data or args.mesh_template > 1:
-        raise NotImplementedError("--mesh-data / --mesh-template: the sharded evaluation comes with "
-                                  "parallel/ (ROADMAP queue 1 item 12)")
+        mesh = create_mesh(data=args.mesh_data, template=args.mesh_template)
+        logging.info("eval mesh: %s", mesh.shape)
+    rank, world = process_index(), process_count()
 
     from nope_tpu_torch.configs import load_config
     from nope_tpu_torch.data.builder import build_dataset
@@ -84,13 +98,15 @@ def main(argv=None) -> dict:
     base = cfg.data.datasets["shapeNet"]
 
     def loader_factory(category):
-        return DataLoader(
+        loader = DataLoader(
             build_dataset(dataclasses.replace(base, split=category)),
             batch_size=cfg.machine.batch_size,
             shuffle=False,
             drop_last=False,  # the protocol scores every query image
             num_workers=cfg.machine.num_workers,
         )
+        # without a mesh each rank scores its part of every batch
+        return loader if mesh is not None else loader.shard(rank, world)
 
     results = evaluate_geodesic_full(
         task,
@@ -99,14 +115,16 @@ def main(argv=None) -> dict:
         chunk_size=args.chunk_size,
         max_batches=args.max_batches,
         save_dir=os.path.join(cfg.save_dir, "predictions"),
+        mesh=mesh,
         refine_steps=args.refine_steps,
         refine_lr=args.refine_lr,
     )
-    out_path = os.path.join(cfg.save_dir, "scores.json")
-    with open(out_path, "w") as f:
-        json.dump(results, f, indent=2)
-    print(json.dumps(results, indent=2))
-    logging.info("scores written to %s", out_path)
+    if rank == 0:
+        out_path = os.path.join(cfg.save_dir, "scores.json")
+        with open(out_path, "w") as f:
+            json.dump(results, f, indent=2)
+        print(json.dumps(results, indent=2))
+        logging.info("scores written to %s", out_path)
     return results
 
 

@@ -17,9 +17,19 @@ Runs on the card unless ``--device cpu``.  Warm starts
 is refused.  The run resumes from ``<save_dir>/checkpoints`` where a
 checkpoint is, and ends by writing ``checkpoints/final_params.pth`` (and
 ``final_params_ema.pth`` with EMA on) in the reference format that
-``training.checkpoint.restore_params`` reads.  One process on one
-device: a multi-process launch, ``machine.zero1`` and ``machine.mesh_*``
-come with ROADMAP queue 1 item 12.
+``training.checkpoint.restore_params`` reads.
+
+Data-parallel on several GPUs under ``torchrun`` (NCCL; each rank on
+``cuda:LOCAL_RANK``), the global ``machine.batch_size`` split over the
+ranks, optionally ZeRO-1::
+
+    torchrun --nproc-per-node 4 -m nope_tpu_torch.cli.train \
+        machine.batch_size=64 [machine.zero1=true] [key=value ...]
+
+``--dist-backend gloo`` runs the ranks on CPUs (``--device cpu``), or
+several ranks on one GPU (``--device cuda:0``).  Every rank builds the
+same seeded weights; rank 0 writes the log, the checkpoints and the
+exports, and validation merges every rank's part of the images.
 """
 
 from __future__ import annotations
@@ -87,16 +97,20 @@ def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", default=None)
     parser.add_argument("--max-steps", type=int, default=None)
-    parser.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (the default: cuda:LOCAL_RANK under torchrun), cuda:<i> or cpu")
+    parser.add_argument("--dist-backend", default=None,
+                        help="process-group backend under torchrun (default: nccl on cuda, gloo on cpu)")
     parser.add_argument("overrides", nargs="*")
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         parser.error("no CUDA device: pass --device cpu to run on the CPU")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("a multi-process launch comes with parallel/ (ROADMAP queue 1 item 12)")
+    from nope_tpu_torch.parallel.mesh import initialize_distributed, process_barrier, process_count, process_index
+
+    device = initialize_distributed(backend=args.dist_backend, device=args.device)
+    rank, world = process_index(), process_count()
 
     from nope_tpu_torch.configs import load_config
     from nope_tpu_torch.data.builder import build_train_loaders, build_val_loaders
@@ -108,13 +122,14 @@ def main(argv=None):
 
     cfg = load_config(args.config, args.overrides)
     os.makedirs(cfg.save_dir, exist_ok=True)
-    logging.info("experiment %s -> %s", cfg.name_exp, cfg.save_dir)
+    logging.info("experiment %s -> %s (rank %d of %d)", cfg.name_exp, cfg.save_dir, rank, world)
 
     task = build_task(cfg.model, device, torch.Generator().manual_seed(cfg.trainer.seed))
     # before the resume, which then restores over the warm start
     _maybe_warm_start(task, cfg)
     train_loaders = build_train_loaders(cfg)
-    val_loaders = build_val_loaders(cfg)
+    # each rank scores its part of every validation batch; the scores merge
+    val_loaders = {name: loader.shard(rank, world) for name, loader in build_val_loaders(cfg).items()}
 
     def val_fn(state):
         val_task = PoseConditionalTask(state.unet, state.vae, task.config)
@@ -128,13 +143,15 @@ def main(argv=None):
     state = trainer.fit(trainer.init_state(), max_steps=args.max_steps)
 
     # params-only exports, what evaluation and serving load (restore_params)
-    final = os.path.join(cfg.save_dir, "checkpoints", "final_params.pth")
-    save_reference_checkpoint(final, state.unet.state_dict(), state.vae.state_dict())
-    logging.info("final params -> %s", final)
-    if trainer.ema_params is not None:
-        ema = os.path.join(cfg.save_dir, "checkpoints", "final_params_ema.pth")
-        save_reference_checkpoint(ema, trainer.ema_params.state_dict(), state.vae.state_dict())
-        logging.info("final EMA params -> %s", ema)
+    if rank == 0:
+        final = os.path.join(cfg.save_dir, "checkpoints", "final_params.pth")
+        save_reference_checkpoint(final, state.unet.state_dict(), state.vae.state_dict())
+        logging.info("final params -> %s", final)
+        if trainer.ema_params is not None:
+            ema = os.path.join(cfg.save_dir, "checkpoints", "final_params_ema.pth")
+            save_reference_checkpoint(ema, trainer.ema_params.state_dict(), state.vae.state_dict())
+            logging.info("final EMA params -> %s", ema)
+    process_barrier("exports")
     trainer.logger.close()
     logging.info("training done")
     return state, trainer

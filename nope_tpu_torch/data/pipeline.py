@@ -52,6 +52,23 @@ class DataLoader:
         self._epoch = 0
         self._seed = seed
         self._start_batch = 0  # consumed by the next __iter__ (resume)
+        self._shard = (0, 1)
+
+    def shard(self, index: int, count: int) -> "DataLoader":
+        """Load only part ``index`` of ``count`` of every batch: the rank's
+        slice of a global batch, on a data axis of ``count`` ranks.  Every
+        rank keeps the same seeded shuffle (and ``set_state`` resume), so
+        the parts of one batch are disjoint and together the batch.  With
+        ``drop_last`` the batch size must divide (JAX's message); a ragged
+        last batch (``drop_last=False``) splits as ``np.array_split`` does,
+        and a rank whose part is empty skips it."""
+        if self.drop_last and self.batch_size % count:
+            raise ValueError(
+                f"batch size {self.batch_size} is not divisible by the "
+                f"data mesh axis ({count}); adjust machine.batch_size"
+            )
+        self._shard = (int(index), int(count))
+        return self
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -94,6 +111,9 @@ class DataLoader:
         if self._start_batch:  # one-shot mid-epoch resume (set_state)
             batches = batches[self._start_batch :]
             self._start_batch = 0
+        part, parts = self._shard
+        if parts > 1:
+            batches = [b for b in (np.array_split(b, parts)[part] for b in batches) if len(b)]
 
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -212,7 +232,7 @@ class ConcatDataset:
 def device_prefetch(iterator: Iterator, device: torch.device, depth: int = 2) -> Iterator:
     """Overlap host-to-device copies with compute
     (``nope_tpu/data/pipeline.py:207-229``): keep ``depth`` batches in
-    flight on ``device``.  Each batch is a (nested) dict of numpy arrays;
+    flight on ``device`` (under data parallelism, the rank's own).  Each batch is a (nested) dict of numpy arrays;
     every array goes through pinned host memory and a ``non_blocking``
     copy on a side stream, and the consumer's stream waits for that copy
     before it reads the batch.  dtypes are kept: a uint8 wire stays uint8

@@ -6,10 +6,12 @@ accuracy at 15° and 30° and lower medians over all images, and
 optionally dump per-batch predictions as ``.npz`` like the reference
 (``model.py:361-376``).
 
-The cross-process merge of the JAX package comes with ``parallel/``
-(ROADMAP queue 1 item 12): until then an initialised
-``torch.distributed`` group of more than one rank with
-``sync_processes`` raises rather than scoring one rank's shard.
+Under a process group, either each rank scores its own part of the
+images and the scores are merged across the ranks
+(``sync_processes``), or, with ``mesh``, every rank reads the whole
+batch and the step runs over the mesh: the batch split over the data
+axis, the template grid over the template axis (``parallel.eval``),
+the rows gathered back onto every rank.
 """
 
 from __future__ import annotations
@@ -22,13 +24,58 @@ from typing import Any, Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from nope_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    all_gather,
+    all_gather_host,
+    all_reduce_mean_,
+    check_template_divides,
+    process_count,
+    process_index,
+    shard_eval_batch,
+)
 
-def _world() -> tuple:
-    """(rank, world size) of an initialised ``torch.distributed`` group, else (0, 1)."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+
+def _merge_across_processes(errors: np.ndarray, loss_sum: float, loss_count: int, k: int):
+    """All-gather every rank's eval results so every rank computes the
+    same global scores (the reference logs with ``sync_dist=True``,
+    ``model.py:184-191``).  Ranks may hold different numbers of rows
+    (disjoint loader parts, possibly none), so the rows are zero-padded
+    to the largest count before the gather and sliced back by each
+    rank's count: padding never passes for data, and a row that is
+    legitimately NaN survives.  ``k`` columns on every rank."""
+    counts = all_gather_host(np.asarray([errors.shape[0]], np.int64)).reshape(-1)
+    max_n = max(int(counts.max()), 1)
+    padded = np.zeros((max_n, k), dtype=np.float32)
+    padded[: errors.shape[0]] = errors
+    gathered = all_gather_host(padded)
+    merged = np.concatenate([gathered[p, : counts[p]] for p in range(len(counts))], axis=0)
+    loss_stats = all_gather_host(np.asarray([loss_sum, float(loss_count)], dtype=np.float64)).reshape(-1, 2)
+    return merged, float(loss_stats[:, 0].sum()), int(loss_stats[:, 1].sum())
+
+
+def _sharded_step(task, host: Dict[str, np.ndarray], mesh, chunk_size, refine_steps, refine_lr, infer_task):
+    """The eval step over ``mesh``: this rank's rows of the whole batch
+    (the data axis), its template group sweeping the grid (the template
+    axis), then the rows gathered back and the scalars averaged over the
+    data axis, so every rank holds the whole batch's outputs."""
+    from nope_tpu_torch.parallel.eval import template_parallel_similarity
+
+    check_template_divides("all_relativeR", np.shape(host["all_relativeR"])[1], mesh.template)
+    local = shard_eval_batch(host, mesh, template_keys=())
+
+    def similarity_fn(infer, q_lat, r_lat, all_rel):
+        return template_parallel_similarity(infer, q_lat, r_lat, all_rel, mesh, chunk_size)
+
+    out = task.eval_geodesic_step(_to_device(local, task.device), chunk_size=chunk_size, refine_steps=refine_steps,
+                                  refine_lr=refine_lr, infer_task=infer_task, similarity_fn=similarity_fn)
+    group = mesh.group(DATA_AXIS)
+    scalars = [k for k, v in out.items() if v.dim() == 0]
+    values = torch.stack([out[k].float() for k in scalars])
+    all_reduce_mean_([values], group)
+    merged = {k: all_gather(v, group, dim=0) for k, v in out.items() if v.dim() >= 1}
+    merged.update(zip(scalars, values.unbind()))
+    return merged
 
 
 def _to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -84,6 +131,7 @@ def evaluate_geodesic(
     save_dir: Optional[str] = None,
     tag: str = "eval",
     max_batches: Optional[int] = None,
+    mesh=None,
     sync_processes: bool = True,
     refine_steps: int = 0,
     refine_lr: float = 2e-2,
@@ -100,11 +148,17 @@ def evaluate_geodesic(
     its last item, and its outputs are trimmed; its loss is left out (a
     padded batch's mean would be skewed).  With ``half_precision_eval``
     the bfloat16 copy of the modules is made once here, for every batch.
+
+    With ``mesh`` (``parallel.mesh.Mesh``) every rank passes the whole
+    batch and the step runs over the mesh (the steady batch a multiple
+    of the data axis, the grid of the template axis); every rank then
+    scores every image.  Without one, under a process group each rank
+    scores its own part of the images and, with ``sync_processes``, the
+    scores are the all-gathered global ones, the same on every rank
+    (``num_images`` and ``images_per_sec`` too).  Dumps and panels are
+    rank-suffixed.
     """
-    rank, world = _world()
-    if sync_processes and world > 1:
-        raise NotImplementedError(
-            f"merging the scores of {world} ranks comes with parallel/ (ROADMAP queue 1 item 12)")
+    rank, world = process_index(), process_count()
     device = task.device
     infer_task = task.half() if task.config.half_precision_eval else task
     all_errors, all_refined, losses = [], [], []
@@ -117,8 +171,11 @@ def evaluate_geodesic(
         if steady_batch is None:
             steady_batch = valid
         host = _pad_to(batch, valid, steady_batch) if valid < steady_batch else batch
-        step = task.eval_geodesic_step(_to_device(host, device), chunk_size=chunk_size,
-                                       refine_steps=refine_steps, refine_lr=refine_lr, infer_task=infer_task)
+        if mesh is None:
+            step = task.eval_geodesic_step(_to_device(host, device), chunk_size=chunk_size,
+                                           refine_steps=refine_steps, refine_lr=refine_lr, infer_task=infer_task)
+        else:
+            step = _sharded_step(task, host, mesh, chunk_size, refine_steps, refine_lr, infer_task)
         keys = ("similarity", "nearest_idx", "error_deg", "errors_topk", "refined_R", "refined_error_deg")
         out = {k: step[k].cpu().numpy() for k in keys if k in step}
         all_errors.append(out["errors_topk"][:valid])
@@ -143,9 +200,21 @@ def evaluate_geodesic(
 
     k = int(task.config.retrieval_k)
     errors = np.concatenate(all_errors, axis=0) if all_errors else np.zeros((0, k))
+    if refine_steps:
+        refined = np.concatenate(all_refined) if all_refined else np.zeros((0,))
+        # the refined column rides the top-k gather: one collective
+        errors = np.concatenate([errors, refined[:, None]], axis=1)
     elapsed = time.perf_counter() - t0
+    loss_sum, loss_count = float(np.sum(losses)), len(losses)
+    if sync_processes and world > 1 and mesh is None:
+        errors, loss_sum, loss_count = _merge_across_processes(errors.astype(np.float32), loss_sum, loss_count,
+                                                               errors.shape[1])
+    if refine_steps:
+        errors, refined = errors[:, :k], errors[:, k]
     scores: Dict[str, float] = {
-        "loss": float(np.sum(losses)) / len(losses) if losses else float("nan"),
+        "loss": loss_sum / loss_count if loss_count else float("nan"),
+        # global after a merge: all ranks ran at once, so global images
+        # over the local wall time is the aggregate rate
         "images_per_sec": len(errors) / elapsed if elapsed > 0 else 0.0,
         "num_images": float(len(errors)),
     }
@@ -158,7 +227,6 @@ def evaluate_geodesic(
                 scores[f"top{top}, accuracy_{int(threshold)}"] = float(np.mean(best <= threshold) * 100)
             scores[f"top{top}, median"] = float(np.sort(best)[(len(best) - 1) // 2])
         if refine_steps:
-            refined = np.concatenate(all_refined)
             for threshold in (15.0, 30.0):
                 scores[f"refined, accuracy_{int(threshold)}"] = float(np.mean(refined <= threshold) * 100)
             scores["refined, median"] = float(np.sort(refined)[(len(refined) - 1) // 2])

@@ -238,6 +238,7 @@ class PoseConditionalTask:
         refine_steps: int = 0,
         refine_lr: float = 2e-2,
         infer_task: Optional["PoseConditionalTask"] = None,
+        similarity_fn=None,
     ) -> Dict[str, Any]:
         """One batch of the geodesic eval (``model.py:268-376``): the loss,
         the template bank, retrieval and the symmetry-aware errors.
@@ -256,6 +257,10 @@ class PoseConditionalTask:
         (:func:`tasks.refinement.make_pose_refiner`, Adam at ``refine_lr``)
         and adds ``refined_R`` (B, 3, 3), the absolute refined pose
         ΔR̂ · R_ref, and its symmetry-aware ``refined_error_deg`` (B,).
+
+        ``similarity_fn(infer_task, query_latent, reference_latent,
+        all_relativeR)`` → (B, N), when given, scores the grid in place of
+        the bank (the template-parallel sweep of ``parallel.eval``).
         """
         loss = self.forward_loss(batch["query"], batch["reference"], batch["gt_relativeR"])
         half = self.config.half_precision_eval
@@ -264,7 +269,10 @@ class PoseConditionalTask:
         cast = cast_half if half else (lambda t: t)
         r_lat, q_lat = infer_task.encode(cast(batch["reference"])), infer_task.encode(cast(batch["query"]))
         all_rel = cast(batch["all_relativeR"])
-        if chunk_size is not None and chunk_size < all_rel.shape[1]:
+        if similarity_fn is not None:
+            similarity = similarity_fn(infer_task, q_lat, r_lat, all_rel)
+            nearest = top_k(similarity, self.config.retrieval_k)
+        elif chunk_size is not None and chunk_size < all_rel.shape[1]:
             similarity, nearest = infer_task.retrieve_streaming(None, None, all_rel, chunk_size, r_lat, q_lat)
         else:
             bank = infer_task.generate_template_bank(None, all_rel, chunk_size, r_lat)

@@ -37,6 +37,8 @@ from typing import List, Optional
 
 import torch
 
+from nope_tpu_torch.parallel.mesh import process_barrier, process_index
+
 UNET_PREFIX = "u_net."
 VAE_PREFIX = "u_net.encoder.encoder."
 #: the reference U-Net's unused ResnetBlock MLP
@@ -117,7 +119,9 @@ class CheckpointManager:
     or the newest ``max_to_keep``), as the JAX package's orbax manager:
     a step that is not a multiple of the interval, or not past the
     newest checkpoint, is not saved unless forced.  Files are
-    ``<directory>/ckpt_<step>.pt``; anything else there is ignored."""
+    ``<directory>/ckpt_<step>.pt``; anything else there is ignored.  The
+directory is shared by the ranks of a process group: rank 0 writes,
+every rank reads."""
 
     _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
 
@@ -140,10 +144,16 @@ class CheckpointManager:
 
     def save(self, step: int, state, force: bool = False, ema_params=None) -> bool:
         """Save ``state`` (a ``TrainState``) at ``step``; ``ema_params`` (the
-        EMA U-Net) rides in the same file.  Returns whether it saved."""
+        EMA U-Net) rides in the same file.  Returns whether it saved.
+
+        Under a process group every rank calls it: each decides from the
+        directory as it was before anyone writes, a ZeRO-1 optimizer's
+        state is gathered onto rank 0, rank 0 writes, and every rank
+        waits for the file before it goes on."""
         latest = self.latest_step()
         if not force and ((latest is not None and latest >= step) or step % self.save_interval_steps):
             return False
+        process_barrier("checkpoint_listed")
         payload = {
             "step": int(state.step),
             "unet": state.unet.state_dict(),
@@ -152,10 +162,12 @@ class CheckpointManager:
         }
         if ema_params is not None:
             payload["ema"] = ema_params.state_dict()
-        atomic_save(payload, self._path(step))
-        if self.max_to_keep is not None:
-            for old in self.all_steps()[:-self.max_to_keep]:
-                os.remove(self._path(old))
+        if process_index() == 0:
+            atomic_save(payload, self._path(step))
+            if self.max_to_keep is not None:
+                for old in self.all_steps()[:-self.max_to_keep]:
+                    os.remove(self._path(old))
+        process_barrier("checkpoint_written")
         return True
 
     def _load(self, step: Optional[int]) -> dict:
@@ -176,7 +188,8 @@ class CheckpointManager:
     def restore(self, state, step: Optional[int] = None):
         """Load the checkpoint at ``step`` (default: the newest) into
         ``state``'s modules and optimizer, in place, on their device; an
-        EMA stream in the file is ignored."""
+        EMA stream in the file is ignored.  Under a process group every
+        rank reads the file (a ZeRO-1 optimizer keeps its part)."""
         return self._into(state, self._load(step))
 
     def restore_with_ema(self, state, ema_params, step: Optional[int] = None):

@@ -15,11 +15,16 @@
 keeps in its state: the update count the schedule reads (the count
 *before* the update, so the first update uses ``schedule(0)``; a skipped
 step does not advance it, as optax leaves its inner state untouched),
-the clipping and the skip-spike state.
+the clipping and the skip-spike state.  Under data parallelism the
+train step averages ``.grad`` over the ranks first, so the clip factor
+and the skip-spike decision, read from the averaged gradients, are the
+same on every rank; :meth:`Optimizer.shard` makes the inner optimizer
+ZeRO-1 (``parallel.zero``).
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import Callable, Iterable, List, Optional, Sequence
 
 import torch
@@ -115,9 +120,25 @@ class Optimizer:
         self.clip_grad_norm = float(clip_grad_norm or 0.0)
         self.skip_spike = skip_spike
         self.count = 0  # applied updates: what the schedule reads
+        self.sharded = False  # ZeRO-1 (shard)
 
     def zero_grad(self) -> None:
         self.inner.zero_grad(set_to_none=True)
+
+    def shard(self, group) -> None:
+        """Make the inner optimizer ZeRO-1 over ``group``
+        (``ZeroRedundancyOptimizer`` of the same class and settings):
+        each rank then keeps the state of its part of the parameters and
+        broadcasts that part after its update.  Before the first step."""
+        from torch.distributed.optim import ZeroRedundancyOptimizer
+
+        if self.inner.state:
+            raise ValueError("shard the optimizer before its first step")
+        cls = type(self.inner)
+        accepted = inspect.signature(cls.__init__).parameters
+        settings = {k: v for k, v in self.inner.defaults.items() if k in accepted}
+        self.inner = ZeroRedundancyOptimizer(self.params, optimizer_class=cls, process_group=group, **settings)
+        self.sharded = True
 
     def step(self) -> bool:
         """One update from the current ``.grad`` (missing ones read as
@@ -140,13 +161,23 @@ class Optimizer:
         return True
 
     def state_dict(self) -> dict:
+        """The inner optimizer's state, the count and the skip-spike state.
+        ZeRO-1: a collective; the state is gathered onto rank 0, and the
+        other ranks' ``inner`` is None."""
+        if self.sharded:
+            self.inner.consolidate_state_dict(to=0)
+            inner = self.inner.state_dict() if torch.distributed.get_rank() == 0 else None
+        else:
+            inner = self.inner.state_dict()
         return {
-            "inner": self.inner.state_dict(),
+            "inner": inner,
             "count": self.count,
             "skip_spike": None if self.skip_spike is None else self.skip_spike.state_dict(),
         }
 
     def load_state_dict(self, state: dict) -> None:
+        """From :meth:`state_dict`'s whole state (under ZeRO-1 each rank
+        keeps its part of it)."""
         self.inner.load_state_dict(state["inner"])
         self.count = int(state["count"])
         if (state["skip_spike"] is None) != (self.skip_spike is None):

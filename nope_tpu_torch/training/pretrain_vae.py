@@ -23,6 +23,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from nope_tpu_torch.parallel.mesh import DATA_AXIS, all_reduce_mean_
 from nope_tpu_torch.training.train_state import device_batch
 
 
@@ -51,16 +52,18 @@ class _Reconstruct(nn.Module):
         super().__init__()
         self.vae = vae
 
-    def forward(self, images, noise, generator):
+    def forward(self, images, noise, generator, part: int = 0, parts: int = 1):
         dist = self.vae.encode(images)
         if noise is None:
-            noise = torch.randn(dist.mean.shape, generator=generator, dtype=dist.mean.dtype,
-                                device=generator.device)
+            b = dist.mean.shape[0]
+            noise = torch.randn((parts * b,) + tuple(dist.mean.shape[1:]), generator=generator,
+                                dtype=dist.mean.dtype, device=generator.device)[part * b:(part + 1) * b]
         z = dist.mean + dist.std * noise.to(dist.mean.device, dist.mean.dtype)
         return self.vae.decode(z), dist
 
 
-def make_vae_pretrain_step(recon_loss: str = "l1", kl_weight: float = 1e-6, half_precision: bool = False):
+def make_vae_pretrain_step(recon_loss: str = "l1", kl_weight: float = 1e-6, half_precision: bool = False,
+                           mesh=None):
     """The pretrain step: ``(state, images, noise=None) → (state, metrics)``,
     the state updated in place; ``metrics``: loss, recon, kl (device
     tensors).  ``noise`` (the posterior sample's standard normal draw,
@@ -68,9 +71,18 @@ def make_vae_pretrain_step(recon_loss: str = "l1", kl_weight: float = 1e-6, half
 
     ``half_precision`` runs forward and backward in bfloat16 over the
     float32 weights, as the train step does (``train_state.
-    make_train_step``); the loss compares with the float32 images."""
+    make_train_step``); the loss compares with the float32 images.
+
+    ``mesh`` makes it data-parallel over its data axis, as the train
+    step: ``images`` are the rank's rows of the global batch, the
+    gradients and metrics are averaged over the ranks, and the
+    generator draws the whole batch's noise, of which the rank takes
+    its rows (so D ranks on the parts of a batch take the step one
+    process takes on the whole)."""
     if recon_loss not in ("l1", "l2"):
         raise ValueError(f"recon_loss must be 'l1' or 'l2', got {recon_loss!r}")
+    group = None if mesh is None else mesh.group(DATA_AXIS)
+    part, parts = (0, 1) if mesh is None else (mesh.index(DATA_AXIS), mesh.data)
 
     def pretrain_step(state: VAEPretrainState, images, noise: Optional[torch.Tensor] = None
                       ) -> Tuple[VAEPretrainState, Dict[str, torch.Tensor]]:
@@ -81,16 +93,24 @@ def make_vae_pretrain_step(recon_loss: str = "l1", kl_weight: float = 1e-6, half
             if half_precision:
                 params = {n: p.to(torch.bfloat16) for n, p in model.named_parameters()}
                 recon, dist = torch.func.functional_call(
-                    model, params, (images.to(torch.bfloat16), noise, state.generator))
+                    model, params, (images.to(torch.bfloat16), noise, state.generator, part, parts))
             else:
-                recon, dist = model(images, noise, state.generator)
+                recon, dist = model(images, noise, state.generator, part, parts)
             diff = recon.float() - images.float()
             rec = torch.mean(torch.abs(diff)) if recon_loss == "l1" else torch.mean(diff * diff)
             kl = torch.mean(dist.kl().float())
             loss = rec + kl_weight * kl
             loss.backward()
+        metrics = torch.stack([loss.detach(), rec.detach(), kl.detach()])
+        if group is not None:
+            params = [p for p in state.vae.parameters() if p.requires_grad]
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            all_reduce_mean_([p.grad for p in params], group)
+            all_reduce_mean_([metrics], group)
         state.opt.step()
         state.step += 1
-        return state, {"loss": loss.detach(), "recon": rec.detach(), "kl": kl.detach()}
+        return state, dict(zip(("loss", "recon", "kl"), metrics.unbind()))
 
     return pretrain_step

@@ -11,6 +11,14 @@ On the card the U-Net's ResnetBlocks run K3 and its linear attentions
 K2 forward; their backward recomputes the plain versions
 (``ops.fused_resnet._ResnetBlockFn``, ``ops.linear_attention.
 _LinearAttentionFn``), with the weight gradients of every block.
+
+Data-parallel (``make_train_step(mesh=...)``): each rank of the data
+axis runs its slice of the global batch and the gradients are averaged
+over the ranks explicitly after ``backward()``.  The bf16 U-Net runs
+through ``torch.func.functional_call`` on bf16 copies of the masters,
+which ``DistributedDataParallel``'s forward hooks would not see; the
+explicit all-reduce needs no hooks and reduces the float32 masters'
+``.grad`` whatever path filled them.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import torch
 from torch import nn
 
 from nope_tpu_torch.models.blocks import PoseMLP, ResidualPreNormAttention, ResnetBlock
+from nope_tpu_torch.parallel.mesh import DATA_AXIS, all_reduce_mean_
 from nope_tpu_torch.tasks.pose_conditional import PoseConditionalTask, cast_half
 from nope_tpu_torch.training.optim import Optimizer, ema_update
 
@@ -119,6 +128,7 @@ def make_train_step(
     state_shardings: Any = None,
     grad_trace: bool = False,
     ema_decay: float = 0.0,
+    mesh: Any = None,
 ):
     """The train step: ``(state, {dataset: batch}) → (state, metrics)``,
     the state updated in place.  Batches hold numpy arrays or tensors
@@ -139,9 +149,17 @@ def make_train_step(
     ema)``: ``ema`` (a module shaped as the U-Net) becomes
     β·ema + (1−β)·params on the post-update parameters, in the same call.
 
-    ``state_shardings`` (ZeRO-1) comes with ROADMAP queue 1 item 12."""
+    ``mesh`` (``parallel.mesh.Mesh``) makes the step data-parallel: each
+    rank runs its part of the global batch, then the float32 master
+    gradients are averaged over the mesh's data axis (SUM, then / D, in
+    fixed buckets of the parameters in order) before the optimizer, and
+    so are the metrics: every rank logs the global loss and takes the
+    same update.  ``state_shardings`` (from ``parallel.zero.
+    zero1_state_shardings``, whose optimizer is then ZeRO-1) brings its
+    mesh."""
     if state_shardings is not None:
-        raise NotImplementedError("state_shardings (ZeRO-1) comes with parallel/ (ROADMAP queue 1 item 12)")
+        mesh = state_shardings.mesh
+    group = None if mesh is None else mesh.group(DATA_AXIS)
     half_vae = _HalfCopy()
 
     def loss_fn(state: TrainState, batches) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -167,6 +185,15 @@ def make_train_step(
             avg.backward()
         metrics = {"loss/train_avg": avg.detach()}
         metrics.update({f"loss/train_{k}": v.detach() for k, v in per_dataset.items()})
+        if group is not None:
+            params = list(state.unet.parameters())
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            all_reduce_mean_([p.grad for p in params], group)
+            values = torch.stack([v.reshape(()) for v in metrics.values()])
+            all_reduce_mean_([values], group)
+            metrics = dict(zip(metrics, values.unbind()))
         if grad_trace:
             named = dict(state.unet.named_parameters())
             trace = _grad_trace_groups(state.unet)

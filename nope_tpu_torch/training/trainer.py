@@ -4,8 +4,16 @@ One process drives: the combined multi-dataset loader → host-to-device
 prefetch → the train step → metric logging (JSONL, optional
 TensorBoard and W&B) → checkpoints and resume → periodic geodesic
 validation, with an optional parameter EMA stream and a monitored best
-export.  A multi-device mesh and ZeRO-1 come with ROADMAP queue 1
-item 12.
+export.
+
+Under a process group (``parallel.mesh.initialize_distributed``) every
+rank runs this loop over the mesh of ``machine.mesh_data`` x
+``machine.mesh_template``: the batch stays global (``machine.batch_size``
+pairs a step, as the JAX trainer puts it on the data axis), each rank
+loads its slice of it, the step averages the gradients over the data
+axis, and with ``machine.zero1`` the optimizer state is split over it.
+The metric log, the checkpoints and the best export are rank 0's; media
+grids are rank-suffixed; every rank updates the same EMA.
 """
 
 from __future__ import annotations
@@ -21,6 +29,8 @@ from typing import Callable, Dict, Iterable, Optional
 import torch
 
 from nope_tpu_torch.data.pipeline import CombinedLoader, device_prefetch
+from nope_tpu_torch.parallel.mesh import DATA_AXIS, create_mesh, process_index
+from nope_tpu_torch.parallel.zero import zero1_state_shardings
 from nope_tpu_torch.tasks.pose_conditional import PoseConditionalTask
 from nope_tpu_torch.training.checkpoint import CheckpointManager, save_reference_checkpoint
 from nope_tpu_torch.training.optim import make_lr_schedule, make_optimizer
@@ -31,15 +41,6 @@ from nope_tpu_torch.training.train_state import (
     make_train_step,
     to_numpy_metrics,
 )
-
-
-def check_one_device(machine) -> None:
-    """The port trains on one device: ``machine.zero1`` and a mesh of more
-    than one device raise, naming where they come."""
-    if getattr(machine, "zero1", False) or (machine.mesh_data or 1) > 1 or machine.mesh_template > 1:
-        raise NotImplementedError(
-            "machine.zero1 / machine.mesh_data / machine.mesh_template: the data- and "
-            "template-parallel trainer comes with parallel/ (ROADMAP queue 1 item 12)")
 
 
 class MetricLogger:
@@ -114,9 +115,24 @@ class MetricLogger:
             self._wandb.finish()
 
 
+class _NoLogger:
+    """The metric log of a rank other than 0: the records are rank 0's."""
+
+    def log(self, step: int, metrics: Dict[str, float]) -> None:
+        pass
+
+    def log_image(self, key: str, path: str, step: int) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 class Trainer:
-    """The JAX package's ``Trainer`` on one device: the task's modules
-    (their device is the run's) are the train state's."""
+    """The JAX package's ``Trainer``: the task's modules (their device is
+    the rank's) are the train state's.  ``train_loaders`` are
+    ``DataLoader``s of the global batch; on a data axis of more than one
+    rank each is told to load the rank's slice."""
 
     def __init__(
         self,
@@ -126,10 +142,14 @@ class Trainer:
         val_fn: Optional[Callable[[TrainState], Dict[str, float]]] = None,
     ):
         optim = cfg.model.optim_config
-        check_one_device(cfg.machine)
         self.cfg = cfg
         self.task = task
         self.device = task.device
+        self.mesh = create_mesh(data=cfg.machine.mesh_data, template=cfg.machine.mesh_template)
+        self.rank = process_index()
+        if self.mesh.data > 1:
+            for loader in train_loaders.values():
+                loader.shard(self.mesh.index(DATA_AXIS), self.mesh.data)
         self.combined = CombinedLoader(train_loaders)
         self.val_fn = val_fn
 
@@ -154,12 +174,18 @@ class Trainer:
             gamma=optim.gamma,
             steps_per_epoch=steps_per_epoch,
         )
+        # ZeRO-1 (machine.zero1): the optimizer state split over the data axis
+        self._state_shardings = None
+        if getattr(cfg.machine, "zero1", False):
+            self._state_shardings = zero1_state_shardings(TrainState(0, task.unet, task.vae, self.tx), self.mesh)
         self.ema_decay = float(getattr(optim, "ema_decay", 0.0) or 0.0)
         self.ema_params: Optional[torch.nn.Module] = None  # the EMA U-Net, made by init_state
         self.train_step = make_train_step(
             task,
             half_precision=getattr(optim, "half_precision_train", False),
+            state_shardings=self._state_shardings,
             ema_decay=self.ema_decay,
+            mesh=self.mesh,
         )
         user = getattr(cfg, "user", None)
         self.logger = MetricLogger(
@@ -167,7 +193,7 @@ class Trainer:
             wandb_project=getattr(user, "wandb_project_name", None),
             wandb_api_key=getattr(user, "wandb_api_key", None),
             wandb_config={"name_exp": cfg.name_exp},
-        )
+        ) if self.rank == 0 else _NoLogger()
         self.ckpt = CheckpointManager(
             os.path.join(cfg.save_dir, "checkpoints"),
             save_interval_steps=cfg.trainer.checkpoint_every_n_steps,
@@ -199,7 +225,8 @@ class Trainer:
             ref, query = (device_batch(batch[k][:4], self.device).float() for k in ("reference", "query"))
             task = PoseConditionalTask(state.unet, state.vae, self.task.config)
             _, pred_rgb = task.sample(ref, batch["relativeR"][:4].float(), decode_rgb=True)
-            path = os.path.join(self.cfg.save_dir, "media", f"reconst_step{step}_rank0.png")
+            # rank-suffixed (model.py:146) so ranks on shared storage never collide
+            path = os.path.join(self.cfg.save_dir, "media", f"reconst_step{step}_rank{self.rank}.png")
             save_image_grid(
                 [unnormalize(ref.cpu().numpy()), unnormalize(query.cpu().numpy()), pred_rgb.float().cpu().numpy()],
                 path,
@@ -225,7 +252,7 @@ class Trainer:
             if best_v is None or sign * v < sign * float(best_v):
                 self._best = {"value": v, "step": step, "stream": stream}
                 winner = st
-        if winner is None:
+        if winner is None or self.rank != 0:
             return
         best_path = os.path.join(self.cfg.save_dir, "checkpoints", "best.pth")
         save_reference_checkpoint(best_path, winner.unet.state_dict(), winner.vae.state_dict())

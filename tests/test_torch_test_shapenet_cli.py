@@ -1,7 +1,8 @@
 """The port's ShapeNet evaluation CLI against ``nope_tpu.cli.test_shapenet``
 on the same synthetic root and the same weights (CPU, float32): scores,
 ``scores.json`` and the per-batch ``.npz`` dumps; the checkpoint forms
-the JAX CLI's torch branch reads; the device and mesh flags."""
+the JAX CLI's torch branch reads; the device flag; the mesh flags and
+the merged scores on 2 gloo ranks against one process."""
 
 import json
 import os
@@ -22,7 +23,9 @@ from nope_tpu_torch.configs import load_config
 from nope_tpu_torch.models.factory import build_task
 from nope_tpu_torch.training.checkpoint import UNET_PREFIX, restore_eval_params, save_reference_checkpoint
 from nope_tpu_torch.weights import unet_state_dict_from_jax, vae_state_dict_from_jax
+from nope_tpu_torch.parallel.launch import Ranks
 from tests.fixtures import N_QUERY, make_mini_shapenet
+from tests.torch_parallel_ranks import shapenet_cli_rank
 
 torch.set_num_threads(1)
 CATEGORIES = ("bottle", "mug")
@@ -183,9 +186,66 @@ def test_cli_runs_on_the_card_by_default(root, tmp_path, monkeypatch):
     assert not os.path.exists(tmp_path / "train" / "scores.json")
 
 
-@pytest.mark.parametrize("flags", [["--mesh-data", "2"], ["--mesh-template", "2"]])
-def test_mesh_flags_wait_for_parallel(root, tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        cli.main(["--categories", "bottle", "--device", "cpu", *flags, *TINY, *_data(root),
-                  f"save_dir={tmp_path}"])
-    assert not os.path.exists(tmp_path / "train")
+MESH_FLAGS = [["--mesh-data", "2"], ["--mesh-template", "2"]]
+
+
+def _mesh_args(root, pth, flags, save_dir):
+    return ["--categories", ",".join(CATEGORIES), "--device", "cpu", *flags, *TINY, *FP32, *_data(root),
+            f"model.checkpoint_path={pth}", f"save_dir={save_dir}"]
+
+
+@pytest.fixture(scope="module")
+def two_rank_cli(root, weights, tmp_path_factory):
+    """The fp32 CLI on 2 gloo ranks (``tests/torch_parallel_ranks.py``,
+    torch only) with each of ``MESH_FLAGS`` and with none (each rank its
+    part of every batch, the scores merged), and in one process."""
+    out = tmp_path_factory.mktemp("mesh_cli")
+    pth = weights[2]
+    runs = [_mesh_args(root, pth, flags, out / str(i)) for i, flags in enumerate(MESH_FLAGS + [[]])]
+    group = Ranks(shapenet_cli_rank, 2, (runs,), timeout=300)
+    single = cli.main(_mesh_args(root, pth, [], out / "single"))
+    return {"ranks": group.join(), "single": single, "dir": out}
+
+
+def _same_scores(got, want):
+    assert set(got) == set(want)
+    for cat in want:
+        assert set(got[cat]) == set(want[cat]), cat
+        for key, value in want[cat].items():
+            if "accuracy" in key or key == "num_images":
+                assert got[cat][key] == value, (cat, key)
+            elif "median" in key:
+                assert abs(got[cat][key] - value) <= 1e-3, (cat, key)
+            elif key == "loss":
+                np.testing.assert_allclose(got[cat][key], value, rtol=1e-5)
+
+
+@pytest.mark.parametrize("flags", MESH_FLAGS)
+def test_mesh_flags_wait_for_parallel(two_rank_cli, flags):
+    """``--mesh-data 2`` (a (2, 1) mesh: each rank its half of every batch)
+    and ``--mesh-template 2`` (a (1, 2) mesh: each rank 13 of the 26
+    templates) on 2 gloo ranks: every rank returns one process's scores
+    (accuracies and counts equal, medians within 1e-3°, the loss within
+    rel 1e-5), rank 0 writes ``scores.json``, and every rank its dumps,
+    rank-suffixed, of the whole batches."""
+    i = MESH_FLAGS.index(flags)
+    for r in two_rank_cli["ranks"]:
+        assert r["foreign"] == []
+        _same_scores(r["results"][i], two_rank_cli["single"])
+    save = two_rank_cli["dir"] / str(i) / "train"
+    assert json.loads(open(save / "scores.json").read()) == two_rank_cli["ranks"][0]["results"][i]
+    dumps = _dumps(str(save))
+    single = _dumps(str(two_rank_cli["dir"] / "single" / "train"))
+    for name, want in single.items():
+        for rank in (0, 1):
+            got = dumps[name.replace("rank0", f"rank{rank}")]
+            np.testing.assert_array_equal(got["nearest_idx"], want["nearest_idx"])
+            np.testing.assert_allclose(got["similarity"], want["similarity"], rtol=1e-4)
+    assert len(dumps) == 2 * len(single)
+
+
+def test_two_ranks_without_a_mesh_merge_their_scores(two_rank_cli):
+    """No mesh flags on 2 ranks: each rank scores its part of every batch
+    and the merged scores are one process's, on both ranks."""
+    for r in two_rank_cli["ranks"]:
+        _same_scores(r["results"][2], two_rank_cli["single"])

@@ -32,6 +32,7 @@ from nope_tpu_torch.models.vae import StableDiffusionVAE
 from nope_tpu_torch.training import checkpoint
 from nope_tpu_torch.training.pretrain_vae import create_vae_pretrain_state, make_vae_pretrain_step
 from tests.fixtures import make_shapenet_object
+from tests.torch_parallel_ranks import one_rank_group
 
 torch.set_num_threads(1)
 
@@ -179,16 +180,30 @@ def test_old_diffusers_vae_names_are_read():
         assert torch.equal(a, b)
 
 
-def test_cli_refusals(tmp_path, monkeypatch):
+def test_cli_refusals(both_runs, train_root, warm_start, tmp_path):
+    """Without a card the default ``--device cuda`` is refused.  Inside a
+    process group (here of one gloo rank) both CLIs run on it: the train
+    step through the mesh's data axis (an all-reduce of one: SUM / 1)
+    gives the single-process run's weights bitwise, and VAE pretraining
+    the single-process weights bitwise.  Two ranks: ``tests/
+    test_torch_parallel_cli.py``."""
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit):
             train_cli.main(["--max-steps", "1"])
         with pytest.raises(SystemExit):
             pretrain_cli.main(["--steps", "1", "--out", str(tmp_path / "vae.bin")])
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    for main, args in ((train_cli.main, []), (pretrain_cli.main, ["--out", str(tmp_path / "v.bin")])):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            main(args + ["--device", "cpu"])
+    pretrain = ["--steps", "2", "--device", "cpu", *TINY, f"data.datasets.shapeNet.root_dir={train_root}",
+                "data.datasets.shapeNet.img_size=32"]
+    alone = pretrain_cli.main(pretrain + ["--out", str(tmp_path / "alone.bin")])
+    with one_rank_group(tmp_path):
+        state, trainer = train_cli.main(["--max-steps", str(STEPS), "--device", "cpu"]
+                                        + _overrides(train_root, tmp_path, warm_start, "grouped"))
+        grouped = pretrain_cli.main(pretrain + ["--out", str(tmp_path / "grouped.bin")])
+    assert set(trainer.mesh.groups) == {"data", "template"}
+    for a, b in zip(state.unet.state_dict().values(), both_runs["state"].unet.state_dict().values()):
+        assert torch.equal(a, b)
+    for a, b in zip(grouped.vae.state_dict().values(), alone.vae.state_dict().values()):
+        assert torch.equal(a, b)
 
 
 def test_pretrain_step_matches_jax_with_its_noise():

@@ -3,7 +3,8 @@ against the JAX package's ``make_train_step`` on the same weights and
 batches (CPU: K3 and K2 run their plain versions): losses, parameter
 deltas, the grad-trace norms and the EMA over 3 AdamW steps in float32
 (two datasets, one on the float wire, one on the uint8 wire), the
-bfloat16 step's loss, and K3's weight packs across steps."""
+bfloat16 step's loss, and K3's weight packs across steps; the step over
+a one-rank process group, data-parallel and ZeRO-1."""
 
 import copy
 import functools
@@ -23,6 +24,9 @@ from nope_tpu_torch.geometry import rotations as rot
 from nope_tpu_torch.ops import fused_resnet as fr
 from nope_tpu_torch.tasks.pose_conditional import PoseConditionalTask
 from nope_tpu_torch.training import optim, train_state
+from nope_tpu_torch.parallel.mesh import create_mesh
+from nope_tpu_torch.parallel.zero import zero1_state_shardings
+from tests.torch_parallel_ranks import one_rank_group
 from tests.torch_port_helpers import IMG, UNET, VAE, seeded_port_modules
 
 HI = functools.partial(jax.default_matmul_precision, "highest")
@@ -272,6 +276,29 @@ def test_k3_packs_stay_bounded_and_fresh(monkeypatch, half):
     assert max(sizes) <= n_conv and sizes[-1] == sizes[0], sizes
 
 
-def test_state_shardings_name_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        train_state.make_train_step(None, state_shardings=object())
+def test_state_shardings_name_the_roadmap_item(tmp_path):
+    """``make_train_step(state_shardings=zero1_state_shardings(...))`` (the
+    optimizer made ``ZeroRedundancyOptimizer`` over a one-rank gloo group)
+    and ``make_train_step(mesh=...)`` (the same group's data axis, whose
+    all-reduce is SUM / 1) take the single-process step: 3 fp32 steps on
+    two datasets, metrics and weights bitwise equal.  The 2-rank step is
+    held against JAX in ``tests/test_torch_parallel.py``."""
+    unet, vae, _ = seeded_port_modules(3)
+    batches = _batches(5, [("float", False), ("wire", True)])
+    want_metrics, want_unets, _, _ = _port_run(unet, vae, batches, half=False)
+    with one_rank_group(tmp_path):
+        mesh = create_mesh()
+        assert set(mesh.groups) == {"data", "template"}
+        for zero in (False, True):
+            u, v = copy.deepcopy(unet), copy.deepcopy(vae)
+            task = PoseConditionalTask(u, v)
+            state = train_state.create_train_state(task, optim.make_optimizer(u.parameters(), **OPT))
+            if zero:
+                step = train_state.make_train_step(task, state_shardings=zero1_state_shardings(state, mesh))
+                assert state.opt.sharded
+            else:
+                step = train_state.make_train_step(task, mesh=mesh)
+            for b, metrics, sd in zip(batches, want_metrics, want_unets):
+                state, m = step(state, b)
+                assert train_state.to_numpy_metrics(m) == metrics, zero
+                assert all(torch.equal(t, sd[k]) for k, t in u.state_dict().items()), zero

@@ -1,12 +1,14 @@
 """The port's trainer side (``nope_tpu_torch/training/{checkpoint,trainer}.py``)
 on the CPU at a tiny size: checkpoint round trips, deterministic resume
 of the data and loss streams, the EMA stream and the monitored best
-export across a resume, the steps/s divisor, media grids and the
-one-device guard.  The metrics keys against the JAX trainer's are held
+export across a resume, the steps/s divisor, media grids, and fits on
+2 gloo ranks (data-parallel, a template axis, ZeRO-1) against one
+process's.  The metrics keys against the JAX trainer's are held
 in ``test_torch_train_cli.py``, where both CLIs run."""
 
 import copy
 import json
+import os
 import os.path as osp
 
 import numpy as np
@@ -17,6 +19,8 @@ from nope_tpu_torch.configs import load_config
 from nope_tpu_torch.data.pipeline import DataLoader, collate
 from nope_tpu_torch.geometry import rotations as rot
 from nope_tpu_torch.models.factory import build_task
+from nope_tpu_torch.parallel.launch import Ranks
+from nope_tpu_torch.parallel.mesh import initialize_distributed
 from nope_tpu_torch.training import checkpoint, optim, trainer as trainer_mod
 from nope_tpu_torch.training.checkpoint import CheckpointManager
 from nope_tpu_torch.training.train_state import create_train_state
@@ -268,7 +272,74 @@ def test_media_grid_is_written(tmp_path):
     assert osp.isfile(osp.join(cfg.save_dir, "media", "reconst_step1_rank0.png"))
 
 
-@pytest.mark.parametrize("override", ["machine.mesh_data=2", "machine.mesh_template=2", "machine.zero1=true"])
-def test_more_than_one_device_names_the_roadmap_item(tmp_path, override):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        _trainer(tmp_path, [override])
+MESH_OVERRIDES = ["machine.mesh_data=2", "machine.mesh_template=2", "machine.zero1=true"]
+MESH_FIT = ["trainer.checkpoint_every_n_steps=2", "trainer.media_every_n_steps=2"]
+MESH_STEPS = 4
+
+
+def _flat(module):
+    return torch.cat([p.detach().reshape(-1) for p in module.parameters()]).numpy()
+
+
+def _fit_rank(rank, world, init_method, workdir):
+    """One rank of a 2-rank gloo group: ``Trainer.fit`` under each override
+    of ``MESH_OVERRIDES`` in turn (this module imports no jax)."""
+    initialize_distributed("gloo", "cpu", init_method, rank, world)
+    out = {}
+    for override in MESH_OVERRIDES:
+        log = []
+        tr, cfg = _trainer(osp.join(workdir, override), [override, *MESH_FIT], log=log)
+        state = tr.fit(max_steps=MESH_STEPS)
+        out[override] = {"fetched": log, "params": _flat(state.unet), "mesh": tr.mesh.shape,
+                         "sharded": state.opt.sharded, "records": _records(cfg) if rank == 0 else None,
+                         "dir": cfg.save_dir}
+    return out
+
+
+@pytest.fixture(scope="module")
+def two_rank_fits(tmp_path_factory):
+    """The 2-rank fits of every override, and one process's fit of the
+    same global batches (2 pairs a step)."""
+    workdir = tmp_path_factory.mktemp("mesh_fits")
+    group = Ranks(_fit_rank, 2, (str(workdir),), timeout=300)
+    log = []
+    tr, cfg = _trainer(workdir / "single", MESH_FIT, log=log)
+    state = tr.fit(max_steps=MESH_STEPS)
+    single = {"fetched": log, "params": _flat(state.unet), "records": _records(cfg)}
+    return {"ranks": group.join(), "single": single}
+
+
+@pytest.mark.parametrize("override", MESH_OVERRIDES)
+def test_more_than_one_device_names_the_roadmap_item(two_rank_fits, override):
+    """``machine.mesh_data=2`` (each rank loads 1 of the 2 pairs of every
+    step; the gradients are averaged), ``machine.mesh_template=2`` (a
+    (1, 2) mesh: both ranks take the whole step) and ``machine.zero1=true``
+    (a (2, 1) mesh with the optimizer state split) on 2 gloo ranks, 4
+    steps, against one process's fit: the losses within rel 1e-5 (bitwise
+    on the (1, 2) mesh, whose data axis is one rank), the same weights on
+    both ranks, ZeRO-1's weights those of the replicated (2, 1) run
+    bitwise; rank 0 alone logs and writes the checkpoints at 2 and 4, and
+    each rank writes its own media grid."""
+    ranks, single = [r[override] for r in two_rank_fits["ranks"]], two_rank_fits["single"]
+    template = override == "machine.mesh_template=2"
+    assert ranks[0]["mesh"] == ranks[1]["mesh"] == {"data": 1 if template else 2, "template": 2 if template else 1}
+    assert ranks[0]["sharded"] == ranks[1]["sharded"] == (override == "machine.zero1=true")
+    np.testing.assert_array_equal(ranks[0]["params"], ranks[1]["params"])
+    losses = lambda recs: [r["loss/train_avg"] for r in recs if "loss/train_avg" in r]  # noqa: E731
+    want = losses(single["records"])
+    assert len(want) == MESH_STEPS
+    if template:
+        assert losses(ranks[0]["records"]) == want
+        np.testing.assert_array_equal(ranks[0]["params"], single["params"])
+        assert ranks[0]["fetched"] == ranks[1]["fetched"] == single["fetched"]
+    else:
+        np.testing.assert_allclose(losses(ranks[0]["records"]), want, rtol=1e-5)
+        for a, b, whole in zip(ranks[0]["fetched"], ranks[1]["fetched"], single["fetched"]):
+            assert len(a) == len(b) == 1 and sorted(a + b) == sorted(whole)
+    if override == "machine.zero1=true":
+        np.testing.assert_array_equal(ranks[0]["params"], two_rank_fits["ranks"][0]["machine.mesh_data=2"]["params"])
+    run_dir = ranks[0]["dir"]
+    assert CheckpointManager(osp.join(run_dir, "checkpoints")).all_steps() == [2, 4]
+    assert sorted(os.listdir(osp.join(run_dir, "media"))) == [
+        f"reconst_step{s}_rank{r}.png" for s in (2, 4) for r in (0, 1)]
+    assert len(open(osp.join(run_dir, "metrics.jsonl")).readlines()) == MESH_STEPS

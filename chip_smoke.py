@@ -15,14 +15,21 @@ it fails at once.
    and bfloat16; K3 in bfloat16 (its tensor-core route) at B = 3 (a
    ragged M), 26 and 341 (the registration batch), and its 32x32 blocks
    at the evaluation program's 1,984 and 3,328 U-Net items (64 x 31 and
-   128 x 26); K2 at 3, 26 and 341 items times each of the U-Net's token
-   counts, and in bfloat16 at 1,984 and 3,328; K1 at the serving
-   requests, B=64, a bank per query (also the evaluation program's
-   (64, 31), (128, 26) and (8, 341)) and a ragged B.  Two launches on the
+   128 x 26) and phase 11's 1,664 (64 x 26); K2 at 3, 26 and 341 items
+   times each of the U-Net's token counts, and in bfloat16 at 1,984, 3,328
+   and 1,664; K1 at the serving requests, B=64, a bank per query (also the
+   evaluation program's (64, 31), (128, 26) and (8, 341)), a ragged B, and
+   phase 11's (64, 26) shared, (32, 13) and (64, 26) per query.  Two launches on the
    same inputs must be bitwise equal (K3 bf16, K1 and K2 both dtypes).
    Past the grid's 65,535 y extent: K3 at B=65,600 (its smallest block,
    4x4; samples on both sides of 65,535 held) and K1 at B=65,600 with a
-   bank per query of N=1.
+   bank per query of N=1.  K1 at other channel counts, both dtypes,
+   bitwise repeatable: C = 8 (the template encoder's descriptors) at
+   B=64, N=341 and with a bank per query at (64, 26); C = 12 (an odd
+   number of vectors a pixel) and C = 16, shared and per query (the tiled
+   kernel's shared instance); C = 3 (the scalar kernel) shared and per
+   query; C = 4 over 5x5 latents (an odd pixel count: bf16 takes the
+   scalar kernel).
 3. The main path, at the flagship's full width (192-wide PoseUNet with
    dim_mults (1,2,4,8), the default SD-VAE, 256-px images, 32x32x4
    latents) with seeded random weights: PoseEstimators on the 26-template
@@ -36,7 +43,8 @@ it fails at once.
    the stream held while the host queues (``device_ms``); K2 per token
    count at 26 and 341 items (and 1,984 and 3,328 in bf16) and summed
    over the 8 calls of one U-Net forward; K1 at B = 8, 64 against N = 26,
-   341 and with a bank per query at (64, 31) and (128, 26); K3 per block
+   341 and with a bank per query at (64, 31) and (128, 26), and at C = 8
+   at (64, 341) and (64, 26) per query; K3 per block
    shape (bf16 also at 1,984 and 3,328 items) beside ``F.conv2d`` over
    the block's convs (bf16, channels-last), with TFLOP/s.  After phase 6
    (4b), the evaluation program, median of 3: images/s of ``bench.py``'s
@@ -127,6 +135,23 @@ it fails at once.
    steps, a checkpoint at 2, merged validation) with a second ``main``
    resumed from the checkpoint.  Every path's launches are printed; two
    ranks sharing one card is a correctness check, not a scaling number.
+11. The model zoo (``models/{ldm_unet,adm_unet,resnet,template_encoder}.py``)
+   at full width, 256-px images, seeded weights (the factory's zero layers
+   overwritten by seeded noise, else every template's prediction is the
+   same): ``vae_cin_ldm`` from ``configs/model_ldm.yaml``,
+   ``vae_guidedDiffusion`` at ``UNetConfig``'s ``gd_*`` defaults and
+   ``template_base`` (ResNet-50, descriptor 8).  Each: (a) the fp32 U-Net
+   and encoder on the card against the CPU at 2 items; (b) in bf16,
+   registration at N=341 and ``estimate`` at B=64, N=26 through
+   ``PoseEstimator`` (LDM, ADM; ``template_base`` is refused as in the JAX
+   package), ``eval_geodesic_step`` at N=26 (B and chunks from
+   ``ZOO_EVAL``), times, peak memory and every kernel's launches (K1 in
+   all three, K2 and K3 in ``template_base`` alone); then, not counted, K1
+   at each of its calls there against its plain version on the same
+   inputs, and the eval step against the same step on plain ops.  The LDM also runs
+   (c) ``cli.infer.main --config configs/model_ldm.yaml --fast`` over two
+   PNGs with a checkpoint the port saved, against the in-process
+   estimator, and (d) one bf16 train step at B=16 with ``grad_trace``.
 
 Phases run in the order 1 to 6, so phases 4 and 5 time the serving
 path and the kernels in a process that holds only phase 3's modules
@@ -135,13 +160,14 @@ protocols, ``estimate_many``), 4c refinement (one refine step split into
 kernels forward, backward and its plain recompute; refined ``estimate``
 at B=8 against the unrefined call; a refined eval batch), 5b profiles
 one full-protocol eval step and one refined ``estimate``, and phases 7
-and 8, then 9 and 10, run.  The last two lines are the kernel table (``ms`` with the host
+and 8, then 9, 10 and 11, run.  The last two lines are the kernel table (``ms`` with the host
 in the loop, ``device_ms`` on the device alone, ``launches`` of phase 3,
 ``eval_launches`` of phase 6 (a), ``refine_launches`` of one refined
 ``estimate`` in phase 7 (c), ``cli_launches`` of phase 8's two bf16 CLI
 runs (fast and full protocol), ``train_launches`` and
 ``train_recomputes`` of phase 9's uninterrupted CLI run,
-``parallel_launches`` of phase 10 (a) and (b) (both ranks), and for K2 and
+``parallel_launches`` of phase 10 (a) and (b) (both ranks),
+``zoo_launches`` of phase 11 (b) by configuration, and for K2 and
 K3 that call's ``refine_recomputes``, their Functions'
 ``backward_max_rel``, the pose gradient's ``unet_pose_grad_rel`` and the
 weight gradients' ``unet_weight_grad_rel`` by dtype) and
@@ -185,16 +211,30 @@ K3_BATCHES = (3, FAST_N, FULL_N)
 K2_ITEMS = (3, FAST_N, FULL_N)
 # K1 (B, N, bank lead): a B=64 request, the serving requests (one object's
 # bank), a bank per query, a ragged B; the evaluation program's banks per
-# query: a full-protocol chunk, the fast protocol, estimate_many's gather
+# query: a full-protocol chunk, the fast protocol, estimate_many's gather;
+# phase 11's: estimate at B=64 N=26, the LDM's streamed chunks of 13 at B=32,
+# the ADM's eval step at B=64 N=26
 K1_SHAPES = ((64, FULL_N, 1), (QUERIES, FAST_N, 1), (QUERIES, FULL_N, 1), (QUERIES, FAST_N, QUERIES), (3, FULL_N, 1),
-             (64, 31, 64), (128, FAST_N, 128), (QUERIES, FULL_N, QUERIES))
+             (64, 31, 64), (128, FAST_N, 128), (QUERIES, FULL_N, QUERIES), (64, FAST_N, 1), (32, 13, 32),
+             (64, FAST_N, 64))
 K1_TIMED = ((QUERIES, FAST_N, 1), (QUERIES, FULL_N, 1), (64, FAST_N, 1), (64, FULL_N, 1), (64, 31, 64),
             (128, FAST_N, 128))
+# K1 at other channel counts (B, N, bank lead, C, latent side): the template encoder's descriptors (C = 8)
+# at the evaluation program's B=64, N=341 and with a bank per query; the tiled kernel's shared instance at
+# an odd C / 4 (C = 12: a bf16 step of 20 pixels, chunks straddling pixels) and C = 16, shared and per
+# query; an odd C (the scalar kernel), shared and per query; C = 4 with an odd pixel count (25: a bf16 row
+# is not 16-byte aligned, the scalar kernel)
+K1_CHANNELS = ((64, FULL_N, 1, 8, 32), (64, FAST_N, 64, 8, 32), (64, FAST_N, 1, 12, 32),
+               (QUERIES, FAST_N, QUERIES, 12, 32), (64, FAST_N, 1, 16, 32), (QUERIES, FAST_N, QUERIES, 16, 32),
+               (QUERIES, FAST_N, 1, 3, 32), (QUERIES, FAST_N, QUERIES, 3, 32), (QUERIES, FAST_N, 1, 4, 5))
+K1_TIMED_C8 = ((64, FULL_N, 1), (64, FAST_N, 64))
 # the evaluation program (bench.py's two protocols): (B, N, chunk_size);
 # the fast bank is made whole, the full one streamed
 EVAL = {"fast": (128, FAST_N, None), "full": (64, FULL_N, 31)}
-# U-Net items of one evaluation forward: a full-protocol chunk, the fast bank
+# U-Net items of one evaluation forward: a full-protocol chunk, the fast bank;
+# phase 2 also holds K2 and K3 at template_base's eval step in phase 11 (B=64, N=26)
 EVAL_ITEMS = (64 * 31, 128 * FAST_N)
+CHECK_ITEMS = EVAL_ITEMS + (64 * FAST_N,)
 # streamed against materialised in bfloat16: the top-1 is held where its
 # margin over the second exceeds this share of the row's largest |score|
 BF16_SIM_RTOL = 1e-2
@@ -233,6 +273,11 @@ TRAIN_LOSS_RTOL, TRAIN_DELTA_RTOL, RESUME_LOSS_RTOL = 1e-5, 1e-3, 2e-2
 PAR_BATCH, PAR_CHUNK, PAR_STEPS, PAR_CKPT, PAR_TIMEOUT = TRAIN_BATCH, 13, 3, 2, 480
 # the one-rank step's cost: timed steps of each kind, in turn
 PAR_ROUNDS = 8
+# the model zoo (phase 11): each configuration's eval step at N=26, (B, chunk_size): the LDM's
+# self-attention over 32x32 latents holds 8 x 1024² bf16 scores (16 MiB) and their softmax an item, so
+# its bank streams in chunks of 13 templates (416 U-Net items); the others make the bank whole
+ZOO_EVAL = {"vae_cin_ldm": (32, 13), "vae_guidedDiffusion": (64, None), "template_base": (64, None)}
+ZOO_TRAIN_BATCH = 16
 
 
 def flagship_config():
@@ -1976,6 +2021,274 @@ def parallel_phase(torch, dev, smi, counters, task32, half, grids, phase9_step_m
     return out
 
 
+# -- phase 11: the model zoo ------------------------------------------------------------
+
+
+def zoo_configs():
+    """The three configurations of phase 11, full width, 256-px images:
+    the repo's LDM preset, the ADM variant at ``UNetConfig``'s ``gd_*``
+    defaults, and ``template_base`` with the ResNet-50 template encoder
+    (descriptor 8)."""
+    from nope_tpu_torch.configs import load_config
+
+    return {
+        "vae_cin_ldm": load_config(str(ROOT / "configs" / "model_ldm.yaml")).model,
+        "vae_guidedDiffusion": load_config(None, ["model.u_net.variant=vae_guidedDiffusion"]).model,
+        "template_base": load_config(None, ["model.u_net.variant=template_base", "model.encoder.kind=template",
+                                            "model.encoder.latent_dim=8", "model.encoder.descriptor_size=8"]).model,
+    }
+
+
+def noise_zero_layers(torch, module, seed):
+    """Seeded LeCun-normal noise over the layers the factory leaves at zero
+    (as JAX does): with them at zero every template's prediction is the
+    same and retrieval ties."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if getattr(m, "zero_init", False):
+                w = torch.randn(m.weight.shape, generator=gen) / float(np.sqrt(m.weight[0].numel()))
+                m.weight.copy_(w.to(m.weight.device))
+                m.bias.copy_((0.1 * torch.randn(m.bias.shape, generator=gen)).to(m.bias.device))
+    return module
+
+
+def zoo_infer_cli(torch, task32, est26, rng):
+    """Phase 11 (c): ``cli.infer.main --config configs/model_ldm.yaml --fast``
+    over two PNGs written here, with a checkpoint the port saved of the
+    seeded task; its answer against the in-process estimator's."""
+    import tempfile
+
+    from nope_tpu_torch.cli import infer
+    from nope_tpu_torch.data.png import write_png
+    from nope_tpu_torch.training.checkpoint import save_reference_checkpoint
+
+    ref8, q8 = (rng.integers(0, 256, (IMAGE, IMAGE, 3), dtype=np.uint8) for _ in range(2))
+    with tempfile.TemporaryDirectory(prefix="nope_zoo_") as tmp:
+        paths = {k: os.path.join(tmp, f"{k}.png") for k in ("reference", "query")}
+        write_png(paths["reference"], ref8)
+        write_png(paths["query"], q8)
+        ckpt, out = os.path.join(tmp, "ldm.pth"), os.path.join(tmp, "poses.json")
+        t0 = time.perf_counter()
+        save_reference_checkpoint(ckpt, task32.unet.state_dict(), task32.vae.state_dict())
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        infer.main(["--config", str(ROOT / "configs" / "model_ldm.yaml"), "--fast", "--reference", paths["reference"],
+                    "--queries", paths["query"], "--checkpoint", ckpt, "--out", out])
+        torch.cuda.synchronize()
+        t_cli = time.perf_counter() - t0
+        with open(out) as f:
+            payload = json.load(f)
+    # the CLI's image reader: uint8 → float32 in [-1, 1] on the host
+    est26.register_object("cli", (ref8.astype(np.float32) / 255.0) * 2.0 - 1.0)
+    want = est26.estimate("cli", ((q8.astype(np.float32) / 255.0) * 2.0 - 1.0)[None])
+    entry = payload["results"][0]
+    sim = np.asarray(entry["similarity"], np.float32)
+    err = float(np.abs(sim - want.similarity[0]).max() / np.abs(want.similarity[0]).max())
+    ok = (payload["num_templates"] == FAST_N and len(payload["results"]) == 1 and np.isfinite(sim).all()
+          and entry["topk_template_idx"] == want.nearest_idx[0].tolist() and err <= BF16_SIM_RTOL)
+    print(f"  (c) cli.infer.main --config configs/model_ldm.yaml --fast, 2 PNGs, the port's checkpoint (saved in "
+          f"{t_save:.2f} s): {t_cli:.1f} s; top-5 {entry['topk_template_idx']} vs the in-process estimator's "
+          f"{want.nearest_idx[0].tolist()}, similarity rel {err:.2e} (tol {BF16_SIM_RTOL:.0e}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("cli.infer.main with the LDM preset disagrees with the estimator")
+
+
+def zoo_train_step(torch, smi, task32):
+    """Phase 11 (d): one bf16 train step of the LDM variant at B=16 with
+    ``grad_trace``: its groups for a U-Net that is not a PoseUNet."""
+    from nope_tpu_torch.tasks.pose_conditional import PoseConditionalTask
+    from nope_tpu_torch.training import optim, train_state
+
+    unet = copy.deepcopy(task32.unet)
+    task = PoseConditionalTask(unet, task32.vae, task32.config)
+    state = train_state.TrainState(0, unet, task32.vae, optim.make_optimizer(unet.parameters(), warm_up_steps=0))
+    step = train_state.make_train_step(task, half_precision=True, grad_trace=True)
+    pairs = train_pairs(torch, ZOO_TRAIN_BATCH, 111)
+    batches = {"ds": {k: torch.from_numpy(v).to(task32.device) for k, v in pairs.items()}}
+    torch.cuda.reset_peak_memory_stats()
+    t_step = median_ms(torch, lambda: step(state, batches))
+    m = train_state.to_numpy_metrics(step(state, batches)[1])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    groups = {g: m[f"gnorm/{g}"] for g in train_state.GRAD_TRACE_GROUPS}
+    ok = (np.isfinite(list(m.values())).all() and groups["cond_mlp"] == 0.0
+          and all(groups[g] > 0 for g in ("pose_mlp", "attn", "conv")) and state.step == 5)
+    print(f"  (d) vae_cin_ldm one bf16 train step at B={ZOO_TRAIN_BATCH} (U-Net batch {2 * ZOO_TRAIN_BATCH}), "
+          f"grad_trace: "
+          f"{t_step:.2f} ms, peak {peak:.2f} GiB; loss {m['loss/train_avg']:.5f}; gnorm "
+          + ", ".join(f"{g} {v:.4e}" for g, v in groups.items()) + f" {'ok' if ok else 'FAIL'} [{smi}]")
+    if not ok:
+        raise RuntimeError("the LDM train step's grad-trace groups are wrong")
+    del unet, state, task
+    return t_step
+
+
+@contextlib.contextmanager
+def k1_held(worst):
+    """Inside the block every retrieval score (the "l2" metric, K1) is also
+    computed by K1's plain version on the same inputs; ``worst`` gets the
+    largest relative difference per (query shape, bank's leading dims,
+    dtype)."""
+    from nope_tpu_torch.ops import similarity as sim
+
+    kernel = sim._METRICS["l2"]
+
+    def held(query, bank):
+        got = kernel(query, bank)
+        _, rel = rel_err(got, sim.reference_similarity_plain(query.float(), bank.float()))
+        key = (tuple(query.shape), tuple(bank.shape[:2]), str(query.dtype).split(".")[-1])
+        worst[key] = max(worst.get(key, 0.0), rel)
+        return got
+
+    sim._METRICS["l2"] = held
+    try:
+        yield
+    finally:
+        sim._METRICS["l2"] = kernel
+
+
+@contextlib.contextmanager
+def plain_k1():
+    """Retrieval scored by K1's plain version (no kernel)."""
+    from nope_tpu_torch.ops import similarity as sim
+
+    kernel = sim._METRICS["l2"]
+    sim._METRICS["l2"] = sim.reference_similarity_plain
+    try:
+        yield
+    finally:
+        sim._METRICS["l2"] = kernel
+
+
+def zoo_plain_check(torch, name, task32, half, batch, chunk, est26, q64, res):
+    """Phase 11 (b), after its launches are read: K1 at this configuration's
+    own shapes (estimate and the eval step) against its plain version on the
+    same inputs, at phase 2's K1 limit; and the whole bf16 eval step against
+    the same step with all three ops on their plain versions (K2 and K3 in
+    template_base), similarity within BF16_SIM_RTOL and the top-1 equal on
+    every decided row."""
+    worst = {}
+    with k1_held(worst):
+        if est26 is not None:
+            est26.estimate("o", q64)
+        task32.eval_geodesic_step(batch, chunk_size=chunk, infer_task=half)
+    with plain_ops(), plain_k1():
+        plain = task32.eval_geodesic_step(batch, chunk_size=chunk, infer_task=half)
+    k1_rel = max(worst.values())
+    rel, decided, same, top1 = _top1_check(torch, res["similarity"], res["nearest_idx"], plain["similarity"],
+                                           plain["nearest_idx"])
+    ok = k1_rel <= TOL["bfloat16"]["K1"] and rel <= BF16_SIM_RTOL and top1
+    shapes = ", ".join(f"q {q} bank {t} rel {r:.2e}" for (q, t, _), r in worst.items())
+    print(f"    (b) K1 held on its own inputs, bf16: {shapes} (tol {TOL['bfloat16']['K1']:.0e}); eval step vs all "
+          f"ops plain: similarity rel {rel:.3e} (tol {BF16_SIM_RTOL:.0e}), top-1 margin above {BF16_SIM_RTOL:.0e} of "
+          f"|score| in {decided} of {len(plain['nearest_idx'])} rows, top-1 equal in {same} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"{name}: the kernels disagree with their plain versions at phase 11's shapes")
+
+
+def model_zoo_phase(torch, dev, smi, counters):
+    """Phase 11: the LDM preset, the ADM variant and ``template_base`` at
+    full width with seeded weights (the factory's zero layers overwritten
+    by noise).  Returns each configuration's kernel launches over (b)."""
+    from nope_tpu_torch.geometry import so3_grid
+    from nope_tpu_torch.models.factory import build_task
+    from nope_tpu_torch.serving import PoseEstimator
+
+    print(f"phase 11: the model zoo (full width, 256-px images, seeded weights; CUDA events, medians of 3) [{smi}]")
+    rng = np.random.default_rng(11)
+    ref = rng.uniform(-1, 1, (IMAGE, IMAGE, 3)).astype(np.float32)
+    q64 = rng.integers(0, 256, (64, IMAGE, IMAGE, 3), dtype=np.uint8)
+    indexes = so3_grid.load_index_level0_in_level2("upper")
+    grid = so3_grid.get_obj_poses_from_template_level(2, "all")[indexes][:, :3, :3].astype(np.float32)
+    out = {}
+    for i, (name, cfg) in enumerate(zoo_configs().items()):
+        t0 = time.perf_counter()
+        task32 = build_task(cfg, dev, torch.Generator().manual_seed(110 + i))
+        noise_zero_layers(torch, task32.unet, 120 + i)
+        params = sum(p.numel() for p in task32.unet.parameters()) / 1e6
+        enc_params = sum(p.numel() for p in task32.vae.parameters()) / 1e6
+        print(f"  {name}: {type(task32.unet).__name__} {params:.1f} M parameters, {type(task32.vae).__name__} "
+              f"{enc_params:.1f} M, latent {LATENT}x{LATENT}x{cfg.encoder.latent_dim}; built in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # (a) float32 on the card against the CPU, 2 items
+        t0 = time.perf_counter()
+        unet_cpu, enc_cpu = copy.deepcopy(task32.unet).cpu(), copy.deepcopy(task32.vae).cpu()
+        imgs = torch.from_numpy(rng.uniform(-1, 1, (2, IMAGE, IMAGE, 3)).astype(np.float32))
+        pose = torch.from_numpy(rng.normal(size=(2, 6)).astype(np.float32))
+        with torch.no_grad():
+            lat_cpu = enc_cpu.encode_image(imgs)
+            pred_cpu = unet_cpu(lat_cpu.permute(0, 3, 1, 2), pose)
+            lat = task32.encode(imgs.to(dev))
+            pred = task32.unet(lat_cpu.permute(0, 3, 1, 2).to(dev), pose.to(dev))
+        (_, enc_rel), (_, unet_rel) = rel_err(lat.cpu(), lat_cpu), rel_err(pred.cpu(), pred_cpu)
+        ok = enc_rel <= CPU_SIM_RTOL and unet_rel <= CPU_SIM_RTOL and torch.isfinite(pred).all().item()
+        print(f"    (a) fp32 card vs CPU, 2 items, TF32 off: encoder rel {enc_rel:.2e}, U-Net rel {unet_rel:.2e} "
+              f"(tol {CPU_SIM_RTOL:.0e}); {time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{name}: the fp32 card path disagrees with the CPU path")
+        del unet_cpu, enc_cpu, pred_cpu, lat_cpu
+
+        # (b) bf16 serving and the eval step, every kernel counted over them
+        for fn in counters:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        est26 = None
+        if cfg.encoder.kind == "vae":
+            est341 = PoseEstimator(task32, fast_evaluation=False)
+            t_reg = median_ms(torch, lambda: est341.register_object("o", ref), reps=3, warmup=1)
+            del est341
+            est26 = PoseEstimator(task32, fast_evaluation=True)
+            est26.register_object("o", ref)
+            t_est = median_ms(torch, lambda: est26.estimate("o", q64), reps=3, warmup=1)
+            r = est26.estimate("o", q64)
+            ok = r.nearest_idx.shape == (64, 5) and np.isfinite(r.similarity).all()
+            print(f"    (b) register_object bf16 N={FULL_N} {t_reg:.2f} ms; estimate bf16 N={FAST_N} B=64 {t_est:.2f} "
+                  f"ms ({64000 / t_est:.1f} queries/s); top-1 spread over {len(np.unique(r.nearest_idx[:, 0]))} "
+                  f"templates {'ok' if ok else 'FAIL'} [{smi}]")
+            if not ok:
+                raise RuntimeError(f"{name}: bad estimate")
+        else:
+            try:
+                PoseEstimator(task32, fast_evaluation=True).register_object("o", ref)
+            except AttributeError as e:  # as the JAX package's engine (tests/test_torch_template_encoder.py)
+                print(f"    (b) not served, as in the JAX package: PoseEstimator pins a VAE's latent geometry ({e})")
+            else:
+                raise RuntimeError("template_base registered: the serving gap the JAX package has is gone")
+        b, chunk = ZOO_EVAL[name]
+        batch = on_device(torch, eval_batch(torch, grid, b, 112 + i), dev)
+        half = task32.half()
+        t_eval = median_ms(torch, lambda: task32.eval_geodesic_step(batch, chunk_size=chunk, infer_task=half))
+        res = task32.eval_geodesic_step(batch, chunk_size=chunk, infer_task=half)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = out[name] = {fn.__name__: fn.launches for fn in counters}
+        sim_ = res["similarity"]
+        ok = (sim_.shape == (b, FAST_N) and torch.isfinite(sim_).all().item() and torch.isfinite(res["loss"]).item()
+              and int(res["nearest_idx"].max()) < FAST_N and launches["reference_similarity"] > 0
+              and all((launches[k] > 0) == (name == "template_base")
+                      for k in ("linear_attention_inner", "resnet_block")))
+        print(f"    (b) eval_geodesic_step B={b} N={FAST_N} chunk_size {chunk} (bf16 retrieval, fp32 loss): "
+              f"{t_eval:.2f} ms "
+              f"({1000 * b / t_eval:.2f} img/s); peak over (b) {peak:.2f} GiB; mean top-1 error "
+              f"{float(res['error_deg'].mean()):.1f} deg; launches over (b) {launches} {'ok' if ok else 'FAIL'} "
+              f"[{smi}]")
+        if not ok:
+            raise RuntimeError(f"{name}: the eval step failed its checks or a kernel count is off")
+        zoo_plain_check(torch, name, task32, half, batch, chunk, est26, q64, res)
+        del half, batch, res
+
+        if name == "vae_cin_ldm":
+            zoo_infer_cli(torch, task32, est26, rng)
+            zoo_train_step(torch, smi, task32)
+        del est26, task32
+        torch.cuda.empty_cache()
+    return out
+
+
 @contextlib.contextmanager
 def hidden(*names):
     """Imports of ``names`` raise ImportError inside the block, as on a host
@@ -2112,7 +2425,7 @@ def main() -> int:
     # drawn on the card; K3 at its 32x32 blocks, where M is largest
     dgen = torch.Generator(device=dev).manual_seed(2)
     big_k3 = [s for s in k3_shapes if s[0] == LATENT]
-    for items in EVAL_ITEMS:
+    for items in CHECK_ITEMS:
         for n in k2_tokens:
             qkv = 2 * torch.randn(items, n, 384, generator=dgen, device=dev).to(torch.bfloat16)
             got = la.linear_attention_inner(qkv, 4, 32)
@@ -2150,12 +2463,23 @@ def main() -> int:
         check("K1", f"B={BIG_B} N=1 bank per query", sim.reference_similarity(q, bank),
               sim.reference_similarity_plain(q.float(), bank.float()), str(dtype).split(".")[-1])
         del q, bank
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for b, n, lead, c, side in K1_CHANNELS:
+            q = torch.randn(b, side, side, c, generator=gen).to(dev, dtype)
+            bank = torch.randn(lead, n, side, side, c, generator=gen).to(dev, dtype)
+            route = "tiled" if sim.vector_route(q, bank) else "scalar"
+            got = sim.reference_similarity(q, bank)
+            check("K1", f"B={b} N={n} lead {lead} C={c} {side}x{side} {route}", got,
+                  sim.reference_similarity_plain(q.float(), bank.float()), dn)
+            if not torch.equal(got, sim.reference_similarity(q, bank)):
+                raise RuntimeError(f"K1 B={b} N={n} lead {lead} C={c} {dn}: two launches on the same inputs differ")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    print(f"  K3 bf16: two launches bitwise equal at all {len(k3_shapes) * len(K3_BATCHES) + len(big_k3) * len(EVAL_ITEMS)}"
+    print(f"  K3 bf16: two launches bitwise equal at all {len(k3_shapes) * len(K3_BATCHES) + len(big_k3) * len(CHECK_ITEMS)}"
           f" (shape, batch)")
-    print(f"  K1 and K2, both dtypes: two launches bitwise equal at all {len(K1_SHAPES)} and "
-          f"{len(K2_ITEMS) * len(k2_tokens)} shapes; K2 bf16 also at {len(EVAL_ITEMS) * len(k2_tokens)}")
+    print(f"  K1 and K2, both dtypes: two launches bitwise equal at all {len(K1_SHAPES) + len(K1_CHANNELS)} and "
+          f"{len(K2_ITEMS) * len(k2_tokens)} shapes; K2 bf16 also at {len(CHECK_ITEMS) * len(k2_tokens)}")
 
     # -- phase 3: the main path -----------------------------------------------
     print("phase 3: main path (full width, seeded random weights)")
@@ -2252,6 +2576,17 @@ def main() -> int:
             if (b, n) == (64, FULL_N):
                 kernel_ms.setdefault("K1", (t_k, t_p, None, t_d))
                 bounds.setdefault("K1", b1)
+        for b, n, lead in K1_TIMED_C8:  # the template encoder's 8-channel descriptors
+            q = torch.randn(b, LATENT, LATENT, 8, generator=gen).to(dev, dtype)
+            bank = torch.randn(lead, n, LATENT, LATENT, 8, generator=gen).to(dev, dtype)
+            t_k = cuda_ms(torch, lambda: sim.reference_similarity(q, bank), 20, warmup=3)
+            t_d = device_ms(torch, lambda: sim.reference_similarity(q, bank))
+            t_p = cuda_ms(torch, lambda: sim.reference_similarity_plain(q, bank), 20, warmup=3)
+            b1 = bound(f32_ops=float(b * n * LATENT * LATENT) * (3 * 8 + 3),
+                       nbytes=float(q.numel() + bank.numel()) * q.element_size() + 4 * b * n)
+            print(f"  K1 B={b:<3} N={n:<3} bank lead {lead:<3} C=8 {dn:<8} kernel {t_k:8.4f} ms (device alone "
+                  f"{t_d:.4f}) plain {t_p:8.3f} ms bound {b1[0]:.4f} ms ({b1[1]}) share {100 * b1[0] / t_k:.1f}% "
+                  f"(device alone {100 * b1[0] / t_d:.1f}%)")
         for items in (FAST_N, FULL_N) + (EVAL_ITEMS if dtype == torch.bfloat16 else ()):
             fwd_k = fwd_d = fwd_p = fwd_b = 0.0
             for n in k2_tokens:
@@ -2365,6 +2700,13 @@ def main() -> int:
     # -- phase 10: the parallel paths ---------------------------------------------
     par = parallel_phase(torch, dev, smi, counters, task32, half, grids, tr["timings"]["step_ms"])
 
+    # -- phase 11: the model zoo ------------------------------------------------------
+    del estimators, cpu_est, eval_dev, half  # the flagship's banks and copies: phase 11 builds its own tasks
+    for key in ("gallery", "batches", "half"):
+        ev.pop(key, None)
+    torch.cuda.empty_cache()
+    zoo = model_zoo_phase(torch, dev, smi, counters)
+
     table = [
         ("reference_similarity", "K1", "nope_tpu_torch/csrc/similarity.cu",
          "nope_tpu/ops/experimental/pallas_similarity.py:29", sim.reference_similarity),
@@ -2384,6 +2726,7 @@ def main() -> int:
          "cli_launches": cli_launches[fn.__name__], "train_launches": tr["launches"][fn.__name__],
          "train_recomputes": tr["recomputes"][k], "unet_weight_grad_rel": tr["grad"] if k != "K1" else None,
          "parallel_launches": {"a": par["a"][fn.__name__], "b": par["b"][fn.__name__]},
+         "zoo_launches": {name: zoo[name][fn.__name__] for name in ZOO_EVAL},
          **({"refine_recomputes": rf["recomputes"][k], "backward_max_rel": rf["backward"][k],
              "unet_pose_grad_rel": rf["unet_grad"]} if k in rf["backward"] else {})}
         for name, k, src, rep, fn in table

@@ -8,7 +8,8 @@ left out here, as the port tool drops it.
 
 Architecture (u_net_dim=192, dim_mults=(1,2,4,8) by default): init
 conv3x3; 4 down stages [ResnetBlock, ResnetBlock, linear attention,
-HardDownsample] (the last uses a conv3x3); a bottleneck
+HardDownsample] (the last uses a conv3x3); with ``use_hard_up_down=False``
+the strided conv4x4/2 and transposed conv4x4/2 samplers instead; a bottleneck
 ResnetBlock / attention / ResnetBlock run twice when
 ``double_bottleneck``; 4 mirrored up stages with skip concatenation; a
 final ResnetBlock on concat(x, r) and a 1x1 conv to the latent width
@@ -23,11 +24,13 @@ import torch
 from torch import nn
 
 from nope_tpu_torch.models.blocks import (
+    Downsample,
     HardDownsample,
     HardUpsample,
     PoseMLP,
     ResidualPreNormAttention,
     ResnetBlock,
+    Upsample,
 )
 
 
@@ -40,6 +43,7 @@ class PoseUNet(nn.Module):
         pose_mlp_name: str = "single_layer",
         dim_mults: Sequence[int] = (1, 2, 4, 8),
         resnet_block_groups: int = 8,
+        use_hard_up_down: bool = True,
         double_bottleneck: bool = True,
         out_dim: Optional[int] = None,
     ):
@@ -50,6 +54,8 @@ class PoseUNet(nn.Module):
         dims = [u_net_dim] + [u_net_dim * m for m in dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
         groups = resnet_block_groups
+        down_klass = HardDownsample if use_hard_up_down else Downsample
+        up_klass = HardUpsample if use_hard_up_down else Upsample
 
         def block(dim_in, dim_out):
             return ResnetBlock(dim_in, dim_out, time_emb_dim=classes_dim, groups=groups)
@@ -65,7 +71,7 @@ class PoseUNet(nn.Module):
                 block(dim_in, dim_in),
                 ResidualPreNormAttention(dim_in, linear=True),
                 nn.Conv2d(dim_in, dim_out, 3, padding=1) if is_last
-                else HardDownsample(dim_in, dim_out),
+                else down_klass(dim_in, dim_out),
             ]))
 
         mid_dim = dims[-1]
@@ -81,7 +87,7 @@ class PoseUNet(nn.Module):
                 block(dim_out + dim_in, dim_out),
                 ResidualPreNormAttention(dim_out, linear=True),
                 nn.Conv2d(dim_out, dim_in, 3, padding=1) if is_last
-                else HardUpsample(dim_out, dim_in),
+                else up_klass(dim_out, dim_in),
             ]))
 
         self.final_res_block = block(u_net_dim * 2, u_net_dim)

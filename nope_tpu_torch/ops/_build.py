@@ -34,7 +34,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C entry points and their argument types; every one returns a
 #: cudaError_t as int (0 = success)
 SIGNATURES = {
-    "nope_reference_similarity": (_P, _P, _P, _P, *[_I] * 8, _P),
+    "nope_reference_similarity": (_P, _P, _P, _P, *[_I] * 10, _P),
     "nope_la_chunks": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
     "nope_la_merge": (_P, _P, _I, _I, _P),
     "nope_la_output": (_P, _P, _P, _I, _I, _I, _I, _F, _I, _P),

@@ -1,6 +1,7 @@
 """The pose-conditional task (``nope_tpu/tasks/pose_conditional.py``).
 
-Given the frozen VAE and the pose-conditioned U-Net, predict the latent
+Given the frozen encoder (the VAE, or a template encoder: the ``vae``
+attribute holds either) and the pose-conditioned U-Net, predict the latent
 a query view would have from (reference latent, ΔR); train with L1, L2
 or Gaussian-KL latent losses; sweep ΔR over a template grid into a bank
 and score queries against it.  The modules own their weights, so the
@@ -83,8 +84,17 @@ class PoseConditionalTask:
         mean, or with ``mode=None`` the distribution (mean scaled)."""
         return self.vae.encode_image(images, mode)
 
+    @property
+    def can_decode(self) -> bool:
+        """Whether the encoder has a decoder (the VAE does, the template
+        encoders do not)."""
+        return hasattr(self.vae, "decode_latent")
+
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """Scaled latents (B, h, w, C) → images (B, H, W, 3)."""
+        if not self.can_decode:
+            raise NotImplementedError(f"{type(self.vae).__name__} has no decoder: its features cannot be "
+                                      "decoded to images")
         return self.vae.decode_latent(latents)
 
     def predict_latent(self, ref_latent: torch.Tensor, relativeR: torch.Tensor) -> torch.Tensor:
@@ -142,9 +152,12 @@ class PoseConditionalTask:
     @torch.no_grad()
     def sample(self, reference: torch.Tensor, relativeR: torch.Tensor, decode_rgb: bool = False):
         """The predicted latent and, with ``decode_rgb``, its decoded image
-        in [0, 1] (``model.py:113-124``)."""
+        in [0, 1] (``model.py:113-124``); no image (None) for an encoder
+        without a decoder, whose previews the reference turns off."""
         pred = self.predict_latent(self.encode(reference, "mode"), relativeR)
-        rgb = torch.clamp((self.decode(pred) + 1.0) * 0.5, 0.0, 1.0) if decode_rgb else None
+        rgb = None
+        if decode_rgb and self.can_decode:
+            rgb = torch.clamp((self.decode(pred) + 1.0) * 0.5, 0.0, 1.0)
         return pred, rgb
 
     @torch.no_grad()

@@ -12,8 +12,12 @@ The weights alone (:func:`save_reference_checkpoint`, the trainer's
 file the reference trainer writes (and what
 ``nope_tpu/cli/test_shapenet.py`` reads): a dict whose ``state_dict``
 holds the pose U-Net under ``u_net.`` and the SD-VAE under
-``u_net.encoder.encoder.``.  The port's modules keep the reference's key
-names, so both load with ``strict=True``; the reference's
+``u_net.encoder.encoder.``.  The port writes any encoder there; on
+reading, keys under ``u_net.encoder.`` alone (the reference's template
+encoder, ``u_net.encoder.backbone.*`` and ``u_net.encoder.projector.*``)
+are the encoder's too, since no U-Net has an ``encoder`` child.  The
+port's modules keep the reference's key names, so both load with
+``strict=True``; the reference's
 ``final_conv.0.mlp``, which its forward never calls and the port does
 not build, is the one key set dropped.
 
@@ -41,17 +45,20 @@ from nope_tpu_torch.parallel.mesh import process_barrier, process_index
 
 UNET_PREFIX = "u_net."
 VAE_PREFIX = "u_net.encoder.encoder."
+ENCODER_PREFIX = "u_net.encoder."
 #: the reference U-Net's unused ResnetBlock MLP
 DEAD_PREFIX = "final_conv.0.mlp."
 
 
 def split_state_dict(state_dict):
-    """A reference-format ``state_dict`` → (U-Net state dict, VAE state
-    dict) in the port's key names."""
+    """A reference-format ``state_dict`` → (U-Net state dict, encoder
+    state dict) in the port's key names."""
     unet, vae = {}, {}
     for key, value in state_dict.items():
         if key.startswith(VAE_PREFIX):
             vae[key[len(VAE_PREFIX):]] = value
+        elif key.startswith(ENCODER_PREFIX):
+            vae[key[len(ENCODER_PREFIX):]] = value
         elif key.startswith(UNET_PREFIX) and not key[len(UNET_PREFIX):].startswith(DEAD_PREFIX):
             unet[key[len(UNET_PREFIX):]] = value
     return unet, vae

@@ -31,7 +31,15 @@ import numpy as np
 import torch
 from torch import nn
 
-from nope_tpu_torch.models.blocks import PoseMLP, ResidualPreNormAttention, ResnetBlock
+from nope_tpu_torch.models.adm_unet import ADMAttentionBlock
+from nope_tpu_torch.models.blocks import (
+    ConditionalResnetBlock,
+    DualConditionalResnetBlock,
+    PoseMLP,
+    ResidualPreNormAttention,
+    ResnetBlock,
+)
+from nope_tpu_torch.models.ldm_unet import LDMSpatialTransformer
 from nope_tpu_torch.parallel.mesh import DATA_AXIS, all_reduce_mean_
 from nope_tpu_torch.tasks.pose_conditional import PoseConditionalTask, cast_half
 from nope_tpu_torch.training.optim import Optimizer, ema_update
@@ -62,11 +70,14 @@ GRAD_TRACE_GROUPS = ("pose_mlp", "cond_mlp", "attn", "conv")
 def _grad_trace_groups(unet: nn.Module) -> Dict[str, str]:
     """Parameter name → diagnostic group, by the module that owns it, as
     the JAX package groups its Flax paths (``_grad_trace_group``): the
-    pose embedding MLP (``pose_mlp``), each ResnetBlock's conditioning
-    MLP (``cond_mlp``, JAX's ``mlp_dense``), the attention blocks with
-    their pre-norm (``attn``; the port's down and up attentions are
-    ``downs.i.2`` / ``ups.i.2``, with no "attn" in the name), and the
-    conv trunk (``conv``)."""
+    pose embedding MLPs (``pose_mlp``, also the LDM's
+    ``pose_mlp_timesteps``), each ResnetBlock's conditioning MLP
+    (``cond_mlp``, JAX's ``mlp_dense`` and ``mlp_ref``), the attention
+    blocks (``attn``: PoseUNet's with their pre-norm, the port's
+    ``downs.i.2`` / ``ups.i.2`` having no "attn" in the name; the LDM's
+    spatial transformers and the ADM's attention blocks whole, JAX's
+    ``*_attn_*``), and the conv trunk (``conv``, with the LDM and ADM
+    ResBlocks' embedding layers, JAX's ``emb_dense``)."""
     out: Dict[str, str] = {}
 
     def visit(module: nn.Module, prefix: str, group: str) -> None:
@@ -77,9 +88,10 @@ def _grad_trace_groups(unet: nn.Module) -> Dict[str, str]:
             if group == "conv":
                 if isinstance(child, PoseMLP):
                     g = "pose_mlp"
-                elif isinstance(child, ResidualPreNormAttention):
+                elif isinstance(child, (ResidualPreNormAttention, LDMSpatialTransformer, ADMAttentionBlock)):
                     g = "attn"
-                elif isinstance(module, ResnetBlock) and name == "mlp":
+                elif isinstance(module, (ResnetBlock, ConditionalResnetBlock, DualConditionalResnetBlock)) \
+                        and name in ("mlp", "mlp_ref"):
                     g = "cond_mlp"
             visit(child, f"{prefix}{name}.", g)
 
@@ -89,12 +101,14 @@ def _grad_trace_groups(unet: nn.Module) -> Dict[str, str]:
 
 def _group_norms(named: Dict[str, torch.Tensor], groups: Dict[str, str], prefix: str) -> Dict[str, torch.Tensor]:
     """Per-group L2 norms (and the global one) of a gradient or update,
-    on the device."""
-    sq: Dict[str, Any] = {g: 0.0 for g in GRAD_TRACE_GROUPS}
+    on the device; a group with no parameter (the LDM's ``cond_mlp``) is a
+    zero there too."""
+    device = next(iter(named.values())).device
+    sq: Dict[str, Any] = {g: torch.zeros((), device=device) for g in GRAD_TRACE_GROUPS}
     for name, t in named.items():
         sq[groups[name]] = sq[groups[name]] + torch.sum(torch.square(t.float()))
-    out = {f"{prefix}/{g}": torch.sqrt(torch.as_tensor(v, dtype=torch.float32)) for g, v in sq.items()}
-    out[f"{prefix}/global"] = torch.sqrt(torch.as_tensor(sum(sq.values()), dtype=torch.float32))
+    out = {f"{prefix}/{g}": torch.sqrt(v) for g, v in sq.items()}
+    out[f"{prefix}/global"] = torch.sqrt(sum(sq.values()))
     return out
 
 
@@ -109,14 +123,15 @@ def device_batch(x, device: torch.device) -> torch.Tensor:
 
 class _HalfCopy:
     """The bfloat16 copy (``cast_half``) of a frozen module, made once and
-    made again only when the module's weights change in place (a warm
-    start or a restore bumps their ``_version``) or another module comes."""
+    made again only when the module's weights or buffers (a ResNet's
+    BatchNorm statistics) change in place (a warm start or a restore
+    bumps their ``_version``) or another module comes."""
 
     def __init__(self):
         self._ref, self._key, self._copy = None, None, None
 
     def __call__(self, module: nn.Module) -> nn.Module:
-        key = tuple(p._version for p in module.parameters())
+        key = tuple(t._version for t in (*module.parameters(), *module.buffers()))
         if self._ref is None or self._ref() is not module or key != self._key:
             self._ref, self._key, self._copy = weakref.ref(module), key, cast_half(module)
         return self._copy

@@ -225,6 +225,8 @@ class Trainer:
             ref, query = (device_batch(batch[k][:4], self.device).float() for k in ("reference", "query"))
             task = PoseConditionalTask(state.unet, state.vae, self.task.config)
             _, pred_rgb = task.sample(ref, batch["relativeR"][:4].float(), decode_rgb=True)
+            if pred_rgb is None:  # an encoder without a decoder
+                return
             # rank-suffixed (model.py:146) so ranks on shared storage never collide
             path = os.path.join(self.cfg.save_dir, "media", f"reconst_step{step}_rank{self.rank}.png")
             save_image_grid(

@@ -4,10 +4,14 @@ timed with the plan its wrapper picks beside other plans.
 
     python3 scripts/k1_k2_plans.py                 # op times, then the plan sweep
     python3 scripts/k1_k2_plans.py --package DIR   # op times of the nope_tpu_torch in DIR
+    python3 scripts/k1_k2_plans.py [--package DIR] --dump FILE   # K1's C = 4 outputs only
+    python3 scripts/k1_k2_plans.py --compare FILE FILE           # bitwise equal?
 
 On one CUDA GPU, from the root of a checkout.  Op times are those of
 ``reference_similarity`` (K1) at B = 64 and 8 queries against N = 341
-templates and ``linear_attention_inner`` (K2) at 26 and 341 items times
+templates, at C = 4 and, for the template encoder's descriptors, C = 8
+(also B = 64 against a bank of 26 per query), and
+``linear_attention_inner`` (K2) at 26 and 341 items times
 1024 tokens, in bfloat16 and float32, measured two ways: back-to-back
 calls with the host in the loop (``chip_smoke.cuda_ms``, 20 calls after
 3) and on the device alone (``chip_smoke.device_ms``, the stream held by
@@ -17,7 +21,11 @@ it has no plans to sweep.  The sweep times device alone, over inputs
 that stay in L2 where they fit: K2 with chunk lengths of 64, 96, 128,
 256 tokens and one chunk, at 3, 26, 341 items times 1024, 256, 64, 16
 tokens; K1 with 1, 2, 4, 8 and 16 pixel splits at the serving shapes.
-Correctness is ``chip_smoke.py``'s phase 2.
+Correctness is ``chip_smoke.py``'s phase 2.  ``--dump`` saves K1's
+outputs at C = 4 (both dtypes, the K1_SHAPES below, seeded inputs drawn
+on the host) and ``--compare`` holds two dumps bitwise equal: run with
+``--package`` over another checkout, the same script shows that a change
+to K1 left its C = 4 results as they were.
 """
 
 from __future__ import annotations
@@ -48,12 +56,13 @@ def op_times(sim, la, dev, gen) -> None:
     print(f"op times (ms; {chip_smoke.nvidia_smi_line()})")
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[-1]
-        for b, n in ((64, 341), (8, 341)):
-            q = torch.randn(b, 32, 32, 4, generator=gen).to(dev, dtype)
-            bank = torch.randn(1, n, 32, 32, 4, generator=gen).to(dev, dtype)
+        for b, n, lead, c in ((64, 341, 1, 4), (8, 341, 1, 4), (64, 341, 1, 8), (64, 26, 64, 8)):
+            q = torch.randn(b, 32, 32, c, generator=gen).to(dev, dtype)
+            bank = torch.randn(lead, n, 32, 32, c, generator=gen).to(dev, dtype)
             host = chip_smoke.cuda_ms(torch, lambda: sim.reference_similarity(q, bank), 20, warmup=3)
             alone = device_ms(lambda: sim.reference_similarity(q, bank))
-            print(f"  K1 {dn:<8} B={b:<3} N={n:<4} with host {host:.4f} device alone {alone:.4f}", flush=True)
+            print(f"  K1 {dn:<8} B={b:<3} N={n:<4} lead {lead:<2} C={c} with host {host:.4f} device alone "
+                  f"{alone:.4f}", flush=True)
         for items, n in ((26, 1024), (341, 1024)):
             qkv = (2 * torch.randn(items, n, 384, generator=gen)).to(dev, dtype)
             host = chip_smoke.cuda_ms(torch, lambda: la.linear_attention_inner(qkv, 4, 32), 20, warmup=3)
@@ -101,10 +110,33 @@ def plan_sweep(sim, la, dev, gen, sms) -> None:
                   flush=True)
 
 
+def dump(sim, dev, path) -> None:
+    gen, outs = torch.Generator().manual_seed(5), {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, n, lead in K1_SHAPES:
+            q = torch.randn(b, 32, 32, 4, generator=gen).to(dev, dtype)
+            bank = torch.randn(lead, n, 32, 32, 4, generator=gen).to(dev, dtype)
+            outs[f"{dtype} {b} {n} {lead}"] = sim.reference_similarity(q, bank).cpu()
+    torch.save(outs, path)
+    print(f"K1 C=4 outputs at {len(outs)} shapes -> {path}")
+
+
+def compare(a, b) -> int:
+    x, y = torch.load(a), torch.load(b)
+    same = [k for k in x if torch.equal(x[k], y[k])]
+    print(f"K1 C=4: {len(same)} of {len(x)} outputs bitwise equal ({a} vs {b})"
+          + "".join(f"\n  differs: {k} max|d| {float((x[k] - y[k]).abs().max()):.3e}" for k in x if k not in same))
+    return 0 if set(x) == set(y) and len(same) == len(x) else 1
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--package", type=Path, help="time the ops of the nope_tpu_torch in this checkout")
+    parser.add_argument("--dump", type=Path, help="save K1's C = 4 outputs here and stop")
+    parser.add_argument("--compare", type=Path, nargs=2, help="two dumps: exit 0 if bitwise equal")
     args = parser.parse_args()
+    if args.compare:
+        return compare(*args.compare)
     if not torch.cuda.is_available():
         print("k1_k2_plans: no CUDA device", file=sys.stderr)
         return 2
@@ -117,6 +149,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     path, nvcc_s = _build.build()
     print(f"{path}: build {nvcc_s:.2f} s")
+    if args.dump:
+        dump(sim, dev, args.dump)
+        return 0
     gen = torch.Generator().manual_seed(3)
     op_times(sim, la, dev, gen)
     if args.package is None:

@@ -116,7 +116,7 @@ def test_split_partials_match_jax_and_pallas_interpret(b, n, lead, pixels):
 ])
 def test_similarity_plan(args, want):
     plan = sim.similarity_plan(*args)
-    assert tuple(plan) == want
+    assert (plan.pixels, plan.splits) == want and plan.step == sim.PIXEL_STEP
     assert plan.pixels % sim.PIXEL_STEP == 0 and (plan.splits - 1) * plan.pixels < args[2] <= plan.splits * plan.pixels
 
 
@@ -127,27 +127,40 @@ def _view(ptr, n, dt):
 
 
 class _EmulatedKernel:
-    """``nope_reference_similarity`` on host memory, block by block: each
-    (template tile, query tile, pixel split) sums its pairs over its
-    pixels, ragged queries and templates masked; splits summed in order."""
+    """``nope_reference_similarity`` on host memory.  The tiled route,
+    block by block: each (template tile, query tile, pixel split) sums its
+    pairs over its pixels, ragged queries and templates masked, after the
+    entry point's checks (C % 4 == 0, C <= 128, 16-byte alignment, splits
+    in whole steps); the scalar route, pair by pair over each split.
+    Splits summed in order."""
 
     def __init__(self):
         self.calls = []
 
-    def __call__(self, name, q, bank, out, ws, b, n, s, batched, pixels, splits, grid_y, dt):
+    def __call__(self, name, q, bank, out, ws, b, n, s, c, batched, step, pixels, splits, grid_y, dt):
         assert name == "nope_reference_similarity"
         assert (ws is None) == (splits == 1) and splits == -(-s // pixels)
         tq = 1 if batched else sim.TILE_Q
         q_tiles = -(-b // tq)
         assert grid_y == _build.grid_y(q_tiles)
-        self.calls.append((q, bank, out, ws, b, n, s, batched, pixels, splits, grid_y))
-        qs = _view(q, b * s * 4, dt).reshape(b, s, 4).float()
-        ts = _view(bank, (b if batched else 1) * n * s * 4, dt).reshape(-1, n, s, 4).float()
+        self.calls.append((q, bank, out, ws, b, n, s, c, batched, step, pixels, splits, grid_y))
+        size = 4 if dt == 0 else 2
+        if step:
+            assert c % 4 == 0 and c // 4 <= sim.MAX_VECS and step == sim.pixel_step(c, size)
+            assert q % 16 == 0 and bank % 16 == 0 and (s * c * size) % 16 == 0
+            assert pixels % step == 0
+        qs = _view(q, b * s * c, dt).reshape(b, s, c).float()
+        ts = _view(bank, (b if batched else 1) * n * s * c, dt).reshape(-1, n, s, c).float()
         part = torch.zeros(splits, b, n)
         # block y walks the query tiles y, y + grid_y, ...
         tiles = [t for y in range(grid_y) for t in range(y, q_tiles, grid_y)]
         assert sorted(tiles) == list(range(q_tiles))
         for z in range(splits):
+            if not step:  # a thread per pair
+                tb = ts[:, :, z * pixels:(z + 1) * pixels].expand(b, -1, -1, -1)
+                d2 = torch.square(qs[:, None, z * pixels:(z + 1) * pixels] - tb)
+                part[z] = torch.sqrt(torch.square(d2).sum(-1)).sum(-1)
+                continue
             for b0 in (t * tq for t in tiles):
                 for n0 in range(0, n, sim.TILE_N):
                     qb = qs[b0:b0 + tq, None, z * pixels:(z + 1) * pixels]
@@ -179,7 +192,8 @@ def test_launch_matches_the_plain_version(monkeypatch, dtype, b, n, lead, sms):
     (call,) = emulated.calls
     assert call[:3] == (qt.data_ptr(), tt.data_ptr(), out.data_ptr())
     tiles = b if lead == b and b > 1 else -(-b // sim.TILE_Q)
-    assert call[4:] == (b, n, 256, int(lead == b and b > 1), plan.pixels, plan.splits, _build.grid_y(tiles))
+    assert call[4:] == (b, n, 256, 4, int(lead == b and b > 1), sim.PIXEL_STEP, plan.pixels, plan.splits,
+                        _build.grid_y(tiles))
 
 
 @pytest.mark.parametrize("b,lead,max_grid_y", [(9, 9, 2), (9, 9, 4), (20, 1, 2), (7, 7, 1)])
@@ -234,3 +248,69 @@ def test_top_k_orders_ties_as_jax(n):
     bank[0, [n - 1, 3]] = 0.0  # two exact matches
     _, idx = sim.retrieve(q, bank, k=5)
     np.testing.assert_array_equal(idx.numpy(), [[3, n - 1, 0, 1, 2]] * 2)
+
+
+# -- any channel count ------------------------------------------------------------
+
+@pytest.mark.parametrize("c", [3, 8])
+@pytest.mark.parametrize("lead", [1, 3])
+def test_plain_any_channel_count_matches_jax_and_pallas_interpret(c, lead):
+    """K1's plain version at C = 3 and 8 (the template encoder's
+    descriptors) against the JAX package's function and the Pallas kernel,
+    which reduce over any C."""
+    rng = np.random.default_rng(c + lead)
+    q = rng.normal(size=(3, 8, 8, c)).astype(np.float32)
+    t = rng.normal(size=(lead, 20, 8, 8, c)).astype(np.float32)
+    got = sim.reference_similarity(torch.from_numpy(q), torch.from_numpy(t)).numpy()
+    full = jnp.broadcast_to(jnp.asarray(t), (3, *t.shape[1:]))
+    want = np.asarray(jsim.reference_similarity(jnp.asarray(q), full))
+    kernel = np.asarray(pallas_similarity.reference_similarity_pallas(jnp.asarray(q), full, interpret=True))
+    assert got.shape == (3, 20)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(got, kernel, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("c,size,want", [(4, 4, 64), (4, 2, 64), (8, 2, 32), (8, 4, 32), (12, 4, 21), (12, 2, 20),
+                                         (20, 2, 12), (128, 2, 2)])
+def test_pixel_step(c, size, want):
+    """A step of the tiled kernel stays within C = 4's 64 vectors and, in
+    bf16, whole 16-byte chunks."""
+    got = sim.pixel_step(c, size)
+    assert got == want and got * c // 4 <= sim.PIXEL_STEP and (got * c * size) % 16 == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,lead,side,c,vector", [
+    (9, 37, 1, 16, 8, True),     # the template encoder's C = 8, a shared bank
+    (4, 33, 4, 16, 8, True),     # C = 8, a bank per query
+    (9, 37, 1, 16, 12, True),    # an odd number of vectors a pixel
+    (5, 20, 1, 16, 3, False),    # an odd C: the scalar kernel
+    (3, 20, 3, 5, 3, False),     # odd C, odd pixel count, a bank per query
+    (9, 37, 1, 5, 4, None),      # C = 4 with 25 pixels: fp32 tiled, bf16 scalar
+    (4, 9, 1, 8, 132, False),    # more channels than the tiled kernel takes
+])
+def test_card_path_takes_any_channel_count(monkeypatch, dtype, b, n, lead, side, c, vector):
+    """The card-side checks and launch of ``reference_similarity`` accept
+    C != 4 (the template encoder's 8, odd C, and a bf16 query with an odd
+    h·w·C, which C = 4 used to refuse), against an emulation of the C entry
+    point; no library is loaded."""
+    emulated = _EmulatedKernel()
+
+    @contextlib.contextmanager
+    def launcher(device):
+        yield emulated
+
+    monkeypatch.setattr(_build, "launcher", launcher)
+    monkeypatch.setattr(_build, "check_cuda", lambda name, t: None)
+    monkeypatch.setattr(_build, "sm_count", lambda device: 132)
+    monkeypatch.setattr(sim.reference_similarity, "launches", 0)
+    rng = np.random.default_rng(b * c + side)
+    qt = torch.from_numpy(rng.normal(size=(b, side, side, c)).astype(np.float32)).to(dtype)
+    tt = torch.from_numpy(rng.normal(size=(lead, n, side, side, c)).astype(np.float32)).to(dtype)
+    got = sim._kernel_similarity(qt, tt)
+    torch.testing.assert_close(got, sim.reference_similarity_plain(qt, tt), rtol=1e-5, atol=1e-4)
+    (call,) = emulated.calls
+    want_vector = (dtype == torch.float32) if vector is None else vector
+    want_step = sim.pixel_step(c, qt.element_size()) if want_vector else 0
+    assert call[7:10] == (c, int(lead == b and b > 1), want_step)
+    assert sim.reference_similarity.launches == 1

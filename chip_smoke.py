@@ -152,6 +152,22 @@ it fails at once.
    (c) ``cli.infer.main --config configs/model_ldm.yaml --fast`` over two
    PNGs with a checkpoint the port saved, against the in-process
    estimator, and (d) one bf16 train step at B=16 with ``grad_trace``.
+12. The BOP / T-LESS VSD path (``cli.test_bop``, ``cli.export``,
+   ``data/{base_bop,bop,objaverse}.py``, ``evaluation/{vsd,raster}.py``) at
+   full width in float32, as the JAX CLI computes: (a) a procedural
+   T-LESS-layout root (``write_bop_root``: 2 scenes of 4 and 5 frames x 2
+   box CADs, 720x540 RGB, 8-bit masks, 16-bit depth rendered at the GT
+   poses), every instance's GT-pose VSD 0; (b) ``cli.export.main`` of
+   seeded reference-format weights (a ``u_net.``-keyed ``.pth`` and a
+   diffusers ``.bin``) on the card, restored bitwise; (c)
+   ``cli.test_bop.main`` over the root with ``--renderer numpy`` in
+   batches of 4 (341 templates a query), the bank streamed in chunks of
+   31 and made whole: images/s, the card's and the host VSD's time per
+   batch, peak memory, K1-K3 launches, JAX's score keys, equal scores;
+   K3's and K2's fp32 routes timed at 124 and 1,364 items; (d) batch 0
+   against K1-K3 on their plain versions on the card and query 0 against
+   the CPU path; (e) one fp32 train step each from the Objaverse and
+   ``bop_texture`` loaders of ``build_train_loaders``.
 
 Phases run in the order 1 to 6, so phases 4 and 5 time the serving
 path and the kernels in a process that holds only phase 3's modules
@@ -160,14 +176,16 @@ protocols, ``estimate_many``), 4c refinement (one refine step split into
 kernels forward, backward and its plain recompute; refined ``estimate``
 at B=8 against the unrefined call; a refined eval batch), 5b profiles
 one full-protocol eval step and one refined ``estimate``, and phases 7
-and 8, then 9, 10 and 11, run.  The last two lines are the kernel table (``ms`` with the host
+and 8, then 9, 10, 11 and 12, run.  The last two lines are the kernel table (``ms`` with the host
 in the loop, ``device_ms`` on the device alone, ``launches`` of phase 3,
 ``eval_launches`` of phase 6 (a), ``refine_launches`` of one refined
 ``estimate`` in phase 7 (c), ``cli_launches`` of phase 8's two bf16 CLI
 runs (fast and full protocol), ``train_launches`` and
 ``train_recomputes`` of phase 9's uninterrupted CLI run,
 ``parallel_launches`` of phase 10 (a) and (b) (both ranks),
-``zoo_launches`` of phase 11 (b) by configuration, and for K2 and
+``zoo_launches`` of phase 11 (b) by configuration, ``bop_launches``
+of phase 12's two CLI runs, for K2 and K3 ``bop_fp32`` (phase 12's fp32
+route times per U-Net forward at 124 and 1,364 items), and for K2 and
 K3 that call's ``refine_recomputes``, their Functions'
 ``backward_max_rel``, the pose gradient's ``unet_pose_grad_rel`` and the
 weight gradients' ``unet_weight_grad_rel`` by dtype) and
@@ -278,6 +296,15 @@ PAR_ROUNDS = 8
 # its bank streams in chunks of 13 templates (416 U-Net items); the others make the bank whole
 ZOO_EVAL = {"vae_cin_ldm": (32, 13), "vae_guidedDiffusion": (64, None), "template_base": (64, None)}
 ZOO_TRAIN_BATCH = 16
+# the BOP / T-LESS path (phase 12): a procedural T-LESS-layout root of 2 scenes (4 and 5 frames) x 2
+# box objects, 720x540 RGB-D frames at a primesense-like focal length (f ~ 1075 px); the CLI's
+# batches of 4 (18 instances: the last batch holds 2), its bank streamed in chunks of 31 and made
+# whole; the BOP texture group's two members and the Objaverse root for one train step each
+BOP_FRAMES, BOP_OBJECTS, BOP_BATCH, BOP_CHUNK = (4, 5), 2, 4, 31
+BOP_HW = (540, 720)
+BOP_K = ((1075.65, 0.0, 367.07), (0.0, 1073.9, 247.72), (0.0, 0.0, 1.0))
+BOP_BOXES = ((60.0, 80.0, 100.0), (90.0, 50.0, 70.0))  # CAD extents, mm
+BOP_TRAIN_BATCH, OBJAVERSE_OBJECTS = 4, 2
 
 
 def flagship_config():
@@ -1066,6 +1093,114 @@ def write_shapenet_root(root, categories=CLI_CATEGORIES, objects=CLI_OBJECTS, vi
     return objects * views
 
 
+def write_bop_root(root, split="test_primesense", frames=BOP_FRAMES, hw=None, seed=0):
+    """Write a procedural BOP-layout root with the port's own PNG writer
+    (``nope_tpu/data/base_bop.py``'s layout): ``BOP_OBJECTS`` box CADs as
+    ASCII PLY under ``models/models_cad`` (``models/models`` unless the
+    root's path names tless) with ``models_info.json`` diameters, and per
+    scene of ``split`` the frames' RGB, 8-bit ``mask/`` and ``mask_visib/``
+    per instance, 16-bit depth in 0.1 mm, and ``scene_camera``,
+    ``scene_gt`` and ``scene_gt_info``.  Every instance is a level-2 grid
+    rotation with the camera well inside the upper hemisphere, turned in
+    plane, 0.6-0.75 m away, the two objects side by side; the depth is
+    the boxes' z-buffer (``evaluation.raster``) at their GT poses, so VSD
+    of a GT pose is 0.  ``hw`` (default ``BOP_HW``) sets the frame size;
+    ``BOP_K`` is a 720x540 frame's and scales with it.  Returns the
+    number of instances."""
+    from nope_tpu_torch.data.png import write_png
+    from nope_tpu_torch.evaluation.raster import box_mesh, rasterize_depth
+    from nope_tpu_torch.geometry import so3_grid
+
+    rng = np.random.default_rng(seed)
+    root = Path(root)
+    h, w = hw or BOP_HW
+    K = np.array(BOP_K) * np.array([[w / 720.0], [h / 540.0], [1.0]])
+    cad_dir = root / "models" / ("models_cad" if "tless" in str(root) else "models")
+    cad_dir.mkdir(parents=True, exist_ok=True)
+    meshes, info = {}, {}
+    for obj_id, extents in enumerate(BOP_BOXES[:BOP_OBJECTS], 1):
+        verts, faces = meshes[obj_id] = box_mesh(extents)
+        lines = ["ply", "format ascii 1.0", f"element vertex {len(verts)}", "property float x", "property float y",
+                 "property float z", f"element face {len(faces)}", "property list uchar int vertex_indices",
+                 "end_header"]
+        lines += [" ".join(f"{x:.6f}" for x in v) for v in verts] + ["3 " + " ".join(map(str, f)) for f in faces]
+        (cad_dir / f"obj_{obj_id:06d}.ply").write_text("\n".join(lines) + "\n")
+        info[str(obj_id)] = {"diameter": float(np.linalg.norm(extents))}
+    (cad_dir / "models_info.json").write_text(json.dumps(info))
+    grid = so3_grid.load_obj_poses(2)[so3_grid.load_cam_poses(2)[:, 2, 3] >= 0.3]
+    colours = rng.integers(80, 240, (BOP_OBJECTS, 3))
+    count = 0
+    for scene_id, n_frames in enumerate(frames, 1):
+        scene = root / split / f"{scene_id:06d}"
+        for sub in ("rgb", "mask", "mask_visib", "depth"):
+            (scene / sub).mkdir(parents=True, exist_ok=True)
+        gts, gt_infos, cams = {}, {}, {}
+        for frame in range(n_frames):
+            poses, depths = [], []
+            for o in range(BOP_OBJECTS):
+                a = rng.uniform(0, 2 * np.pi)
+                pose = np.eye(4)
+                pose[:3, :3] = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]]) \
+                    @ grid[rng.integers(len(grid))][:3, :3]
+                pose[:3, 3] = [(-1) ** o * 90.0 + rng.uniform(-10, 10), rng.uniform(-20, 20), rng.uniform(600, 750)]
+                poses.append(pose)
+                depths.append(rasterize_depth(*meshes[o + 1], pose, K, (h, w)))
+            stack = np.stack([np.where(d > 0, d, np.inf) for d in depths])
+            front = np.argmin(stack, axis=0)
+            depth = np.where(np.isfinite(stack.min(0)), stack.min(0), 0.0)
+            rgb = np.repeat(np.repeat(rng.integers(0, 256, (h // 12 + 1, w // 12 + 1, 3)), 12, 0), 12, 1)[:h, :w]
+            gts[str(frame)], gt_infos[str(frame)] = [], []
+            for o, (pose, d) in enumerate(zip(poses, depths)):
+                mask, visib = d > 0, (d > 0) & (front == o)
+                shade = 1.0 - (d - d[mask].min()) / max(np.ptp(d[mask]), 1e-6)
+                rgb = np.where(visib[..., None], colours[o] * (0.55 + 0.45 * shade[..., None]), rgb)
+                write_png(str(scene / "mask" / f"{frame:06d}_{o:06d}.png"), (mask * 255).astype(np.uint8), level=1)
+                write_png(str(scene / "mask_visib" / f"{frame:06d}_{o:06d}.png"), (visib * 255).astype(np.uint8),
+                          level=1)
+                ys, xs = np.nonzero(mask)
+                box = [int(xs.min()), int(ys.min()), int(np.ptp(xs)) + 1, int(np.ptp(ys)) + 1]
+                gts[str(frame)].append({"obj_id": o + 1, "cam_R_m2c": pose[:3, :3].reshape(-1).tolist(),
+                                        "cam_t_m2c": pose[:3, 3].tolist()})
+                gt_infos[str(frame)].append({"bbox_obj": box, "bbox_visib": box,
+                                             "visib_fract": float(visib.sum() / mask.sum())})
+                count += 1
+            noise = rng.integers(0, 6, rgb.shape)
+            write_png(str(scene / "rgb" / f"{frame:06d}.png"), np.clip(rgb + noise, 0, 255).astype(np.uint8), level=1)
+            write_png(str(scene / "depth" / f"{frame:06d}.png"), np.round(depth / 0.1).astype(np.uint16), level=1)
+            cams[str(frame)] = {"cam_K": K.reshape(-1).tolist(), "depth_scale": 0.1}
+        for name, obj in (("scene_gt", gts), ("scene_gt_info", gt_infos), ("scene_camera", cams)):
+            (scene / f"{name}.json").write_text(json.dumps(obj))
+    return count
+
+
+def write_objaverse_root(root, objects=OBJAVERSE_OBJECTS, img_px=512, seed=0):
+    """Write a procedural Objaverse root (``nope_tpu/data/objaverse.py``'s
+    layout) with the port's PNG writer: ``objects`` objects of 10 RGBA
+    renders (seeded colour cells under an alpha disc) and their
+    ``object_poses`` at level-2 grid rotations 1 m away.  Returns the
+    number of images."""
+    from nope_tpu_torch.data.png import write_png
+    from nope_tpu_torch.geometry import so3_grid
+
+    rng = np.random.default_rng(seed)
+    root = Path(root)
+    grid = so3_grid.load_obj_poses(2)
+    yy, xx = np.mgrid[:img_px, :img_px]
+    alpha = (((yy - img_px / 2) ** 2 + (xx - img_px / 2) ** 2 <= (0.35 * img_px) ** 2) * 255).astype(np.uint8)
+    (root / "object_poses").mkdir(parents=True, exist_ok=True)
+    for obj in range(objects):
+        name = f"obj_{obj:06d}"
+        (root / "images" / name).mkdir(parents=True, exist_ok=True)
+        poses = grid[rng.integers(0, len(grid), 10)].copy()
+        poses[:, :3, 3] *= 2.0
+        np.save(root / "object_poses" / f"{name}.npy", poses)
+        for k in range(10):
+            cells = rng.integers(0, 256, (16, 16, 3), dtype=np.uint8)
+            rgb = np.repeat(np.repeat(cells, img_px // 16, 0), img_px // 16, 1)
+            write_png(str(root / "images" / name / f"{k}.png"), np.dstack([rgb, alpha]), level=1)
+    return objects * 10
+
+
 def write_training_root(root):
     """A root for the training CLI: ``TRAIN_CATEGORIES`` x ``TRAIN_LISTED``
     objects listed; the training split's (the last ``TRAIN_LISTED`` - 50 of
@@ -1683,14 +1818,16 @@ def _group_grad_rel(torch, got, want):
     return rels
 
 
-def _top1_check(torch, got_sim, got_idx, want_sim, want_idx):
-    """Phase 6's bf16 measure: rel of the scores, and the top-1 equal on
-    every row whose margin over the second exceeds BF16_SIM_RTOL of the
-    row's largest |score|."""
+def _topk_check(torch, got_sim, got_idx, want_sim, want_idx, k=1, rtol=BF16_SIM_RTOL):
+    """rel of the scores, and the top-k equal on every row whose k gaps
+    between consecutive scores of its top k+1 all exceed ``rtol`` of the
+    row's largest |score| (phase 6's bf16 measure at k = 1): (rel,
+    decided rows, equal rows, ok)."""
     _, rel = rel_err(got_sim, want_sim)
-    top2 = want_sim.float().topk(2, dim=1).values
-    decided = (top2[:, 0] - top2[:, 1]) > BF16_SIM_RTOL * want_sim.float().abs().amax(1)
-    same = got_idx[:, 0] == want_idx[:, 0]
+    want_sim = want_sim.float()
+    top = want_sim.topk(k + 1, dim=1).values
+    decided = ((top[:, :-1] - top[:, 1:]) > rtol * want_sim.abs().amax(1, keepdim=True)).all(1).cpu()
+    same = (got_idx[:, :k].cpu() == want_idx[:, :k].cpu()).all(1)
     return rel, int(decided.sum()), int(same.sum()), bool(same[decided].all())
 
 
@@ -1792,7 +1929,7 @@ def parallel_rank(rank, world, init_method, plan):
         if rank == 0:
             db = on_device(torch, hb, dev, torch.bfloat16)
             want = half.retrieve_streaming(db["query"], db["reference"], db["all_relativeR"], PAR_CHUNK)
-            out["stream"][f"{d}x{t}"] = _top1_check(torch, *got, *want)
+            out["stream"][f"{d}x{t}"] = _topk_check(torch, *got, *want)
     del half
 
     # evaluate_geodesic, fp32, each rank its part of every batch of a PNG root, merged
@@ -2176,7 +2313,7 @@ def zoo_plain_check(torch, name, task32, half, batch, chunk, est26, q64, res):
     with plain_ops(), plain_k1():
         plain = task32.eval_geodesic_step(batch, chunk_size=chunk, infer_task=half)
     k1_rel = max(worst.values())
-    rel, decided, same, top1 = _top1_check(torch, res["similarity"], res["nearest_idx"], plain["similarity"],
+    rel, decided, same, top1 = _topk_check(torch, res["similarity"], res["nearest_idx"], plain["similarity"],
                                            plain["nearest_idx"])
     ok = k1_rel <= TOL["bfloat16"]["K1"] and rel <= BF16_SIM_RTOL and top1
     shapes = ", ".join(f"q {q} bank {t} rel {r:.2e}" for (q, t, _), r in worst.items())
@@ -2286,6 +2423,292 @@ def model_zoo_phase(torch, dev, smi, counters):
             zoo_train_step(torch, smi, task32)
         del est26, task32
         torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 12: the BOP / T-LESS path -----------------------------------------------------
+
+
+VSD_KEYS = {f"top {k}, {m}" for k in (1, 3, 5) for m in ("vsd_median", "vsd_scores 0.3")}
+
+
+@contextlib.contextmanager
+def bop_clocks(torch, record):
+    """Inside the block each (bank, retrieval) pair of the task is timed on
+    the card (CUDA events from the bank's call to the retrieval's return)
+    and its similarity and top-k kept; ``evaluation.vsd.evaluate_vsd_batch``
+    is timed on the host clock."""
+    from nope_tpu_torch.evaluation import vsd
+    from nope_tpu_torch.tasks.pose_conditional import PoseConditionalTask
+
+    real = PoseConditionalTask.generate_template_bank, PoseConditionalTask.retrieval, vsd.evaluate_vsd_batch
+
+    def bank(self, *args, **kwargs):
+        record["start"] = torch.cuda.Event(enable_timing=True)
+        record["start"].record()
+        return real[0](self, *args, **kwargs)
+
+    def retrieval(self, *args, **kwargs):
+        sim, idx = real[1](self, *args, **kwargs)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        end.synchronize()
+        record["card_ms"].append(record.pop("start").elapsed_time(end))
+        record["sim"].append(sim.cpu())
+        record["idx"].append(idx.cpu())
+        return sim, idx
+
+    def evaluate(*args, **kwargs):
+        t0 = time.perf_counter()
+        errors = real[2](*args, **kwargs)
+        record["vsd_ms"].append(1e3 * (time.perf_counter() - t0))
+        return errors
+
+    PoseConditionalTask.generate_template_bank, PoseConditionalTask.retrieval = bank, retrieval
+    vsd.evaluate_vsd_batch = evaluate
+    try:
+        yield
+    finally:
+        PoseConditionalTask.generate_template_bank, PoseConditionalTask.retrieval, vsd.evaluate_vsd_batch = real
+
+
+def bop_kernel_times(torch, smi, dev, k3_calls, k2_calls, check):
+    """Phase 12: K3's and K2's float32 routes at this path's U-Net batches
+    (a chunk of 31 templates and the whole bank of 341, 4 queries), each
+    output held by phase 2's ``check`` against its plain version on the
+    same inputs, then timed with the host in the loop and on the device
+    alone, beside the plain versions, K3's ``F.conv2d`` and the bounds."""
+    import torch.nn.functional as F
+
+    from nope_tpu_torch.ops import fused_resnet as fr
+    from nope_tpu_torch.ops import linear_attention as la
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    out = {"K3": {}, "K2": {}}
+    for items in (BOP_BATCH * BOP_CHUNK, BOP_BATCH * FULL_N):
+        reps = 3 if items < 1000 else 1
+        tot_k = tot_d = tot_p = tot_l = 0.0
+        work = [0.0, 0.0, 0.0]
+        for shape in sorted(set(k3_calls), key=k3_calls.index):
+            count = k3_calls.count(shape)
+            x, emb, params = k3_inputs(torch, shape, items, dev, torch.float32, gen)
+            check("K3", f"B={items} {shape[0]}x{shape[1]} {shape[2]}->{shape[3]} res={int(shape[4])} "
+                  f"emb={int(shape[5])}", fr.resnet_block(x, emb, params, shape[6]),
+                  fr.resnet_block_plain(x, emb, params, shape[6]), "float32")
+            t_k = cuda_ms(torch, lambda: fr.resnet_block(x, emb, params, shape[6]), reps)
+            t_d = device_ms(torch, lambda: fr.resnet_block(x, emb, params, shape[6]), reps)
+            t_p = cuda_ms(torch, lambda: fr.resnet_block_plain(x, emb, params, shape[6]), reps)
+            t_l = cuda_ms(torch, k3_library(torch, F, x, params), reps)
+            tot_k, tot_d = tot_k + count * t_k, tot_d + count * t_d
+            tot_p, tot_l = tot_p + count * t_p, tot_l + count * t_l
+            work = [a + count * b for a, b in zip(work, k3_work(shape, items))]
+            del x, emb, params
+        b3 = bound(f32_ops=work[0] + work[1], nbytes=2 * work[2])
+        out["K3"][items] = {"ms": tot_k, "device_ms": tot_d, "plain_ms": tot_p, "library_ms": tot_l,
+                            "bound_ms": b3[0], "bound_by": b3[1]}
+        print(f"  K3 fp32 (conv_nhwc) all 22 blocks of one U-Net forward at {items} items: kernel {tot_k:.3f} ms "
+              f"(device alone {tot_d:.3f}) plain {tot_p:.3f} ms conv2d {tot_l:.3f} ms; bound {b3[0]:.3f} ms "
+              f"({b3[1]}), kernel at {100 * b3[0] / tot_d:.1f}% of it (device alone) [{smi}]")
+        fwd = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+        for n in sorted({c[0] for c in k2_calls}, reverse=True):
+            count = sum(1 for c in k2_calls if c[0] == n)
+            qkv = 2 * torch.randn(items, n, 384, generator=gen, device=dev)
+            check("K2", f"items={items} n={n}", la.linear_attention_inner(qkv, 4, 32),
+                  la.linear_attention_inner_plain(qkv, 4, 32), "float32")
+            t_k = cuda_ms(torch, lambda: la.linear_attention_inner(qkv, 4, 32), 5 * reps)
+            t_d = device_ms(torch, lambda: la.linear_attention_inner(qkv, 4, 32), 5 * reps)
+            t_p = cuda_ms(torch, lambda: la.linear_attention_inner_plain(qkv, 4, 32), reps)
+            b2 = bound(f32_ops=float(items * n * 4) * (4 * 32 * 32 + 8 * 32),
+                       nbytes=float(qkv.numel() + items * n * 128) * qkv.element_size())
+            for key, v in zip(("ms", "device_ms", "plain_ms", "bound_ms"), (t_k, t_d, t_p, b2[0])):
+                fwd[key] += count * v
+            del qkv
+        out["K2"][items] = fwd
+        print(f"  K2 fp32 the {len(k2_calls)} launches of one U-Net forward at {items} items: kernel {fwd['ms']:.4f} ms "
+              f"(device alone {fwd['device_ms']:.4f}) plain {fwd['plain_ms']:.4f} ms bound {fwd['bound_ms']:.4f} ms "
+              f"(bytes), {100 * fwd['bound_ms'] / fwd['device_ms']:.1f}% of it (device alone) [{smi}]")
+        torch.cuda.empty_cache()
+    return out
+
+
+def bop_phase(torch, dev, smi, counters, k3_calls, k2_calls, check, overrides=(), device_flag="cuda"):
+    """Phase 12: the BOP / T-LESS VSD path.  (a) a procedural T-LESS root
+    and the GT-pose VSD of every instance; (b) ``cli.export`` of seeded
+    reference-format weights; (c) ``cli.test_bop.main`` in fp32, the bank
+    streamed and whole, timed; (d) one batch's retrieval against the plain
+    ops and against the CPU; (e) one fp32 train step each from the
+    Objaverse and ``bop_texture`` loaders.  ``check`` is phase 2's hold of
+    a kernel against its plain version; ``overrides`` are model overrides
+    for every config (none at full width)."""
+    import tempfile
+
+    from nope_tpu_torch.cli import export, test_bop
+    from nope_tpu_torch.configs import load_config
+    from nope_tpu_torch.data import builder
+    from nope_tpu_torch.data.bop import BOPDataset
+    from nope_tpu_torch.data.pipeline import collate
+    from nope_tpu_torch.evaluation import vsd
+    from nope_tpu_torch.models.factory import build_task
+    from nope_tpu_torch.tasks.pose_conditional import PoseConditionalTask
+    from nope_tpu_torch.training import optim, train_state
+    from nope_tpu_torch.training.checkpoint import restore_params
+
+    print(f"phase 12: the BOP / T-LESS VSD path (full width, float32, seeded weights; {BOP_BATCH} queries a batch, "
+          f"{FULL_N} templates each) [{smi}]")
+    t_phase = time.perf_counter()
+    overrides = list(overrides)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="nope_bop_") as tmp:
+        # (a) the root, and VSD of every GT pose against its own scene depth
+        t0 = time.perf_counter()
+        root = os.path.join(tmp, "tless")
+        n = write_bop_root(root)
+        t_write = time.perf_counter() - t0
+        ds = BOPDataset(root, None, "test_primesense", reset_metaData=True)
+        t0 = time.perf_counter()
+        gt_vsd = []
+        for row in ds.metaData.rows():
+            pose = np.asarray(row["pose"], np.float64).reshape(4, 4)
+            frame = vsd.VSDFrame(ds.cads[int(row["obj_id"])]["cad_path"], np.asarray(row["intrinsic"]).reshape(3, 3),
+                                 row["depth_path"], pose[None], pose)
+            gt_vsd.append(float(vsd.vsd_frame_error(frame, renderer_backend="numpy")[0]))
+        auto = vsd.make_renderer(ds.cads[1]["cad_path"], "auto").backend
+        ok = len(ds) == n == sum(BOP_FRAMES) * BOP_OBJECTS and max(gt_vsd) == 0.0
+        print(f"  (a) T-LESS-layout root: {len(BOP_FRAMES)} scenes, {sum(BOP_FRAMES)} frames of {BOP_HW[1]}x{BOP_HW[0]}, "
+              f"{n} instances of {BOP_OBJECTS} box CADs, written in {t_write:.1f} s; all {len(ds)} read as test items; "
+              f"GT-pose VSD over every instance max {max(gt_vsd):.3g} (want 0; numpy rasteriser, "
+              f"{1e3 * (time.perf_counter() - t0) / n:.1f} ms an instance); make_renderer('auto') takes {auto} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("phase 12 (a): the BOP root or its host geometry is wrong")
+
+        # (b) cli.export of seeded reference-format weights
+        cfg = load_config(None, overrides).model
+        seeded = build_task(cfg, dev, torch.Generator().manual_seed(121))
+        paths = {k: os.path.join(tmp, name) for k, name in
+                 (("unet", "reference_unet.pth"), ("vae", "sd_vae.bin"), ("ckpt", "nope_bop.pth"))}
+        torch.save({"state_dict": {f"u_net.{k}": v.cpu() for k, v in seeded.unet.state_dict().items()}}, paths["unet"])
+        torch.save({k: v.cpu() for k, v in seeded.vae.state_dict().items()}, paths["vae"])
+        t0 = time.perf_counter()
+        export.main(["--out", paths["ckpt"], "--unet", paths["unet"], "--vae", paths["vae"], "--device", device_flag,
+                     *overrides])
+        t_export = time.perf_counter() - t0
+        task = build_task(cfg, dev, torch.Generator().manual_seed(0))
+        restore_params(paths["ckpt"], task)
+        same = all(torch.equal(a, b) for m, w in ((task.unet, seeded.unet), (task.vae, seeded.vae))
+                   for a, b in zip(m.state_dict().values(), w.state_dict().values()))
+        print(f"  (b) cli.export.main --unet (reference format, u_net. keys) --vae (diffusers .bin) on {device_flag}: "
+              f"{os.path.getsize(paths['ckpt']) / 1e9:.2f} GB in {t_export:.1f} s; restore_params gives the seeded "
+              f"weights bitwise: {same} {'ok' if same else 'FAIL'}")
+        if not same:
+            raise RuntimeError("phase 12 (b): the exported checkpoint does not restore the weights")
+        del seeded
+
+        # (c) cli.test_bop.main, fp32, the bank streamed in chunks and made whole
+        flags = ["--renderer", "numpy", "--device", device_flag, "--num-workers", "0"]  # flags before overrides
+        base = [*overrides, f"model.checkpoint_path={paths['ckpt']}", f"data.datasets.tless.root_dir={root}",
+                "data.datasets.tless.split=test_primesense", f"machine.batch_size={BOP_BATCH}", "machine.num_workers=4"]
+        runs, total = {}, {fn.__name__: 0 for fn in counters}
+        for chunk in (BOP_CHUNK, None):
+            record = {"card_ms": [], "vsd_ms": [], "sim": [], "idx": []}
+            for fn in counters:
+                fn.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with bop_clocks(torch, record):
+                scores = test_bop.main(flags + (["--chunk-size", str(chunk)] if chunk else []) + base
+                                       + [f"save_dir={os.path.join(tmp, f'out_{chunk}')}"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in counters}
+            for k, v in launches.items():
+                total[k] += v
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            runs[chunk] = (scores, torch.cat(record["sim"]), torch.cat(record["idx"]))
+            batches = len(record["card_ms"])
+            ok = (set(scores) == VSD_KEYS and np.isfinite(list(scores.values())).all() and all(launches.values())
+                  and batches == -(-n // BOP_BATCH) and len(runs[chunk][1]) == n)
+            print(f"  (c) cli.test_bop.main fp32, chunk_size {chunk}: {n} queries in {wall:.2f} s "
+                  f"({n / wall:.2f} img/s, model build and checkpoint load included); per batch of {BOP_BATCH} "
+                  f"(the last of {n - (batches - 1) * BOP_BATCH}): the card {np.mean(record['card_ms']):.1f} ms "
+                  f"(bank + retrieval, {min(record['card_ms']):.1f}-{max(record['card_ms']):.1f}), VSD on the host "
+                  f"{np.mean(record['vsd_ms']):.1f} ms; peak {peak:.2f} GiB; launches {launches}; "
+                  f"top-1 VSD recall@0.3 {scores['top 1, vsd_scores 0.3']:.1f}, median {scores['top 1, vsd_median']:.3f} "
+                  f"{'ok' if ok else 'FAIL'} [{smi}]")
+            if not ok:
+                raise RuntimeError(f"phase 12 (c): cli.test_bop chunk_size {chunk} failed its checks")
+        (s_a, sim_a, idx_a), (s_b, sim_b, idx_b) = runs[BOP_CHUNK], runs[None]
+        rel, decided, same, ok = _topk_check(torch, sim_a, idx_a, sim_b, idx_b, idx_b.shape[1], CPU_SIM_RTOL)
+        ok = ok and rel <= CPU_SIM_RTOL and s_a == s_b
+        print(f"  (c) streamed vs whole: similarity rel {rel:.2e} (tol {CPU_SIM_RTOL:.0e}), top-5 equal in {same} of {n} rows ({decided} decided "
+              f"at {CPU_SIM_RTOL:.0e}); scores equal: {s_a == s_b} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("phase 12 (c): the streamed bank and the whole bank disagree")
+        out["launches"] = total
+        out["times"] = bop_kernel_times(torch, smi, dev, k3_calls, k2_calls, check)
+
+        # (d) one batch's retrieval against the plain ops on the card and against the CPU
+        items = BOPDataset(root, None, "test_primesense", img_size=cfg.img_size)
+        batch = collate([items[i] for i in range(BOP_BATCH)])
+        q, r, rel6 = (torch.from_numpy(batch[k]).to(dev) for k in ("query", "reference", "all_relativeR"))
+        with torch.no_grad():
+            sim_k, idx_k = task.retrieval(q, task.generate_template_bank(r, rel6, chunk_size=BOP_CHUNK))
+            with plain_ops(), plain_k1():
+                sim_p, idx_p = task.retrieval(q, task.generate_template_bank(r, rel6, chunk_size=BOP_CHUNK))
+        rel, decided, same, ok = _topk_check(torch, sim_k, idx_k, sim_p, idx_p, idx_p.shape[1], CPU_SIM_RTOL)
+        cli_equal = torch.equal(sim_k.cpu(), sim_a[:BOP_BATCH])
+        print(f"  (d) batch 0 (B={BOP_BATCH}, N={FULL_N}, chunks of {BOP_CHUNK}) vs K1-K3 plain on the card: similarity "
+              f"rel {rel:.2e} (tol {CPU_SIM_RTOL:.0e}), top-5 equal in {same} of {BOP_BATCH} ({decided} decided); "
+              f"bitwise the CLI's batch 0: {cli_equal} {'ok' if ok and rel <= CPU_SIM_RTOL else 'FAIL'}")
+        if not (ok and rel <= CPU_SIM_RTOL):
+            raise RuntimeError("phase 12 (d): the kernels disagree with their plain versions on the BOP path")
+        t0 = time.perf_counter()
+        cpu = PoseConditionalTask(copy.deepcopy(task.unet).cpu(), copy.deepcopy(task.vae).cpu(), task.config)
+        with torch.no_grad():
+            sim_c, idx_c = cpu.retrieval(q[:1].cpu(), cpu.generate_template_bank(r[:1].cpu(), rel6[:1].cpu(),
+                                                                                  chunk_size=BOP_CHUNK))
+        rel, decided, same, ok = _topk_check(torch, sim_k[:1].cpu(), idx_k[:1], sim_c, idx_c, idx_c.shape[1],
+                                               CPU_SIM_RTOL)
+        print(f"  (d) query 0 vs the CPU path (plain ops, {FULL_N} templates in chunks of {BOP_CHUNK}): similarity rel "
+              f"{rel:.2e} (tol {CPU_SIM_RTOL:.0e}), top-5 equal: {bool(same)} (decided: {bool(decided)}); "
+              f"{time.perf_counter() - t0:.1f} s {'ok' if ok and rel <= CPU_SIM_RTOL else 'FAIL'}")
+        if not (ok and rel <= CPU_SIM_RTOL):
+            raise RuntimeError("phase 12 (d): the card disagrees with the CPU path on the BOP path")
+        del cpu, items, batch, q, r, rel6
+
+        # (e) the Objaverse and bop_texture training loaders, one fp32 step each
+        t0 = time.perf_counter()
+        obj_root = os.path.join(tmp, "objaverse")
+        write_objaverse_root(obj_root)
+        members = {"hb": os.path.join(tmp, "hb"), "icbin": os.path.join(tmp, "icbin")}
+        for i, path in enumerate(members.values()):
+            write_bop_root(path, split="train_pbr", frames=(2, 2), seed=30 + i)
+        ov = ["train_data_name=bop_texture,objaverse", "data.datasets.objaverse.name=objaverse",
+              f"data.datasets.objaverse.root_dir={obj_root}", "data.datasets.bop_texture.name=bop_texture",
+              f"machine.batch_size={BOP_TRAIN_BATCH}", "machine.num_workers=4", *overrides]
+        ov += [f"data.datasets.{m}.{k}" for m, path in members.items() for k in ("name=bop", f"root_dir={path}")]
+        tcfg = load_config(None, ov)
+        tcfg.data.datasets["bop_texture"].extra = {"members": list(members)}
+        loaders = builder.build_train_loaders(tcfg)
+        t_data = time.perf_counter() - t0
+        unet = copy.deepcopy(task.unet)
+        state = train_state.TrainState(0, unet, task.vae, optim.make_optimizer(unet.parameters(), warm_up_steps=0))
+        step = train_state.make_train_step(PoseConditionalTask(unet, task.vae, task.config), half_precision=False)
+        for name, loader in loaders.items():
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in next(iter(loader)).items()}
+            t0 = time.perf_counter()
+            m = train_state.to_numpy_metrics(step(state, {name: batch})[1])
+            t_step = time.perf_counter() - t0
+            ok = np.isfinite(m["loss/train_avg"]) and m["loss/train_avg"] > 0
+            print(f"  (e) {name}: {len(loader.dataset)} training items, {len(loader)} batches of {BOP_TRAIN_BATCH}; one "
+                  f"fp32 train step: loss {m['loss/train_avg']:.5f} in {1e3 * t_step:.1f} ms {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"phase 12 (e): the {name} train step's loss is not finite")
+        print(f"  (e) roots and loaders built in {t_data:.1f} s; the train state took {state.step} steps")
+        del unet, state, step, loaders, task
+    torch.cuda.empty_cache()
+    print(f"  phase 12: {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -2707,6 +3130,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     zoo = model_zoo_phase(torch, dev, smi, counters)
 
+    # -- phase 12: the BOP / T-LESS path ---------------------------------------------------
+    bop = bop_phase(torch, dev, smi, counters, k3_calls, k2_calls, check)
+
     table = [
         ("reference_similarity", "K1", "nope_tpu_torch/csrc/similarity.cu",
          "nope_tpu/ops/experimental/pallas_similarity.py:29", sim.reference_similarity),
@@ -2727,6 +3153,8 @@ def main() -> int:
          "train_recomputes": tr["recomputes"][k], "unet_weight_grad_rel": tr["grad"] if k != "K1" else None,
          "parallel_launches": {"a": par["a"][fn.__name__], "b": par["b"][fn.__name__]},
          "zoo_launches": {name: zoo[name][fn.__name__] for name in ZOO_EVAL},
+         "bop_launches": bop["launches"][fn.__name__],
+         **({"bop_fp32": {str(items): t for items, t in bop["times"][k].items()}} if k in bop["times"] else {}),
          **({"refine_recomputes": rf["recomputes"][k], "backward_max_rel": rf["backward"][k],
              "unet_pose_grad_rel": rf["unet_grad"]} if k in rf["backward"] else {})}
         for name, k, src, rep, fn in table

@@ -1,4 +1,4 @@
-"""Dataset readers (ShapeNet) and the input pipeline (``nope_tpu/data``)."""
+"""Dataset readers (ShapeNet, BOP, Objaverse) and the input pipeline (``nope_tpu/data``)."""
 
 from nope_tpu_torch.data.pipeline import (  # noqa: F401
     CombinedLoader,

@@ -9,8 +9,9 @@ alpha, a bit depth other than 8, Adam7 interlacing) raises a
 not match, or a stream that ends early, raises too, as Pillow does, so
 a corrupted file is never decoded into a wrong image.
 
-Arrays have Pillow's shapes: (H, W) for greyscale, (H, W, 3) for RGB,
-(H, W, 4) for RGBA, uint8.
+Arrays have Pillow's shapes and types: (H, W) for greyscale, (H, W, 3)
+for RGB, (H, W, 4) for RGBA, uint8; (H, W) uint16 for 16-bit greyscale
+(big-endian samples in the file, native order in the array).
 
 Filters None, Sub and Up unfilter a whole row at once in numpy.  Average
 and Paeth depend on the pixel to their left after it is unfiltered, so
@@ -98,8 +99,8 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
 
 
 def read_png(source: Union[str, bytes, bytearray]) -> np.ndarray:
-    """Decode a PNG file (a path, or the file's bytes) into a uint8 array
-    of Pillow's shape: (H, W), (H, W, 3) or (H, W, 4)."""
+    """Decode a PNG file (a path, or the file's bytes) into an array of
+    Pillow's shape: uint8 (H, W), (H, W, 3) or (H, W, 4); uint16 (H, W)."""
     if isinstance(source, (bytes, bytearray)):
         data = bytes(source)
     else:
@@ -117,8 +118,9 @@ def read_png(source: Union[str, bytes, bytearray]) -> np.ndarray:
     if colour not in _CHANNELS:
         raise ValueError(f"unsupported PNG: {_COLOUR_NAMES.get(colour, f'colour type {colour}')}; "
                          "this codec reads 8-bit greyscale, RGB and RGBA")
-    if depth != 8:
-        raise ValueError(f"unsupported PNG: bit depth {depth}; this codec reads 8-bit samples only")
+    if depth != 8 and not (depth == 16 and colour == 0):
+        raise ValueError(f"unsupported PNG: bit depth {depth} in colour type {colour}; this codec reads 8-bit "
+                         "samples and 16-bit greyscale only")
     if interlace != 0:
         raise ValueError("unsupported PNG: Adam7 interlacing; this codec reads non-interlaced files only")
     if compression != 0 or filter_method != 0:
@@ -130,28 +132,37 @@ def read_png(source: Union[str, bytes, bytearray]) -> np.ndarray:
     except zlib.error as e:
         raise ValueError(f"corrupted PNG: {e}") from None
     c = _CHANNELS[colour]
+    if depth == 16:  # greyscale: 2 bytes a pixel, big-endian
+        rows = _unfilter(raw, height, width * 2, 2)
+        return rows.view(">u2").reshape(height, width).astype(np.uint16)
     pixels = _unfilter(raw, height, width * c, c).reshape(height, width, c)
     return pixels[..., 0] if c == 1 else pixels
 
 
 def write_png(path: str, array: np.ndarray, filter_type: int = 0, level: int = 6) -> None:
     """Write a uint8 (H, W), (H, W, 1), (H, W, 3) or (H, W, 4) array as an
-    8-bit greyscale, RGB or RGBA PNG, every row with ``filter_type``
+    8-bit greyscale, RGB or RGBA PNG, or a uint16 (H, W) or (H, W, 1)
+    array as a 16-bit greyscale one, every row with ``filter_type``
     (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth), deflated at ``level``."""
     arr = np.asarray(array)
-    if arr.dtype != np.uint8:
-        raise ValueError(f"write_png takes uint8 arrays, got {arr.dtype}")
+    if arr.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"write_png takes uint8 or uint16 arrays, got {arr.dtype}")
     if arr.ndim == 2:
         arr = arr[..., None]
     if arr.ndim != 3 or arr.shape[2] not in (1, 3, 4):
         raise ValueError(f"write_png takes (H, W), (H, W, 1), (H, W, 3) or (H, W, 4), got {arr.shape}")
+    if arr.dtype == np.uint16 and arr.shape[2] != 1:
+        raise ValueError(f"write_png writes uint16 as greyscale only, got {arr.shape}")
     if filter_type not in range(5):
         raise ValueError(f"filter_type {filter_type}: PNG has filters 0-4")
     h, w, c = arr.shape
     colour = {1: 0, 3: 2, 4: 6}[c]
-    rows = arr.reshape(h, w * c).astype(np.int16)
+    depth = 8 * arr.dtype.itemsize
+    bpp = c * arr.dtype.itemsize  # the filters' "pixel to the left", in bytes
+    raw = np.ascontiguousarray(arr.astype(arr.dtype.newbyteorder(">"))).view(np.uint8)
+    rows = raw.reshape(h, w * bpp).astype(np.int16)
     left = np.zeros_like(rows)
-    left[:, c:] = rows[:, :-c]
+    left[:, bpp:] = rows[:, :-bpp]
     up = np.zeros_like(rows)
     up[1:] = rows[:-1]
     if filter_type == 0:
@@ -164,17 +175,17 @@ def write_png(path: str, array: np.ndarray, filter_type: int = 0, level: int = 6
         pred = (left + up) >> 1
     else:
         upleft = np.zeros_like(rows)
-        upleft[1:, c:] = rows[:-1, :-c]
+        upleft[1:, bpp:] = rows[:-1, :-bpp]
         pa, pb, pc = np.abs(up - upleft), np.abs(left - upleft), np.abs(left + up - 2 * upleft)
         pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
-    body = np.empty((h, w * c + 1), np.uint8)
+    body = np.empty((h, w * bpp + 1), np.uint8)
     body[:, 0] = filter_type
     body[:, 1:] = (rows - pred) & 0xFF
 
     def chunk(kind: bytes, payload: bytes) -> bytes:
         return struct.pack(">I", len(payload)) + kind + payload + struct.pack(">I", zlib.crc32(kind + payload))
 
-    data = (_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))
+    data = (_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour, 0, 0, 0))
             + chunk(b"IDAT", zlib.compress(body.tobytes(), level)) + chunk(b"IEND", b""))
     with open(path, "wb") as f:
         f.write(data)

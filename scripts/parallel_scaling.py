@@ -157,7 +157,7 @@ def main() -> int:
         if rank == 0:
             db = cs.on_device(torch, eb, device, torch.bfloat16)
             want = half.retrieve_streaming(db["query"], db["reference"], db["all_relativeR"], chunk)
-            rel, decided, same, top1 = cs._top1_check(torch, *got, *want)
+            rel, decided, same, top1 = cs._topk_check(torch, *got, *want)
             out[f"sweep_{name}"]["check"] = {"rel": rel, "decided_rows": decided, "top1_equal_rows": same,
                                               "ok": rel <= cs.BF16_SIM_RTOL and top1}
     process_barrier("done")

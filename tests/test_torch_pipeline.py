@@ -2,7 +2,8 @@
 ``nope_tpu.data.pipeline`` on the same datasets: batch order for a seed
 and an epoch, ``set_state`` of both loaders, ``ConcatDataset``, error
 propagation and the shutdown of an abandoned iterator; and the port's
-``data.builder`` for ShapeNet."""
+``data.builder`` for ShapeNet (the Objaverse and BOP branches against the
+JAX builder on a ShapeNet root)."""
 
 import threading
 import time
@@ -164,13 +165,19 @@ def test_builder_shapenet_and_the_paths_that_wait(tmp_path):
         builder.build_train_loaders(_cfg(root, "machine.loader=thread"))
     with pytest.raises(NotImplementedError, match="Not ported"):
         builder.build_train_loaders(_cfg(root, "machine.loader=grain"))
-    for name in ("objaverse", "tless", "bop"):
-        cfg = load_config(None, [f"data.datasets.{name}.root_dir={root}", f"train_data_name={name}"])
-        with pytest.raises(NotImplementedError, match="item 14"):
-            builder.build_train_loaders(cfg)
-    cfg = load_config(None, [f"data.datasets.bop_texture.root_dir={root}", "train_data_name=bop_texture"])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        builder.build_train_loaders(cfg)
+    # the Objaverse and BOP branches (tests/test_torch_data_bop.py) refuse this ShapeNet root as the
+    # JAX builder does: no object with 10 renders and a group without members make no batch; no
+    # single train split to detect
+    from nope_tpu.configs import load_config as jax_load_config
+    from nope_tpu.data import builder as jax_builder
+
+    for names, expect in ((("objaverse", "bop_texture"), "yields 0 batches"),
+                          (("tless", "bop"), "exactly one train/val split")):
+        for name in names:
+            ov = [f"data.datasets.{name}.root_dir={root}", f"train_data_name={name}"]
+            for build, load in ((builder, load_config), (jax_builder, jax_load_config)):
+                with pytest.raises(ValueError, match=expect):
+                    build.build_train_loaders(load(None, ov))
     cfg = load_config(None, [f"data.datasets.shapeNet.root_dir={root}"])
     cfg.data.datasets["shapeNet"].name = "nope"
     with pytest.raises(ValueError, match="unknown dataset"):

@@ -1,6 +1,6 @@
-"""The port's PNG codec (``nope_tpu_torch.data.png``) against Pillow, and
-the ShapeNet reader on a host without Pillow (a subprocess with Pillow
-blocked) against the reader with Pillow."""
+"""The port's PNG codec (``nope_tpu_torch.data.png``, 8-bit and 16-bit
+greyscale) against Pillow, and the ShapeNet reader on a host without
+Pillow (a subprocess with Pillow blocked) against the reader with Pillow."""
 
 import io
 import os
@@ -35,10 +35,20 @@ def _pillow_bytes(arr, mode, **kw):
     return buf.getvalue()
 
 
+def _png_bytes(w, h, depth, colour, raw):
+    """A PNG of one IDAT chunk holding ``raw`` (filter bytes included)."""
+    def chunk(kind, payload):
+        return len(payload).to_bytes(4, "big") + kind + payload + zlib.crc32(kind + payload).to_bytes(4, "big")
+
+    header = w.to_bytes(4, "big") + h.to_bytes(4, "big") + bytes([depth, colour, 0, 0, 0])
+    return b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header) + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b"")
+
+
 def _filters_used(data):
-    """The filter byte of every row of an 8-bit non-interlaced PNG."""
+    """The filter byte of every row of a non-interlaced PNG (8-bit, or
+    16-bit greyscale)."""
     w, h = int.from_bytes(data[16:20], "big"), int.from_bytes(data[20:24], "big")
-    c = {0: 1, 2: 3, 6: 4}[data[25]]
+    c = {0: 1, 2: 3, 6: 4}[data[25]] * data[24] // 8
     pos, idat = 8, b""
     while pos < len(data):
         n = int.from_bytes(data[pos:pos + 4], "big")
@@ -82,6 +92,42 @@ def test_each_filter_type_round_trips(mode, filter_type, tmp_path):
     np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "a.png")), arr)  # Pillow reads what we write
 
 
+def _depth16(seed=0, smooth=False):
+    rng = np.random.default_rng(seed)
+    if smooth:  # a depth-like ramp: Pillow's adaptive filter mixes filter types
+        base = np.add.outer(np.arange(23) * 700, np.arange(31) * 300) + 4000
+        return (base + rng.integers(0, 40, (23, 31))).astype(np.uint16)
+    return rng.integers(0, 65536, (23, 31), dtype=np.uint16)
+
+
+@pytest.mark.parametrize("smooth", [False, True])
+def test_16bit_greyscale_matches_pillow(smooth, tmp_path):
+    """A Pillow-written ``I;16`` PNG (BOP's depth maps) decodes to Pillow's
+    uint16 array."""
+    arr = _depth16(smooth=smooth)
+    Image.fromarray(arr).save(tmp_path / "d.png")
+    want = np.asarray(Image.open(tmp_path / "d.png"))
+    assert Image.open(tmp_path / "d.png").mode == "I;16" and want.dtype == np.uint16
+    got = png.read_png(str(tmp_path / "d.png"))
+    assert got.dtype == np.uint16 and got.shape == (23, 31)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, arr)
+    if smooth:
+        assert len(_filters_used((tmp_path / "d.png").read_bytes())) >= 2
+
+
+@pytest.mark.parametrize("filter_type", range(5))
+def test_16bit_greyscale_round_trips(filter_type, tmp_path):
+    arr = _depth16(seed=filter_type)
+    png.write_png(str(tmp_path / "d.png"), arr, filter_type=filter_type)
+    data = (tmp_path / "d.png").read_bytes()
+    assert _filters_used(data) == {filter_type} and data[24:26] == bytes([16, 0])
+    np.testing.assert_array_equal(png.read_png(data), arr)
+    np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "d.png")), arr)  # Pillow reads what we write
+    with pytest.raises(ValueError, match="greyscale only"):
+        png.write_png(str(tmp_path / "e.png"), np.zeros((4, 4, 3), np.uint16))
+
+
 @pytest.mark.parametrize("kind, expect", [
     ("palette", "palette"),
     ("16-bit", "bit depth 16"),
@@ -96,10 +142,8 @@ def test_unsupported_pngs_raise(kind, expect):
         buf = io.BytesIO()
         img.save(buf, "PNG")
         data = buf.getvalue()
-    elif kind == "16-bit":
-        buf = io.BytesIO()
-        Image.fromarray(rng.integers(0, 65535, (8, 8), dtype=np.uint16)).save(buf, "PNG")
-        data = buf.getvalue()
+    elif kind == "16-bit":  # 16-bit colour (16-bit greyscale is read: test_16bit_greyscale_*)
+        data = _png_bytes(8, 8, 16, 2, np.zeros((8, 1 + 8 * 6), np.uint8).tobytes())
     elif kind == "interlaced":  # Pillow writes no Adam7 file: mark one interlaced in its header
         data = bytearray(_pillow_bytes(_array("RGB"), "RGB"))
         data[28] = 1

@@ -12,15 +12,17 @@ it fails at once.
    the kernels from ``nope_tpu_torch/csrc`` (into ``build/``).
 2. Holds each kernel against its plain PyTorch version on the card, at
    every shape the flagship configuration sends through it, in float32
-   and bfloat16; K3 in bfloat16 (its tensor-core route) at B = 3 (a
-   ragged M), 26 and 341 (the registration batch), and its 32x32 blocks
+   and bfloat16; K3 in both dtypes (bf16 and 3xTF32 on the tensor cores)
+   at B = 3 (a ragged M), 26 and 341 (the registration batch), every
+   float32 block on the 3xTF32 route, and each distinct 3xTF32 conv alone
+   at B=26 against its plain split arithmetic; its bf16 32x32 blocks
    at the evaluation program's 1,984 and 3,328 U-Net items (64 x 31 and
    128 x 26) and phase 11's 1,664 (64 x 26); K2 at 3, 26 and 341 items
    times each of the U-Net's token counts, and in bfloat16 at 1,984, 3,328
    and 1,664; K1 at the serving requests, B=64, a bank per query (also the
    evaluation program's (64, 31), (128, 26) and (8, 341)), a ragged B, and
    phase 11's (64, 26) shared, (32, 13) and (64, 26) per query.  Two launches on the
-   same inputs must be bitwise equal (K3 bf16, K1 and K2 both dtypes).
+   same inputs must be bitwise equal (K1, K2 and K3, both dtypes).
    Past the grid's 65,535 y extent: K3 at B=65,600 (its smallest block,
    4x4; samples on both sides of 65,535 held) and K1 at B=65,600 with a
    bank per query of N=1.  K1 at other channel counts, both dtypes,
@@ -53,10 +55,12 @@ it fails at once.
    eval step with its float32 loss, and ``estimate_many`` at B=64 over 4
    objects.  Each kernel's bound (``bound_ms``) is the larger of the bytes
    its function must move over 3.35 TB/s and its operations over the
-   peak rate of their type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s
-   float32 CUDA cores, from the H100 SXM data sheet; tensor-core and
-   CUDA-core work overlap, so the larger of their times); a conv counts
-   only its products by inputs inside the image, not by the padding.
+   peak rate of their type (989 TFLOP/s bf16 tensor cores, 495 TFLOP/s
+   TF32 tensor cores, 67 TFLOP/s float32 CUDA cores, from the H100 SXM
+   data sheet; tensor-core and CUDA-core work overlap, so the larger of
+   their times); a conv counts only its products by inputs inside the
+   image, not by the padding, and K3's float32 route three of them for
+   each (3xTF32; the CUDA-core bound of one is printed beside it).
 5. One ``torch.profiler`` window each over a bf16 registration (N=26,
    N=341), a bf16 ``estimate`` (B=64) and, after phase 6 (5b), one
    full-protocol eval step:
@@ -163,8 +167,11 @@ it fails at once.
    ``cli.test_bop.main`` over the root with ``--renderer numpy`` in
    batches of 4 (341 templates a query), the bank streamed in chunks of
    31 and made whole: images/s, the card's and the host VSD's time per
-   batch, peak memory, K1-K3 launches, JAX's score keys, equal scores;
-   K3's and K2's fp32 routes timed at 124 and 1,364 items; (d) batch 0
+   batch, peak memory, K1-K3 launches (every K3 block on the 3xTF32
+   route), JAX's score keys, equal scores; at 124 and 1,364 items K2's
+   fp32 route, and K3's 3xTF32 route, its exact CUDA-core route
+   (``_block_cuda_cores`` called alone), its plain version and
+   ``F.conv2d`` timed in turns, each route held first; (d) batch 0
    against K1-K3 on their plain versions on the card and query 0 against
    the CPU path; (e) one fp32 train step each from the Objaverse and
    ``bop_texture`` loaders of ``build_train_loaders``.
@@ -184,8 +191,11 @@ runs (fast and full protocol), ``train_launches`` and
 ``train_recomputes`` of phase 9's uninterrupted CLI run,
 ``parallel_launches`` of phase 10 (a) and (b) (both ranks),
 ``zoo_launches`` of phase 11 (b) by configuration, ``bop_launches``
-of phase 12's two CLI runs, for K2 and K3 ``bop_fp32`` (phase 12's fp32
-route times per U-Net forward at 124 and 1,364 items), and for K2 and
+of phase 12's two CLI runs, for K3 ``tf32x3_launches`` (the blocks of
+phases 3, 6 (a) and 12's CLI runs that took the 3xTF32 route), for K2
+and K3 ``bop_fp32`` (phase 12's fp32 route times per U-Net forward at
+124 and 1,364 items; K3's also the CUDA-core route's, the plain
+version's and ``F.conv2d``'s on the device alone), and for K2 and
 K3 that call's ``refine_recomputes``, their Functions'
 ``backward_max_rel``, the pose gradient's ``unet_pose_grad_rel`` and the
 weight gradients' ``unet_weight_grad_rel`` by dtype) and
@@ -257,8 +267,8 @@ CHECK_ITEMS = EVAL_ITEMS + (64 * FAST_N,)
 # margin over the second exceeds this share of the row's largest |score|
 BF16_SIM_RTOL = 1e-2
 # H100 SXM peaks (NVIDIA data sheet): bytes/s, dense bf16 tensor-core and
-# float32 CUDA-core operations/s
-HBM_BPS, BF16_TC_OPS, F32_OPS = 3.35e12, 989e12, 67e12
+# float32 CUDA-core operations/s, dense TF32 tensor-core operations/s
+HBM_BPS, BF16_TC_OPS, F32_OPS, TF32_TC_OPS = 3.35e12, 989e12, 67e12, 495e12
 IMAGE = 256
 LATENT = IMAGE // 8
 # past the 65,535 a grid's y extent holds: K3's gn_silu and K1 with a bank
@@ -465,11 +475,11 @@ def k3_work(shape, batch):
     return 2.0 * macs, 25.0 * m * co, float(nbytes)
 
 
-def bound(tc_ops=0.0, f32_ops=0.0, nbytes=0.0):
+def bound(tc_ops=0.0, f32_ops=0.0, nbytes=0.0, tf32_ops=0.0):
     """(ms, "bytes" or "operations"): the least time the card could take,
-    the largest of the tensor cores', the CUDA cores' and the memory's
-    times, which can all run at once."""
-    ops_ms = 1e3 * max(tc_ops / BF16_TC_OPS, f32_ops / F32_OPS)
+    the largest of the tensor cores' (bf16 or TF32), the CUDA cores' and
+    the memory's times, which can all run at once."""
+    ops_ms = 1e3 * max(tc_ops / BF16_TC_OPS, f32_ops / F32_OPS, tf32_ops / TF32_TC_OPS)
     bytes_ms = 1e3 * nbytes / HBM_BPS
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
@@ -484,6 +494,16 @@ def pack_bytes(fr, module) -> int:
             if p.untyped_storage().data_ptr() != w.untyped_storage().data_ptr():
                 total += p.numel() * p.element_size()
     return total
+
+
+def k3_bound_fp32(work):
+    """K3's float32 bound from ``k3_work``'s (conv operations, elementwise
+    operations, bf16 bytes): the 3xTF32 route's three products of every
+    conv operation at the TF32 rate, the elementwise work on the CUDA
+    cores, twice the bytes; and, beside it for comparison, the CUDA-core
+    bound of one float32 product (the yardstick before 3xTF32)."""
+    return (bound(f32_ops=work[1], nbytes=2 * work[2], tf32_ops=3 * work[0]),
+            bound(f32_ops=work[0] + work[1], nbytes=2 * work[2]))
 
 
 def k3_library(torch, F, x, params):
@@ -501,7 +521,8 @@ def k3_library(torch, F, x, params):
     return run
 
 
-K3_KERNELS = ("conv_wgmma", "splitk_reduce", "gn_finalize", "gn_silu")  # K3 in bf16
+K3_KERNELS = ("conv_wgmma", "splitk_reduce", "gn_finalize", "gn_silu")  # K3 on the tensor cores
+K3_TF32X3_KERNELS = ("conv_wgmma_kernel<float",)  # of those, the float32 route's conv (3xTF32)
 K2_KERNELS = ("la_chunk_kernel", "la_merge_kernel", "la_output_kernel")
 K1_KERNELS = ("similarity_kernel", "reduce_splits_kernel")
 
@@ -536,7 +557,8 @@ def profile_window(torch, label, fn, top=6, ranges=()):
         print(f"  profile {label}: wall {wall:.2f} ms; device time not measured (the profiler saw no kernels)")
         return {}
     own = {k: sum(r[0] for r in rows if any(name in r[2] for name in names))
-           for k, names in (("K3", K3_KERNELS), ("K2", K2_KERNELS), ("K1", K1_KERNELS))}
+           for k, names in (("K3", K3_KERNELS), ("K3 tf32x3 conv", K3_TF32X3_KERNELS), ("K2", K2_KERNELS),
+                            ("K1", K1_KERNELS))}
     print(f"  profile {label}: wall {wall:.2f} ms, kernels {busy:.2f} ms ({100 * busy / wall:.1f}% of wall), "
           + ", ".join(f"{k} {ms:.3f} ms ({100 * ms / busy:.1f}%)" for k, ms in own.items()) + " of kernel time")
     for name in ranges:  # first kernel to last of each call, summed: kernels and the gaps between them
@@ -569,7 +591,7 @@ def evaluation_phase(torch, dev, task32, variant, grids, counters, unet_cpu, vae
     # (a) both protocols through evaluate_geodesic, every kernel counted over them
     for fn in counters:
         fn.launches = 0
-    fr.resnet_block.tensor_core_launches = 0
+    fr.resnet_block.tensor_core_launches = fr.resnet_block.tf32x3_launches = 0
     chunks = {}
     for name, (b, n, chunk) in EVAL.items():
 
@@ -609,11 +631,15 @@ def evaluation_phase(torch, dev, task32, variant, grids, counters, unet_cpu, vae
         if not ok:
             raise RuntimeError(f"the {name} protocol's outputs are malformed: {scores}")
     launches = {fn.__name__: fn.launches for fn in counters}
-    tc = fr.resnet_block.tensor_core_launches
-    print(f"  launches over both protocols {launches}; K3 on the tensor cores (bf16) {tc}, on the CUDA cores "
-          f"(the fp32 loss) {launches['resnet_block'] - tc}")
-    if not all(launches.values()) or not tc or launches["resnet_block"] == tc:
-        raise RuntimeError(f"a kernel of the evaluation program never launched: {launches}, tensor-core K3 {tc}")
+    tc, t3 = fr.resnet_block.tensor_core_launches, fr.resnet_block.tf32x3_launches
+    print(f"  launches over both protocols {launches}; K3 on the tensor cores: bf16 {tc}, float32 in 3xTF32 (the "
+          f"fp32 loss) {t3}, elsewhere {launches['resnet_block'] - tc - t3}")
+    if not all(launches.values()) or not tc or not t3:
+        raise RuntimeError(f"a kernel of the evaluation program never launched: {launches}, tensor-core K3 {tc}, "
+                           f"3xTF32 K3 {t3}")
+    if tc + t3 != launches["resnet_block"]:
+        raise RuntimeError(f"{launches['resnet_block'] - tc - t3} K3 blocks of the evaluation program ran off the "
+                           f"tensor cores (bf16 {tc}, 3xTF32 {t3})")
 
     # the streamed peak does not grow with N: the (B, N, h, w, C) bank never exists
     half = task32.half()
@@ -737,7 +763,8 @@ def evaluation_phase(torch, dev, task32, variant, grids, counters, unet_cpu, vae
         if not bitwise:
             raise RuntimeError(f"the {label} registry does not round-trip")
     est.register_object(GALLERY[3], refs[3])
-    return {"launches": launches, "half": half, "batches": batches, "chunks": chunks, "gallery": est}
+    return {"launches": launches, "tf32x3_launches": t3, "half": half, "batches": batches, "chunks": chunks,
+            "gallery": est}
 
 
 @contextlib.contextmanager
@@ -2474,10 +2501,16 @@ def bop_clocks(torch, record):
 
 def bop_kernel_times(torch, smi, dev, k3_calls, k2_calls, check):
     """Phase 12: K3's and K2's float32 routes at this path's U-Net batches
-    (a chunk of 31 templates and the whole bank of 341, 4 queries), each
-    output held by phase 2's ``check`` against its plain version on the
-    same inputs, then timed with the host in the loop and on the device
-    alone, beside the plain versions, K3's ``F.conv2d`` and the bounds."""
+    (a chunk of 31 templates and the whole bank of 341, 4 queries).  K3,
+    per block shape, in turns, with the host in the loop and on the device
+    alone: the 3xTF32 route (``resnet_block``), the exact CUDA-core route
+    (``_block_cuda_cores``, called here alone: nothing on the main path
+    reaches it at these widths), the plain version and ``F.conv2d`` over
+    the block's convs; both routes' outputs are held by phase 2's
+    ``check`` against the plain version first, the 3xTF32 one also for a
+    bitwise repeat.  K2's kernel beside its plain version.  With the
+    bounds: 3xTF32's, and for comparison the CUDA-core one of one
+    float32 product."""
     import torch.nn.functional as F
 
     from nope_tpu_torch.ops import fused_resnet as fr
@@ -2485,30 +2518,48 @@ def bop_kernel_times(torch, smi, dev, k3_calls, k2_calls, check):
 
     gen = torch.Generator(device=dev).manual_seed(12)
     out = {"K3": {}, "K2": {}}
+    routes = ("tf32x3", "cuda_cores", "plain", "conv2d")
     for items in (BOP_BATCH * BOP_CHUNK, BOP_BATCH * FULL_N):
         reps = 3 if items < 1000 else 1
-        tot_k = tot_d = tot_p = tot_l = 0.0
+        tot = {r: [0.0, 0.0] for r in routes}  # with the host, device alone
         work = [0.0, 0.0, 0.0]
         for shape in sorted(set(k3_calls), key=k3_calls.index):
             count = k3_calls.count(shape)
             x, emb, params = k3_inputs(torch, shape, items, dev, torch.float32, gen)
-            check("K3", f"B={items} {shape[0]}x{shape[1]} {shape[2]}->{shape[3]} res={int(shape[4])} "
-                  f"emb={int(shape[5])}", fr.resnet_block(x, emb, params, shape[6]),
-                  fr.resnet_block_plain(x, emb, params, shape[6]), "float32")
-            t_k = cuda_ms(torch, lambda: fr.resnet_block(x, emb, params, shape[6]), reps)
-            t_d = device_ms(torch, lambda: fr.resnet_block(x, emb, params, shape[6]), reps)
-            t_p = cuda_ms(torch, lambda: fr.resnet_block_plain(x, emb, params, shape[6]), reps)
-            t_l = cuda_ms(torch, k3_library(torch, F, x, params), reps)
-            tot_k, tot_d = tot_k + count * t_k, tot_d + count * t_d
-            tot_p, tot_l = tot_p + count * t_p, tot_l + count * t_l
+            label = f"B={items} {shape[0]}x{shape[1]} {shape[2]}->{shape[3]} res={int(shape[4])} emb={int(shape[5])}"
+            old = torch.empty(*x.shape[:3], shape[3], device=dev)
+            runs = {"tf32x3": lambda: fr.resnet_block(x, emb, params, shape[6]),
+                    "cuda_cores": lambda: fr._block_cuda_cores(x, emb, params, shape[6], 1e-5, old),
+                    "plain": lambda: fr.resnet_block_plain(x, emb, params, shape[6]),
+                    "conv2d": k3_library(torch, F, x, params)}
+            want = runs["plain"]()
+            before = fr.resnet_block.tf32x3_launches
+            got = runs["tf32x3"]()
+            if fr.resnet_block.tf32x3_launches != before + 1:
+                raise RuntimeError(f"K3 fp32 {label} did not run the 3xTF32 route")
+            check("K3", f"{label} 3xTF32", got, want, "float32")
+            if not torch.equal(got, runs["tf32x3"]()):
+                raise RuntimeError(f"K3 fp32 {label}: two launches on the same inputs differ")
+            runs["cuda_cores"]()
+            check("K3", f"{label} conv_nhwc", old, want, "float32")
+            del got, want
+            for r in routes:
+                tot[r][0] += count * cuda_ms(torch, runs[r], reps)
+                tot[r][1] += count * device_ms(torch, runs[r], reps)
             work = [a + count * b for a, b in zip(work, k3_work(shape, items))]
-            del x, emb, params
-        b3 = bound(f32_ops=work[0] + work[1], nbytes=2 * work[2])
-        out["K3"][items] = {"ms": tot_k, "device_ms": tot_d, "plain_ms": tot_p, "library_ms": tot_l,
-                            "bound_ms": b3[0], "bound_by": b3[1]}
-        print(f"  K3 fp32 (conv_nhwc) all 22 blocks of one U-Net forward at {items} items: kernel {tot_k:.3f} ms "
-              f"(device alone {tot_d:.3f}) plain {tot_p:.3f} ms conv2d {tot_l:.3f} ms; bound {b3[0]:.3f} ms "
-              f"({b3[1]}), kernel at {100 * b3[0] / tot_d:.1f}% of it (device alone) [{smi}]")
+            del x, emb, params, old, runs
+        (b3, by3), (bc, _) = k3_bound_fp32(work)
+        out["K3"][items] = {"ms": tot["tf32x3"][0], "device_ms": tot["tf32x3"][1], "plain_ms": tot["plain"][0],
+                            "plain_device_ms": tot["plain"][1], "library_ms": tot["conv2d"][0],
+                            "library_device_ms": tot["conv2d"][1], "cuda_cores_ms": tot["cuda_cores"][0],
+                            "cuda_cores_device_ms": tot["cuda_cores"][1], "bound_ms": b3, "bound_by": by3,
+                            "cuda_core_bound_ms": bc}
+        print(f"  K3 fp32 all 22 blocks of one U-Net forward at {items} items, in turns (with the host / device "
+              f"alone): 3xTF32 {tot['tf32x3'][0]:.3f} / {tot['tf32x3'][1]:.3f} ms, conv_nhwc {tot['cuda_cores'][0]:.3f}"
+              f" / {tot['cuda_cores'][1]:.3f} ms, plain {tot['plain'][0]:.3f} / {tot['plain'][1]:.3f} ms, conv2d "
+              f"{tot['conv2d'][0]:.3f} / {tot['conv2d'][1]:.3f} ms; 3xTF32 bound {b3:.3f} ms ({by3}), 3xTF32 at "
+              f"{100 * b3 / tot['tf32x3'][1]:.1f}% of it (device alone); CUDA-core bound {bc:.3f} ms, conv_nhwc at "
+              f"{100 * bc / tot['cuda_cores'][1]:.1f}% of it [{smi}]")
         fwd = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
         for n in sorted({c[0] for c in k2_calls}, reverse=True):
             count = sum(1 for c in k2_calls if c[0] == n)
@@ -2549,6 +2600,7 @@ def bop_phase(torch, dev, smi, counters, k3_calls, k2_calls, check, overrides=()
     from nope_tpu_torch.data.pipeline import collate
     from nope_tpu_torch.evaluation import vsd
     from nope_tpu_torch.models.factory import build_task
+    from nope_tpu_torch.ops import fused_resnet as fr
     from nope_tpu_torch.tasks.pose_conditional import PoseConditionalTask
     from nope_tpu_torch.training import optim, train_state
     from nope_tpu_torch.training.checkpoint import restore_params
@@ -2608,11 +2660,12 @@ def bop_phase(torch, dev, smi, counters, k3_calls, k2_calls, check, overrides=()
         flags = ["--renderer", "numpy", "--device", device_flag, "--num-workers", "0"]  # flags before overrides
         base = [*overrides, f"model.checkpoint_path={paths['ckpt']}", f"data.datasets.tless.root_dir={root}",
                 "data.datasets.tless.split=test_primesense", f"machine.batch_size={BOP_BATCH}", "machine.num_workers=4"]
-        runs, total = {}, {fn.__name__: 0 for fn in counters}
+        runs, total, tf32x3 = {}, {fn.__name__: 0 for fn in counters}, 0
         for chunk in (BOP_CHUNK, None):
             record = {"card_ms": [], "vsd_ms": [], "sim": [], "idx": []}
             for fn in counters:
                 fn.launches = 0
+            fr.resnet_block.tf32x3_launches = 0
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -2624,6 +2677,11 @@ def bop_phase(torch, dev, smi, counters, k3_calls, k2_calls, check, overrides=()
             launches = {fn.__name__: fn.launches for fn in counters}
             for k, v in launches.items():
                 total[k] += v
+            t3 = fr.resnet_block.tf32x3_launches
+            tf32x3 += t3
+            if t3 != launches["resnet_block"]:
+                raise RuntimeError(f"phase 12 (c): {launches['resnet_block'] - t3} of {launches['resnet_block']} fp32 K3 "
+                                   f"blocks ran off the 3xTF32 route")
             peak = torch.cuda.max_memory_allocated() / 2**30
             runs[chunk] = (scores, torch.cat(record["sim"]), torch.cat(record["idx"]))
             batches = len(record["card_ms"])
@@ -2633,7 +2691,7 @@ def bop_phase(torch, dev, smi, counters, k3_calls, k2_calls, check, overrides=()
                   f"({n / wall:.2f} img/s, model build and checkpoint load included); per batch of {BOP_BATCH} "
                   f"(the last of {n - (batches - 1) * BOP_BATCH}): the card {np.mean(record['card_ms']):.1f} ms "
                   f"(bank + retrieval, {min(record['card_ms']):.1f}-{max(record['card_ms']):.1f}), VSD on the host "
-                  f"{np.mean(record['vsd_ms']):.1f} ms; peak {peak:.2f} GiB; launches {launches}; "
+                  f"{np.mean(record['vsd_ms']):.1f} ms; peak {peak:.2f} GiB; launches {launches}, K3 all 3xTF32 ({t3}); "
                   f"top-1 VSD recall@0.3 {scores['top 1, vsd_scores 0.3']:.1f}, median {scores['top 1, vsd_median']:.3f} "
                   f"{'ok' if ok else 'FAIL'} [{smi}]")
             if not ok:
@@ -2645,7 +2703,7 @@ def bop_phase(torch, dev, smi, counters, k3_calls, k2_calls, check, overrides=()
               f"at {CPU_SIM_RTOL:.0e}); scores equal: {s_a == s_b} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise RuntimeError("phase 12 (c): the streamed bank and the whole bank disagree")
-        out["launches"] = total
+        out["launches"], out["tf32x3_launches"] = total, tf32x3
         out["times"] = bop_kernel_times(torch, smi, dev, k3_calls, k2_calls, check)
 
         # (d) one batch's retrieval against the plain ops on the card and against the CPU
@@ -2832,18 +2890,35 @@ def main() -> int:
                 if not torch.equal(got, la.linear_attention_inner(qkv, 4, 32)):
                     raise RuntimeError(f"K2 items={items} n={n} {dn}: two launches on the same inputs differ")
                 torch.cuda.synchronize()
-        for batch in (K3_BATCHES if dtype == torch.bfloat16 else (FAST_N,)):
+        for batch in K3_BATCHES:
             for shape in k3_shapes:
                 x, emb, params = k3_inputs(torch, shape, batch, dev, dtype, gen)
                 f32 = {k: v.float() for k, v in params.items()}
                 label = (f"B={batch} {shape[0]}x{shape[1]} {shape[2]}->{shape[3]} res={int(shape[4])} "
                          f"emb={int(shape[5])}")
+                before = fr.resnet_block.tf32x3_launches
                 got = fr.resnet_block(x, emb, params, shape[6])
+                if dtype == torch.float32 and fr.resnet_block.tf32x3_launches != before + 1:
+                    raise RuntimeError(f"K3 {label} float32 did not run the 3xTF32 route")
                 check("K3", label, got,
                       fr.resnet_block_plain(x.float(), None if emb is None else emb.float(), f32, shape[6]), dn)
-                if dtype == torch.bfloat16 and not torch.equal(got, fr.resnet_block(x, emb, params, shape[6])):
-                    raise RuntimeError(f"K3 {label}: two launches on the same inputs differ")
+                if not torch.equal(got, fr.resnet_block(x, emb, params, shape[6])):
+                    raise RuntimeError(f"K3 {label} {dn}: two launches on the same inputs differ")
                 torch.cuda.synchronize()
+    # the 3xTF32 conv alone against its plain version (the split arithmetic
+    # in float64): each distinct conv of the blocks at B=26
+    convs = sorted({c for sh in k3_shapes for c in ((sh[0], sh[2], sh[3], 3), (sh[0], sh[3], sh[3], 3))
+                    + (((sh[0], sh[2], sh[3], 1),) if sh[4] else ())})
+    for side, cin, co, ks in convs:
+        x = torch.randn(FAST_N, side, side, cin, generator=gen).to(dev)
+        w = (torch.randn(co, cin, ks, ks, generator=gen) * (ks * ks * cin) ** -0.5).to(dev)
+        b = (0.1 * torch.randn(co, generator=gen)).to(dev)
+        got = fr.conv_tf32x3(x, w, b)
+        check("K3", f"conv B={FAST_N} {side}x{side} {cin}->{co} {ks}x{ks} vs split plain", got,
+              fr.conv_tf32x3_plain(x, w, b), "float32")
+        if not torch.equal(got, fr.conv_tf32x3(x, w, b)):
+            raise RuntimeError(f"the 3xTF32 conv {side}x{side} {cin}->{co} {ks}x{ks}: two launches differ")
+    torch.cuda.synchronize()
     # the evaluation program's U-Net batches, bf16: inputs up to 2.6 GB,
     # drawn on the card; K3 at its 32x32 blocks, where M is largest
     dgen = torch.Generator(device=dev).manual_seed(2)
@@ -2900,7 +2975,8 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     print(f"  K3 bf16: two launches bitwise equal at all {len(k3_shapes) * len(K3_BATCHES) + len(big_k3) * len(CHECK_ITEMS)}"
-          f" (shape, batch)")
+          f" (shape, batch); K3 fp32: every block ran the 3xTF32 route, two launches bitwise equal at all "
+          f"{len(k3_shapes) * len(K3_BATCHES)}, and the conv alone at {len(convs)} shapes")
     print(f"  K1 and K2, both dtypes: two launches bitwise equal at all {len(K1_SHAPES) + len(K1_CHANNELS)} and "
           f"{len(K2_ITEMS) * len(k2_tokens)} shapes; K2 bf16 also at {len(CHECK_ITEMS) * len(k2_tokens)}")
 
@@ -2921,7 +2997,7 @@ def main() -> int:
     counters = (sim.reference_similarity, la.linear_attention_inner, fr.resnet_block)
     for fn in counters:
         fn.launches = 0
-    fr.resnet_block.tensor_core_launches = 0
+    fr.resnet_block.tensor_core_launches = fr.resnet_block.tf32x3_launches = 0
     answers = {}
     t0 = time.perf_counter()
     for (dt, n), est in estimators.items():
@@ -2929,11 +3005,15 @@ def main() -> int:
         answers[(dt, n)] = [est.estimate("object", q) for q in requests]
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counters}
-    tc = fr.resnet_block.tensor_core_launches
+    tc, serve_tf32x3 = fr.resnet_block.tensor_core_launches, fr.resnet_block.tf32x3_launches
     print(f"  4 registrations + {4 * REQUESTS} requests: {time.perf_counter() - t0:.1f} s; launches {launches}; "
-          f"K3 on the tensor cores (bf16) {tc}")
-    if not all(launches.values()) or not tc:
-        raise RuntimeError(f"a kernel of the main path never launched: {launches}, tensor-core K3 {tc}")
+          f"K3 on the tensor cores: bf16 {tc}, float32 in 3xTF32 {serve_tf32x3}")
+    if not all(launches.values()) or not tc or not serve_tf32x3:
+        raise RuntimeError(f"a kernel of the main path never launched: {launches}, tensor-core K3 {tc}, "
+                           f"3xTF32 K3 {serve_tf32x3}")
+    if tc + serve_tf32x3 != launches["resnet_block"]:
+        raise RuntimeError(f"{launches['resnet_block'] - tc - serve_tf32x3} K3 blocks of the main path ran off the "
+                           f"tensor cores")
     for (dt, n), results in answers.items():
         for r in results:
             ok = (r.nearest_idx.shape == (QUERIES, 5) and r.similarity.shape == (QUERIES, n)
@@ -3059,10 +3139,11 @@ def main() -> int:
                       f"device alone {t_d:8.3f} ms) "
                       f"plain {t_p:8.3f} ms conv2d {t_l:8.3f} ms ({tc_ops / t_l / 1e9:6.1f} TFLOP/s) "
                       f"host {t_h:6.3f} ms")
-            b3 = bound(*work) if dtype == torch.bfloat16 else bound(f32_ops=work[0] + work[1], nbytes=2 * work[2])
+            b3 = bound(*work) if dtype == torch.bfloat16 else k3_bound_fp32(work)[0]
             print(f"  K3 all 22 blocks of one U-Net forward at B={batch} {dn:<8} kernel {tot_k:8.3f} ms "
                   f"(device alone {tot_d:.3f} ms) plain {tot_p:8.3f} ms conv2d {tot_l:8.3f} ms host {tot_h:.3f} ms; "
-                  f"{work[0] / 1e12:.3f} TFLOP of conv, bound {b3[0]:.3f} ms ({b3[1]}), kernel at {100 * b3[0] / tot_k:.1f}% of it")
+                  f"{work[0] / 1e12:.3f} TFLOP of conv, bound {b3[0]:.3f} ms ({b3[1]}"
+                  f"{'' if dtype == torch.bfloat16 else ', 3xTF32'}), kernel at {100 * b3[0] / tot_k:.1f}% of it")
             if batch == FAST_N:
                 kernel_ms.setdefault("K3", (tot_k, tot_p, tot_l, tot_d))
                 bounds.setdefault("K3", b3)
@@ -3154,6 +3235,8 @@ def main() -> int:
          "parallel_launches": {"a": par["a"][fn.__name__], "b": par["b"][fn.__name__]},
          "zoo_launches": {name: zoo[name][fn.__name__] for name in ZOO_EVAL},
          "bop_launches": bop["launches"][fn.__name__],
+         **({"tf32x3_launches": {"serve": serve_tf32x3, "eval": ev["tf32x3_launches"], "bop": bop["tf32x3_launches"]}}
+            if k == "K3" else {}),
          **({"bop_fp32": {str(items): t for items, t in bop["times"][k].items()}} if k in bop["times"] else {}),
          **({"refine_recomputes": rf["recomputes"][k], "backward_max_rel": rf["backward"][k],
              "unet_pose_grad_rel": rf["unet_grad"]} if k in rf["backward"] else {})}

@@ -11,35 +11,61 @@
 // 32x32x192 float32 sample is 768 KiB, more than the 227 KB of shared
 // memory a block may use.  So the block runs as a chain of kernels.
 //
-// bfloat16 (the serving dtype) -- what bounds it on an H100 is the
-// convolutions' operations (~29 GFLOP a sample over the U-Net's 22
-// blocks, against ~1 MB of activations), so they run on the tensor cores:
+// The tensor-core route (bfloat16, the serving dtype, and float32) --
+// what bounds it on an H100 is the convolutions' operations (~29 GFLOP a
+// sample over the U-Net's 22 blocks, against ~1 MB of activations), so
+// they run on the tensor cores:
 //
 //   conv_wgmma     implicit-GEMM conv, M = B*H*W pixels, N = Co, K =
-//                  ks*ks*Cin ordered (tap, ci): wgmma m64n192k16, bf16
-//                  operands, float32 accumulators.  A 64-deep K-slice is
-//                  one tap and 64 channels of a shifted NHWC pixel row
-//                  (128 bytes): every thread gathers A rows by 16-byte
-//                  cp.async, zero-filled for the halo; one thread asks the
-//                  TMA for the weight tile.  Both land in a ring of
-//                  128-byte-swizzled slots that runs ahead of the tensor
-//                  cores.  Tiles of 64 or 192 rows (one warpgroup per
-//                  64) by 192 columns: the N tile holds whole GroupNorm
-//                  groups (cg in {24, 48, 96, 192}), so the epilogue adds
-//                  the bias, stores the float32 pre-norm output and writes
-//                  per tile a partial (count, mean, M2) for every (sample,
-//                  group) it touches.  Few tiles (the 4x4 to 16x16 stages
-//                  at small batch) split K over blocks; splitk_reduce sums
-//                  the splits in a fixed order.  The 1x1 residual is the
-//                  same kernel with one tap;
+//                  ks*ks*Cin ordered (tap, ci), float32 accumulators.  A
+//                  K-slice is one tap and one 128-byte row of a shifted
+//                  NHWC pixel (64 bf16 or 32 float32 channels): every
+//                  thread gathers A rows by 16-byte cp.async, zero-filled
+//                  for the halo; one thread asks the TMA for the weight
+//                  tile.  Both land in a ring of 128-byte-swizzled slots
+//                  that runs ahead of the tensor cores.  Tiles of 64 or
+//                  192 rows (one warpgroup per 64) by 192 columns: the N
+//                  tile holds whole GroupNorm groups (cg in {24, 48, 96,
+//                  192}), so the epilogue adds the bias, stores the
+//                  float32 pre-norm output and writes per tile a partial
+//                  (count, mean, M2) for every (sample, group) it touches.
+//                  Few tiles (the 4x4 to 16x16 stages at small batch)
+//                  split K over blocks; splitk_reduce sums the splits in a
+//                  fixed order.  The 1x1 residual is the same kernel with
+//                  one tap;
 //   gn_finalize    merges a (sample, group)'s partials in tile order with
 //                  Chan's formula (no E[x^2] - mean^2 cancellation) into
 //                  per-channel tables;
-//   gn_silu        as below, storing the first Block's activation in
-//                  bf16: the second conv's operand, rounded as the TPU's
-//                  MXU rounded its float32 scratch at default precision.
+//   gn_silu        as below, storing the first Block's activation in the
+//                  block's dtype: in bf16 the second conv's operand,
+//                  rounded as the TPU's MXU rounded its float32 scratch at
+//                  default precision; in float32 kept whole.
 //
-// float32 (exact, no TF32) -- on the CUDA cores:
+// bfloat16: wgmma m64n192k16 on bf16 operands (989 TFLOP/s).
+//
+// float32, 3xTF32 (Cin % 32 == 0, Co % 8 == 0, cg | 192): the same
+// kernel on tf32 operands, wgmma m64n192k8.  Each operand is split as
+// a = hi + lo, hi = tf32(a) rounded to nearest (ties away from zero), lo
+// = a - hi exact, which the tensor cores read with its low 13 mantissa
+// bits dropped; three products lo*hi, hi*lo, hi*hi (small terms first)
+// go into the same float32 accumulators.  Each product is exact and its
+// dropped terms are ~2^-21 of a*b.  The tensor cores' own accumulation
+// truncates, so each K-slice (32 channels of a tap) sums from zero and is
+// added to a running total in registers with round-to-nearest: the sums
+// keep float32's accuracy and the route holds the exact float32 block
+// within 1e-4 (the TPU's float32 K3 rounded its conv operands to bf16 in
+// one pass).  What bounds it is 3 x the conv products at 495 TFLOP/s
+// (TF32), 2.5x the CUDA cores' 67 TFLOP/s for one product.  The weights
+// arrive split, as two (Co, K) planes packed once per parameter; each
+// thread splits the A chunks it copied (cvt.rna) in shared memory, hi in
+// place and lo into a second slot of the same swizzle, so a stage holds A
+// and B twice: 64 KB at 64 rows (a ring of 3) and 80 KB at 128 rows (a
+// ring of 2; 192-row tiles leave no registers for the totals).  The
+// GroupNorm statistics come from the epilogue as in bf16: the conv
+// output is written once and read once more, by gn_silu.
+//
+// float32 (exact, no TF32) and bf16 at widths neither tensor-core conv
+// takes -- on the CUDA cores:
 //
 //   conv_nhwc      implicit-GEMM conv (64 x 64 tiles, 4 x 4 per thread),
 //                  + bias, float32 out;
@@ -238,14 +264,29 @@ gn_silu_kernel(const float* __restrict__ h, const float* __restrict__ mean,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 on the tensor cores
+// the tensor-core conv: bf16 operands, or float32 as three tf32 products
 // ---------------------------------------------------------------------------
 
 constexpr int kTileN = 192;               // N tile: whole groups for cg | 192
-constexpr int kSliceK = 64;                // K-slice: one tap x 64 channels
-constexpr int kRowBytes = kSliceK * 2;     // one 128-byte swizzled smem row
+constexpr int kRowBytes = 128;            // one swizzled smem row: one K-slice
 constexpr int kPitch = kTileN + 8;        // floats per row of the staged tile
 constexpr int kEpiThreads = 1024;
+
+// A K-slice is one tap x kSlice channels (one 128-byte row); a wgmma step
+// reads 32 bytes of every row.  float32 operands arrive as kPlanes = 2
+// tf32 planes (hi, lo), so a stage holds A and B twice.
+template <typename T>
+struct Operand;
+template <>
+struct Operand<__nv_bfloat16> {
+  static constexpr int kSlice = 64, kPlanes = 1;
+  static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <>
+struct Operand<float> {
+  static constexpr int kSlice = 32, kPlanes = 2;
+  static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+};
 
 // wgmma descriptor of a K-major tile of 128-byte rows, 128-byte swizzle:
 // 8-row groups 1024 bytes apart (SBO); the leading offset is unused
@@ -254,37 +295,63 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
          (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
 }
 
+// the 96 float32 accumulators of an m64n192 tile, as asm operands %0-%95
+#define NOPE_ACC_REGS                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7,"                                         \
+  " %8, %9, %10, %11, %12, %13, %14, %15,"                                   \
+  " %16, %17, %18, %19, %20, %21, %22, %23,"                                 \
+  " %24, %25, %26, %27, %28, %29, %30, %31,"                                 \
+  " %32, %33, %34, %35, %36, %37, %38, %39,"                                 \
+  " %40, %41, %42, %43, %44, %45, %46, %47,"                                 \
+  " %48, %49, %50, %51, %52, %53, %54, %55,"                                 \
+  " %56, %57, %58, %59, %60, %61, %62, %63,"                                 \
+  " %64, %65, %66, %67, %68, %69, %70, %71,"                                 \
+  " %72, %73, %74, %75, %76, %77, %78, %79,"                                 \
+  " %80, %81, %82, %83, %84, %85, %86, %87,"                                 \
+  " %88, %89, %90, %91, %92, %93, %94, %95}"
+#define NOPE_ACC_OPERANDS(d)                                                                         \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),     \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),            \
+  "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),          \
+  "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),          \
+  "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),          \
+  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),          \
+  "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),          \
+  "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),          \
+  "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),          \
+  "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]),          \
+  "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),          \
+  "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),          \
+  "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),          \
+  "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+
 // D(64x192, f32) += A(64x16, bf16, smem) * B(192x16, bf16, smem)^T
 __device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63,"
-      " %64, %65, %66, %67, %68, %69, %70, %71,"
-      " %72, %73, %74, %75, %76, %77, %78, %79,"
-      " %80, %81, %82, %83, %84, %85, %86, %87,"
-      " %88, %89, %90, %91, %92, %93, %94, %95},"
-      " %96, %97, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 " NOPE_ACC_REGS
+      ", %96, %97, p, 1, 1, 0, 0;\n}\n"
+      : NOPE_ACC_OPERANDS(d)
       : "l"(da), "l"(db), "r"(1));
+}
+
+// D(64x192, f32) = A(64x8, tf32, smem) * B(192x8, tf32, smem)^T (+ D if
+// accumulate); tf32 takes K-major operands only, with no transpose immediates
+__device__ __forceinline__ void wgmma_m64n192k8_tf32(float (&d)[96], uint64_t da, uint64_t db,
+                                                     int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k8.f32.tf32.tf32 " NOPE_ACC_REGS
+      ", %96, %97, p, 1, 1;\n}\n"
+      : NOPE_ACC_OPERANDS(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// x rounded to tf32: to nearest, ties away from zero, low 13 bits 0
+__device__ __forceinline__ float tf32_hi(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r & 0xFFFFE000u);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -403,21 +470,28 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
 }
 
 // out[m, co] = bias[co] + sum_{tap, ci} x[pixel(m) + shift(tap), ci] * w[co, tap, ci]
-// x: (B, H, W, Cin) bf16 NHWC, Cin % 64 == 0; w: (Cout, ks*ks*Cin) bf16,
-// read through the TMA map `wmap` (boxes of 192 rows x 64 K, swizzled).
-// Block (mt, nt, split) takes K-slices [kt0, kt1) of tile (mt, nt) with BM/64
-// warpgroups, which all multiply and all gather the A tiles (cp.async);
-// one thread asks the TMA for each B tile.  A ring of STAGES slots runs
-// ahead of the tensor cores.  With one split the block finishes the
-// tile; with more it stores its raw sums to ws[split] for splitk_reduce.
-template <int BM, int STAGES>
+// x: (B, H, W, Cin) NHWC of T, Cin % kSlice == 0; w: (Cout, ks*ks*Cin) of T
+// (float32: the hi plane, then the lo plane), read through the TMA maps
+// `wmap` (and `wmap_lo`), boxes of 192 rows x one K-slice, swizzled.
+// Block (mt, nt, split) takes K-slices [kt0, kt1) of tile (mt, nt) with
+// BM/64 warpgroups, which all multiply and all gather the A tiles
+// (cp.async); one thread asks the TMA for each B tile.  A ring of STAGES
+// slots runs ahead of the tensor cores.  With one split the block
+// finishes the tile; with more it stores its raw sums to ws[split] for
+// splitk_reduce.
+template <typename T, int BM, int STAGES>
 __global__ void __launch_bounds__(BM * 2, 1)
-conv_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const __grid_constant__ CUtensorMap wmap,
-                  const void* __restrict__ bias, int bdt, float* __restrict__ out,
-                  float* __restrict__ part, float* __restrict__ ws, int B, int H, int W,
-                  int Cin, int Cout, int ks, int G, int segmax, int splits) {
+conv_wgmma_kernel(const T* __restrict__ x, const __grid_constant__ CUtensorMap wmap,
+                  const __grid_constant__ CUtensorMap wmap_lo, const void* __restrict__ bias,
+                  int bdt, float* __restrict__ out, float* __restrict__ part,
+                  float* __restrict__ ws, int B, int H, int W, int Cin, int Cout, int ks, int G,
+                  int segmax, int splits) {
+  constexpr int kSlice = Operand<T>::kSlice, kPlanes = Operand<T>::kPlanes;
+  constexpr int kChunk = 16 / static_cast<int>(sizeof(T));  // elements per 16-byte chunk
   constexpr int kThreads = BM * 2, kRowStep = kThreads / 8;
-  constexpr int kABytes = BM * kRowBytes, kStageBytes = kABytes + kTileN * kRowBytes;
+  // a stage: A hi, [A lo,] B hi, [B lo]
+  constexpr int kABytes = BM * kRowBytes, kBBytes = kTileN * kRowBytes;
+  constexpr int kStageBytes = kPlanes * (kABytes + kBBytes);
   extern __shared__ uint8_t smem_raw[];
   // swizzled tiles sit on 1024-byte boundaries (the swizzle's period)
   const uint32_t raw = smem_u32(smem_raw);
@@ -429,7 +503,7 @@ conv_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const __grid_constant__ C
   const int tid = threadIdx.x, wg = tid >> 7, chunk = tid & 7;
   const int M = B * H * W, pad = ks / 2;
   const int mt = blockIdx.x, m0 = mt * BM, n0 = blockIdx.y * kTileN, split = blockIdx.z;
-  const int per_tap = Cin / kSliceK, KT = ks * ks * per_tap;
+  const int per_tap = Cin / kSlice, KT = ks * ks * per_tap;
   const int kt0 = static_cast<int>(static_cast<long long>(split) * KT / splits);
   const int kt1 = static_cast<int>(static_cast<long long>(split + 1) * KT / splits);
 
@@ -445,21 +519,37 @@ conv_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const __grid_constant__ C
   }
 
   auto load_stage = [&](int slot, int kt) {
-    const int tap = kt / per_tap, c0 = (kt - tap * per_tap) * kSliceK + chunk * 8;
+    const int tap = kt / per_tap, c0 = (kt - tap * per_tap) * kSlice + chunk * kChunk;
     const int dy = tap / ks - pad, dx = tap % ks - pad;
-    const uint32_t sa = ring + slot * kStageBytes, sb = sa + kABytes;
+    const uint32_t sa = ring + slot * kStageBytes, sb = sa + kPlanes * kABytes;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = (tid >> 3) + i * kRowStep;
       const int yy = ay[i] + dy, xx = ax[i] + dx;
       const bool ok = yy >= 0 && yy < H && xx >= 0 && xx < W;
-      const __nv_bfloat16* src =
-          ok ? x + static_cast<size_t>(am[i] + dy * W + dx) * Cin + c0 : x;
+      const T* src = ok ? x + static_cast<size_t>(am[i] + dy * W + dx) * Cin + c0 : x;
       cp_async_16(sa + r * kRowBytes + ((chunk ^ (r & 7)) << 4), src, ok);
     }
     if (tid == 0) {  // rows past Cout arrive as zeros
-      mbar_expect_tx(bar + 8 * slot, kTileN * kRowBytes);
-      tma_load_2d(sb, &wmap, kt * kSliceK, n0, bar + 8 * slot);
+      mbar_expect_tx(bar + 8 * slot, kPlanes * kBBytes);
+      tma_load_2d(sb, &wmap, kt * kSlice, n0, bar + 8 * slot);
+      if constexpr (kPlanes == 2) tma_load_2d(sb + kBBytes, &wmap_lo, kt * kSlice, n0, bar + 8 * slot);
+    }
+  };
+
+  // float32: this thread's own A chunks of `slot`, once they have landed,
+  // become hi in place and lo = x - hi at the same offset of the lo slot
+  auto split_stage = [&](int slot) {
+    uint8_t* sa = smem + slot * kStageBytes;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = (tid >> 3) + i * kRowStep;
+      float4* hi = reinterpret_cast<float4*>(sa + r * kRowBytes + ((chunk ^ (r & 7)) << 4));
+      const float4 v = *hi;
+      const float4 h = make_float4(tf32_hi(v.x), tf32_hi(v.y), tf32_hi(v.z), tf32_hi(v.w));
+      *hi = h;
+      *reinterpret_cast<float4*>(reinterpret_cast<uint8_t*>(hi) + kABytes) =
+          make_float4(v.x - h.x, v.y - h.y, v.z - h.z, v.w - h.w);
     }
   };
 
@@ -467,9 +557,14 @@ conv_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const __grid_constant__ C
     for (int s = 0; s < STAGES; ++s) mbar_init(bar + 8 * s, 1);
   __syncthreads();
 
-  float acc[96];
+  // float32: each K-slice's products go into acc from zero, and acc into
+  // `total` with round-to-nearest adds.  The tensor cores' accumulation
+  // truncates: across a 20,736-deep K it drifted ~1e-4 of the output.
+  float acc[96], total[kPlanes == 2 ? 96 : 1];
 #pragma unroll
   for (int i = 0; i < 96; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (kPlanes == 2 ? 96 : 1); ++i) total[i] = 0.f;
 
   // loads run kAhead K-slices ahead of the tensor cores
   constexpr int kAhead = STAGES - 1;
@@ -482,27 +577,44 @@ conv_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const __grid_constant__ C
   for (int kt = kt0; kt < kt1; ++kt) {
     const int i = kt - kt0, slot = i % STAGES;
     cp_async_wait<kAhead - 1>();
-    // this thread's copies into `slot` are done; make them visible to the
-    // tensor cores (async proxy), then wait for every thread's
+    if constexpr (kPlanes == 2) split_stage(slot);
+    // this thread's copies (and splits) of `slot` are done; make them
+    // visible to the tensor cores (async proxy), then wait for every thread's
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
     mbar_wait(bar + 8 * slot, (i / STAGES) & 1);
     const uint32_t sa = ring + slot * kStageBytes + wg * 64 * kRowBytes;
-    const uint32_t sb = ring + slot * kStageBytes + kABytes;
+    const uint32_t sb = ring + slot * kStageBytes + kPlanes * kABytes;
     wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < kSliceK / 16; ++k) wgmma_m64n192k16(acc, smem_desc(sa + 32 * k), smem_desc(sb + 32 * k));
+    for (int k = 0; k < 4; ++k) {  // 32 bytes of every row a step
+      if constexpr (kPlanes == 2) {  // small terms first: lo*hi, hi*lo, hi*hi
+        wgmma_m64n192k8_tf32(acc, smem_desc(sa + kABytes + 32 * k), smem_desc(sb + 32 * k), k > 0);
+        wgmma_m64n192k8_tf32(acc, smem_desc(sa + 32 * k), smem_desc(sb + kBBytes + 32 * k), 1);
+        wgmma_m64n192k8_tf32(acc, smem_desc(sa + 32 * k), smem_desc(sb + 32 * k), 1);
+      } else {
+        wgmma_m64n192k16(acc, smem_desc(sa + 32 * k), smem_desc(sb + 32 * k));
+      }
+    }
     wgmma_commit();
     // refill the slot of K-slice i - 1: every warpgroup waited for that
     // slice's wgmma before the barrier above
     if (kt + kAhead < kt1) load_stage((i + kAhead) % STAGES, kt + kAhead);
     cp_async_commit();
     wgmma_wait(acc);
+    if constexpr (kPlanes == 2) {
+#pragma unroll
+      for (int j = 0; j < 96; ++j) total[j] += acc[j];
+    }
+  }
+  if constexpr (kPlanes == 2) {
+#pragma unroll
+    for (int j = 0; j < 96; ++j) acc[j] = total[j];
   }
   cp_async_wait<0>();
   __syncthreads();  // the ring is free: it becomes the staged tile
 
-  // accumulator layout of m64nNk16: thread (warp, lane) of a warpgroup holds
+  // accumulator layout of m64nNkK: thread (warp, lane) of a warpgroup holds
   // rows 16 warp + lane/4 (+8), columns 8 j + 2 (lane % 4) (+1)
   float* stage = reinterpret_cast<float*>(smem);
   const int lane = tid & 31, r0 = wg * 64 + ((tid & 127) >> 5) * 16 + (lane >> 2);
@@ -591,20 +703,20 @@ gn_finalize_kernel(const float* __restrict__ part, const void* __restrict__ gamm
   write_norm_tables(mean, scale, gamma, pdt, b, g, C, C / G, mu, m2 / n, eps, lane, 32);
 }
 
-template <int BM, int STAGES>
+template <typename T, int BM, int STAGES>
 cudaError_t launch_conv_wgmma(dim3 grid, cudaStream_t stream, const void* x, const CUtensorMap& w,
-                              const void* bias, int bdt, float* out, float* part, float* ws,
-                              int B, int H, int W, int Cin, int Cout, int ks, int G,
-                              int segmax, int splits) {
-  constexpr int kSmem = STAGES * (BM + kTileN) * kRowBytes + 1024;
-  static_assert((BM * kPitch + 2 * kTileN) * 4 <= STAGES * (BM + kTileN) * kRowBytes,
-                "the staged tile exceeds the ring");
-  auto kernel = conv_wgmma_kernel<BM, STAGES>;
+                              const CUtensorMap& w_lo, const void* bias, int bdt, float* out,
+                              float* part, float* ws, int B, int H, int W, int Cin, int Cout,
+                              int ks, int G, int segmax, int splits) {
+  constexpr int kRing = STAGES * Operand<T>::kPlanes * (BM + kTileN) * kRowBytes;
+  constexpr int kSmem = kRing + 1024;
+  static_assert((BM * kPitch + 2 * kTileN) * 4 <= kRing, "the staged tile exceeds the ring");
+  static_assert(kSmem + 8 * STAGES <= 232448, "the ring exceeds a block's shared memory");
+  auto kernel = conv_wgmma_kernel<T, BM, STAGES>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, BM * 2, kSmem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), w, bias, bdt, out, part, ws, B, H, W, Cin, Cout, ks, G,
-      segmax, splits);
+  kernel<<<grid, BM * 2, kSmem, stream>>>(static_cast<const T*>(x), w, w_lo, bias, bdt, out, part,
+                                          ws, B, H, W, Cin, Cout, ks, G, segmax, splits);
   return cudaGetLastError();
 }
 
@@ -613,8 +725,9 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// The TMA map of the packed weight (Cout, K) bf16: boxes of 192 rows x 64
-// K-elements (128 bytes), 128-byte swizzle, as the wgmma descriptors read.
+// The TMA map of a packed weight plane (Cout, K) of T: boxes of 192 rows
+// x one K-slice (128 bytes), 128-byte swizzle, as the wgmma descriptors read.
+template <typename T>
 cudaError_t weight_map(CUtensorMap* map, const void* w, int K, int Cout) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
@@ -631,14 +744,57 @@ cudaError_t weight_map(CUtensorMap* map, const void* w, int K, int Cout) {
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(Cout)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * 2};
-  const cuuint32_t box[2] = {kSliceK, kTileN};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * sizeof(T)};
+  const cuuint32_t box[2] = {Operand<T>::kSlice, kTileN};
   const cuuint32_t steps[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w), dims,
-                            strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = encode(map, Operand<T>::kMapType, 2, const_cast<void*>(w), dims, strides, box,
+                            steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The tensor-core conv of T (Cin % kSlice == 0, Cout % 8 == 0, cg | 192):
+// bm in {64, 192} rows per tile; with splits > 1, ws holds splits * M *
+// Cout floats.  part (may be null) receives the tiles' GroupNorm partials,
+// (ceil(M / bm), G, segmax, 3) floats.  Tiles and rings: bf16 192 rows
+// (4 x 48 KB, one block an SM) or 64 (3 x 32 KB, two); float32 128 rows
+// (2 x 80 KB) or 64 (3 x 64 KB), one block an SM either way: a thread
+// holds 96 accumulators and their 96 running totals, which 192-row
+// blocks' 384 threads have no registers for.
+template <typename T>
+int conv_tensor_cores(const void* x, const void* w, const void* bias, int bdt, float* out,
+                      float* part, float* ws, int B, int H, int W, int Cin, int Cout, int ks, int G,
+                      int bm, int splits, int segmax, cudaStream_t s) {
+  const int M = B * H * W, K = ks * ks * Cin;
+  if (Cin % Operand<T>::kSlice || Cout % 8 || (part != nullptr && kTileN % (Cout / G)) ||
+      splits < 1 || (splits > 1 && ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((M + bm - 1) / bm, (Cout + kTileN - 1) / kTileN, splits);
+  CUtensorMap wmap, wmap_lo;
+  cudaError_t err = weight_map<T>(&wmap, w, K, Cout);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wmap_lo = wmap;
+  if (Operand<T>::kPlanes == 2) {  // the lo plane follows the hi plane
+    err = weight_map<T>(&wmap_lo, static_cast<const T*>(w) + static_cast<size_t>(Cout) * K, K, Cout);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  constexpr bool kSplit = Operand<T>::kPlanes == 2;
+  constexpr int kBig = kSplit ? 128 : 192, kBigStages = kSplit ? 2 : 4;
+  if (bm == kBig)
+    err = launch_conv_wgmma<T, kBig, kBigStages>(grid, s, x, wmap, wmap_lo, bias, bdt, out, part, ws,
+                                                 B, H, W, Cin, Cout, ks, G, segmax, splits);
+  else if (bm == 64)
+    err = launch_conv_wgmma<T, 64, 3>(grid, s, x, wmap, wmap_lo, bias, bdt, out, part, ws, B, H, W,
+                                      Cin, Cout, ks, G, segmax, splits);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const int smem = (bm * kPitch + 2 * kTileN) * 4;
+  err = cudaFuncSetAttribute(splitk_reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  splitk_reduce_kernel<<<dim3(grid.x, grid.y), kEpiThreads, smem, s>>>(
+      ws, splits, bias, bdt, out, part, M, Cout, H * W, G, bm, segmax);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -679,37 +835,21 @@ NOPE_API int nope_gn_silu(const float* h, const float* mean, const float* scale,
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 conv on the tensor cores (Cin % 64 == 0, Cout % 8 == 0, cg | 192):
-// bm in {64, 192} rows per tile; with splits > 1, ws holds
-// splits * M * Cout floats.  part (may be null) receives the tiles'
-// GroupNorm partials, (ceil(M / bm), G, segmax, 3) floats.
+// bf16 conv on the tensor cores (Cin % 64 == 0): conv_tensor_cores.
 NOPE_API int nope_conv_wgmma(const void* x, const void* w, const void* bias, int bdt, float* out,
                              float* part, float* ws, int B, int H, int W, int Cin, int Cout,
                              int ks, int G, int bm, int splits, int segmax, void* stream) {
-  const int M = B * H * W;
-  if (Cin % kSliceK || Cout % 8 || (part != nullptr && kTileN % (Cout / G)) || splits < 1 ||
-      (splits > 1 && ws == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((M + bm - 1) / bm, (Cout + kTileN - 1) / kTileN, splits);
-  CUtensorMap wmap;
-  cudaError_t err = weight_map(&wmap, w, ks * ks * Cin, Cout);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (bm == 192)
-    err = launch_conv_wgmma<192, 4>(grid, s, x, wmap, bias, bdt, out, part, ws, B, H, W, Cin, Cout,
-                                    ks, G, segmax, splits);
-  else if (bm == 64)
-    err = launch_conv_wgmma<64, 3>(grid, s, x, wmap, bias, bdt, out, part, ws, B, H, W, Cin, Cout,
-                                   ks, G, segmax, splits);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const int smem = (bm * kPitch + 2 * kTileN) * 4;
-  err = cudaFuncSetAttribute(splitk_reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  splitk_reduce_kernel<<<dim3(grid.x, grid.y), kEpiThreads, smem, s>>>(
-      ws, splits, bias, bdt, out, part, M, Cout, H * W, G, bm, segmax);
-  return static_cast<int>(cudaGetLastError());
+  return conv_tensor_cores<__nv_bfloat16>(x, w, bias, bdt, out, part, ws, B, H, W, Cin, Cout, ks, G,
+                                          bm, splits, segmax, static_cast<cudaStream_t>(stream));
+}
+
+// float32 conv on the tensor cores in 3xTF32 (Cin % 32 == 0): w is the
+// (2, Cout, K) float32 pack of hi = tf32(w) and lo = w - hi.
+NOPE_API int nope_conv_tf32x3(const void* x, const void* w, const void* bias, int bdt, float* out,
+                              float* part, float* ws, int B, int H, int W, int Cin, int Cout,
+                              int ks, int G, int bm, int splits, int segmax, void* stream) {
+  return conv_tensor_cores<float>(x, w, bias, bdt, out, part, ws, B, H, W, Cin, Cout, ks, G, bm,
+                                  splits, segmax, static_cast<cudaStream_t>(stream));
 }
 
 NOPE_API int nope_gn_finalize(const float* part, const void* gamma, int pdt, float* mean,

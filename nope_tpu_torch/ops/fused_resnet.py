@@ -10,20 +10,22 @@ w2/b2/g2/be2, optional res_w/res_b) holding the PyTorch modules'
 tensors: conv weights OIHW, as ``nn.Conv2d`` stores them.
 
 :func:`resnet_block` runs the K3 CUDA kernels (``csrc/fused_resnet.cu``)
-for CUDA tensors and :func:`resnet_block_plain` for CPU tensors.  In
-bfloat16 its convs run on the tensor cores (``wgmma``) and the
-GroupNorm statistics come from the convs' epilogue as per-tile partials
-(:func:`gn_partials_plain` and :func:`gn_merge_plain` are their plain
-versions); in float32, and for widths the tensor-core tiles do not take,
-they run on the CUDA cores.  Conv weights are laid out for the kernels
-once per parameter (:func:`packed_weight`).  :func:`fused_resnet_block`
-adds the gradient: its backward recomputes through the plain version,
-as the JAX op's custom VJP does.
+for CUDA tensors and :func:`resnet_block_plain` for CPU tensors.  At the
+widths the tensor-core tiles take (:data:`TENSOR_CORE_ROUTES`) its convs
+run on the tensor cores (``wgmma``): bfloat16 directly, float32 in
+3xTF32, each operand split into a tf32 hi and lo and three products
+summed (:func:`conv_tf32x3_plain` is that arithmetic in plain PyTorch);
+the GroupNorm statistics come from the convs' epilogue as per-tile
+partials (:func:`gn_partials_plain` and :func:`gn_merge_plain` are their
+plain versions).  Other widths run on the CUDA cores.  Conv weights are
+laid out for the kernels once per parameter (:func:`packed_weight`).
+:func:`fused_resnet_block` adds the gradient: its backward recomputes
+through the plain version, as the JAX op's custom VJP does.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -34,10 +36,30 @@ from nope_tpu_torch.ops import _build
 Params = Dict[str, torch.Tensor]
 _KEYS = ("w1", "b1", "g1", "be1", "w2", "b2", "g2", "be2", "res_w", "res_b")
 #: the tensor-core conv's N tile (whole GroupNorm groups when the group
-#: width divides it) and K-slice (one tap, 64 channels)
-TILE_N, SLICE_K = 192, 64
-#: the tile heights (output pixels) the tensor-core conv is built for
-TILE_M = (64, 192)
+#: width divides it)
+TILE_N = 192
+
+
+class TensorCoreRoute(NamedTuple):
+    """One operand type of the tensor-core conv: what it reads and how it
+    tiles."""
+
+    entry: str  # its C entry point
+    layout: str  # the weight pack it reads (packed_weight)
+    slice_k: int  # K-slice depth: one tap × slice_k channels, one 128-byte row
+    tiles: Tuple[int, int]  # the tile heights (output pixels) it is built for
+    blocks_64: int  # 64-row tiles an SM holds at once (the taller tiles: one)
+    counter: str  # resnet_block's count of the blocks that ran the route
+
+
+#: bf16: 64-channel slices, a 97 KB ring at 64 rows; float32 (3xTF32): a
+#: tf32 step reads 8 channels, so a slice is 32, and hi and lo planes of
+#: A and B make a 64-row stage 64 KB (a ring of 3 fills an SM); its tall
+#: tile is 128 rows, since each thread also keeps running totals
+TENSOR_CORE_ROUTES = {
+    torch.bfloat16: TensorCoreRoute("nope_conv_wgmma", "co_k", 64, (64, 192), 2, "tensor_core_launches"),
+    torch.float32: TensorCoreRoute("nope_conv_tf32x3", "co_k_tf32x3", 32, (64, 128), 1, "tf32x3_launches"),
+}
 #: per parameter: (its storage key, {layout: pack}) -- see packed_weight
 _PACKS = WeakIdKeyDictionary()
 
@@ -58,11 +80,51 @@ def resnet_block_plain(
     return (h + res).permute(0, 2, 3, 1)
 
 
+def tf32_split(t: torch.Tensor):
+    """float32 ``t`` as (hi, lo): hi = t rounded to tf32 (10 mantissa bits),
+    to nearest with ties away from zero as ``cvt.rna.tf32.f32`` rounds;
+    lo = t − hi, exact.  hi is made by integer operations on the int32
+    view, so the CPU and the card give the same bits (inf and NaN stay)."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"tf32_split takes float32, got {t.dtype}")
+    bits = t.contiguous().view(torch.int32)
+    special = (bits & 0x7F800000) == 0x7F800000
+    hi = torch.where(special, bits, (bits + 0x1000) & -0x2000).view(torch.float32)
+    return hi, t - hi
+
+
+def tf32_truncate(t: torch.Tensor) -> torch.Tensor:
+    """float32 ``t`` as the tensor cores read a tf32 operand: its low 13
+    mantissa bits dropped."""
+    return (t.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def conv_tf32x3_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The plain version of the 3xTF32 conv: x (B, H, W, Cin) float32,
+    ``w`` (Co, Cin, k, k) with zero padding k // 2 → (B, H, W, Co) float32.
+    Each operand splits as :func:`tf32_split`; lo enters truncated as the
+    tensor cores read it; lo·hi + hi·lo + hi·hi + bias, summed in float64.
+    The dropped lo·lo and the truncations are ~2⁻²¹ of each product."""
+    xh, xl = tf32_split(x)
+    wh, wl = tf32_split(w)
+    xl, wl = tf32_truncate(xl), tf32_truncate(wl)
+
+    def conv(a, b):
+        return F.conv2d(a.double().permute(0, 3, 1, 2), b.double(), padding=w.shape[-1] // 2)
+
+    out = conv(xl, wh) + conv(xh, wl) + conv(xh, wh) + bias.double()[:, None, None]
+    return out.permute(0, 2, 3, 1).float()
+
+
 def packed_weight(w: torch.Tensor, layout: str) -> torch.Tensor:
     """Conv weight ``w`` (Co, Cin, kh, kw) in the layout a K3 kernel reads:
 
-    - ``"co_k"``: (Co, kh·kw·Cin), K ordered (tap, ci): the tensor-core
-      conv's B operand, K-major as ``wgmma`` reads it untransposed;
+    - ``"co_k"``: (Co, kh·kw·Cin), K ordered (tap, ci): the bf16
+      tensor-core conv's B operand, K-major as ``wgmma`` reads it
+      untransposed;
+    - ``"co_k_tf32x3"``: float32 (2, Co, kh·kw·Cin), the "co_k" order
+      split by :func:`tf32_split` into a hi and a lo plane, the 3xTF32
+      conv's B operand;
     - ``"k_co"``: (kh·kw·Cin, Co), the CUDA-core conv's operand.
 
     Made once per parameter and held, while the parameter lives, in a
@@ -82,6 +144,8 @@ def packed_weight(w: torch.Tensor, layout: str) -> torch.Tensor:
     flat = w.detach().permute(0, 2, 3, 1).reshape(co, kh * kw * ci)
     if layout == "co_k":
         packed = flat.contiguous()
+    elif layout == "co_k_tf32x3":
+        packed = torch.stack(tf32_split(flat))
     elif layout == "k_co":
         packed = flat.t().contiguous()
     else:
@@ -91,26 +155,30 @@ def packed_weight(w: torch.Tensor, layout: str) -> torch.Tensor:
 
 
 class ConvPlan(NamedTuple):
-    bm: int  # output rows (pixels) per tile, one of TILE_M
+    bm: int  # output rows (pixels) per tile, one of the route's tiles
     splits: int  # K split over this many blocks, summed in order after
     segmax: int  # most samples one tile can touch (GroupNorm partials per group)
 
 
-def conv_plan(m: int, hw: int, c_out: int, k_slices: int, sms: int) -> ConvPlan:
+def conv_plan(m: int, hw: int, c_out: int, k_slices: int, sms: int, route: TensorCoreRoute) -> ConvPlan:
     """Tiling of the tensor-core conv of an (m, c_out) output with
-    ``k_slices`` 64-deep K-slices, on a card with ``sms`` SMs: 192-row
-    tiles (one block to an SM) or 64-row tiles (a 97 KB ring, two blocks
-    to an SM), whichever costs less in waves × rows an SM computes per
-    wave (192 on a tie: fewer bytes per operation).  64-row tiles that
-    do not fill the card split K until they do, each split keeping at
-    least 4 K-slices.  ``bm`` depends on (m, c_out) alone, so a block's
-    two convs write partials of one layout."""
+    ``k_slices`` K-slices of ``route.slice_k`` channels, on a card with
+    ``sms`` SMs: tall tiles (192 rows in bf16, 128 in 3xTF32; one block
+    to an SM) or 64-row tiles (``route.blocks_64`` blocks to an SM: two
+    in bf16, one in 3xTF32), whichever costs less in waves × rows an SM
+    computes per wave (the tall tile on a tie: fewer bytes per
+    operation).  64-row tiles that do not fill the card split K until
+    they do, each split keeping at least 4 K-slices.  ``bm`` depends on
+    (m, c_out) alone, so a block's two convs write partials of one
+    layout."""
     n_tiles = -(-c_out // TILE_N)
-    t64, t192 = -(-m // 64) * n_tiles, -(-m // 192) * n_tiles
-    if -(-t192 // sms) * 192 <= -(-t64 // (2 * sms)) * 128:
-        bm, splits = 192, 1
+    small, tall = route.tiles
+    t_small, t_tall = -(-m // small) * n_tiles, -(-m // tall) * n_tiles
+    per_sm = route.blocks_64
+    if -(-t_tall // sms) * tall <= -(-t_small // (per_sm * sms)) * small * per_sm:
+        bm, splits = tall, 1
     else:
-        bm, splits = 64, max(1, min(2 * sms // t64, k_slices // 4))
+        bm, splits = small, max(1, min(per_sm * sms // t_small, k_slices // 4))
     return ConvPlan(bm, splits, min(bm, (bm - 2) // hw + 2))
 
 
@@ -184,10 +252,13 @@ def _check_aligned(x: torch.Tensor, emb: Optional[torch.Tensor], params: Params)
             raise ValueError(f"{name} must be 16-byte aligned, got address {t.data_ptr():#x}")
 
 
-def _tensor_core_fits(c_in: int, c_out: int, groups: int) -> bool:
-    """Widths the bf16 tensor-core conv tiles: 64-channel K-slices, and
-    GroupNorm groups that never straddle a 192-wide N tile."""
-    return c_in % SLICE_K == 0 and c_out % 8 == 0 and TILE_N % (c_out // groups) == 0
+def _tensor_core_fits(c_in: int, c_out: int, groups: int, dtype: torch.dtype) -> bool:
+    """Widths the tensor-core conv of ``dtype`` tiles: whole K-slices (64
+    bf16 or 32 float32 channels) of x and of ``act``, the second conv's
+    input, and GroupNorm groups that never straddle a 192-wide N tile."""
+    route = TENSOR_CORE_ROUTES.get(dtype)
+    return (route is not None and c_in % route.slice_k == 0 and c_out % route.slice_k == 0
+            and TILE_N % (c_out // groups) == 0)
 
 
 class _Scratch:
@@ -205,27 +276,29 @@ class _Scratch:
         self.ptr = {name: base + 4 * off if sizes[name] else None for name, off in offsets.items()}
 
 
-def _conv_wgmma(call, x_ptr, w, bias, out_ptr, part_ptr, ws_ptr, shape, ks, groups, plan) -> None:
-    """One bf16 tensor-core conv (``ks`` = 3 with zero padding, or 1):
-    x (B, H, W, Cin) bf16, ``w`` = ``packed_weight(·, "co_k")`` → out
-    (B·H·W, Co) float32 + bias, and the tiles' GroupNorm partials
+def _conv_tensor_cores(call, route, x_ptr, w, bias, out_ptr, part_ptr, ws_ptr, shape, ks, groups,
+                       plan) -> None:
+    """One tensor-core conv (``ks`` = 3 with zero padding, or 1): x (B, H,
+    W, Cin) of the route's dtype, ``w`` = ``packed_weight(·, route.layout)``
+    → out (B·H·W, Co) float32 + bias, and the tiles' GroupNorm partials
     ((ceil(M / plan.bm), G, plan.segmax, 3) float32) unless part_ptr is
     None; ws_ptr holds plan.splits·M·Co floats when K is split."""
     b, h, wd, c_in = shape
-    call("nope_conv_wgmma", x_ptr, w.data_ptr(), bias.data_ptr(), _build.DTYPE_CODES[bias.dtype],
-         out_ptr, part_ptr, ws_ptr, b, h, wd, c_in, w.shape[0], ks, groups, plan.bm, plan.splits,
+    call(route.entry, x_ptr, w.data_ptr(), bias.data_ptr(), _build.DTYPE_CODES[bias.dtype],
+         out_ptr, part_ptr, ws_ptr, b, h, wd, c_in, w.shape[-2], ks, groups, plan.bm, plan.splits,
          plan.segmax)
 
 
 def _block_tensor_cores(x, emb, params, groups, eps, out):
-    """bf16: three tensor-core convs, the GroupNorm statistics from their
-    epilogues, ``act`` kept in bf16."""
+    """Three tensor-core convs (bf16, or float32 in 3xTF32), the GroupNorm
+    statistics from their epilogues, ``act`` kept in x's dtype."""
+    route = TENSOR_CORE_ROUTES[x.dtype]
     b, h, w, c_in = x.shape
     c_out, m, hw, dev = out.shape[-1], b * h * w, h * w, x.device
     sms = _build.sm_count(dev)
-    plan1 = conv_plan(m, hw, c_out, 9 * c_in // SLICE_K, sms)
-    plan2 = conv_plan(m, hw, c_out, 9 * c_out // SLICE_K, sms)
-    plan_r = conv_plan(m, hw, c_out, c_in // SLICE_K, sms) if "res_w" in params else None
+    plan1 = conv_plan(m, hw, c_out, 9 * c_in // route.slice_k, sms, route)
+    plan2 = conv_plan(m, hw, c_out, 9 * c_out // route.slice_k, sms, route)
+    plan_r = conv_plan(m, hw, c_out, c_in // route.slice_k, sms, route) if "res_w" in params else None
     splits = max(p.splits for p in (plan1, plan2, plan_r) if p is not None)
     mc = m * c_out
     scratch = _Scratch(
@@ -234,7 +307,7 @@ def _block_tensor_cores(x, emb, params, groups, eps, out):
     ptr = scratch.ptr
     act = torch.empty(b, h, w, c_out, dtype=x.dtype, device=dev)
     dt = _build.DTYPE_CODES[x.dtype]
-    w1, w2 = packed_weight(params["w1"], "co_k"), packed_weight(params["w2"], "co_k")
+    w1, w2 = packed_weight(params["w1"], route.layout), packed_weight(params["w2"], route.layout)
 
     with _build.launcher(dev) as call:
 
@@ -244,24 +317,25 @@ def _block_tensor_cores(x, emb, params, groups, eps, out):
             call("nope_gn_silu", ptr["conv"], ptr["mean"], ptr["scale"], beta.data_ptr(), dt,
                  emb_ptr, dt, res_ptr, res_dt, dst.data_ptr(), dt, b, hw, c_out, _build.grid_y(b))
 
-        _conv_wgmma(call, x.data_ptr(), w1, params["b1"], ptr["conv"], ptr["part"], ptr["ws"],
-                    x.shape, 3, groups, plan1)
+        _conv_tensor_cores(call, route, x.data_ptr(), w1, params["b1"], ptr["conv"], ptr["part"],
+                           ptr["ws"], x.shape, 3, groups, plan1)
         normalise(params["g1"], params["be1"], None if emb is None else emb.data_ptr(), None, 0, act)
-        _conv_wgmma(call, act.data_ptr(), w2, params["b2"], ptr["conv"], ptr["part"], ptr["ws"],
-                    act.shape, 3, groups, plan2)
+        _conv_tensor_cores(call, route, act.data_ptr(), w2, params["b2"], ptr["conv"], ptr["part"],
+                           ptr["ws"], act.shape, 3, groups, plan2)
         if plan_r is not None:
-            _conv_wgmma(call, x.data_ptr(), packed_weight(params["res_w"], "co_k"), params["res_b"],
-                        ptr["res"], None, ptr["ws"], x.shape, 1, groups, plan_r)
+            _conv_tensor_cores(call, route, x.data_ptr(), packed_weight(params["res_w"], route.layout),
+                               params["res_b"], ptr["res"], None, ptr["ws"], x.shape, 1, groups, plan_r)
             res_ptr, res_dt = ptr["res"], 0
         else:
             res_ptr, res_dt = x.data_ptr(), dt
         normalise(params["g2"], params["be2"], None, res_ptr, res_dt, out)
-    resnet_block.tensor_core_launches += 1
+    setattr(resnet_block, route.counter, getattr(resnet_block, route.counter) + 1)
 
 
 def _block_cuda_cores(x, emb, params, groups, eps, out):
-    """float32 (exact: no TF32), and widths the tensor-core tiles do not
-    take: the CUDA-core conv, two-pass statistics, float32 ``act``."""
+    """Widths neither tensor-core route takes, in either dtype (and, called
+    directly, the exact float32 yardstick of the 3xTF32 route): the
+    CUDA-core conv, two-pass statistics, float32 ``act``."""
     b, h, w, c_in = x.shape
     c_out, m, hw, dev = out.shape[-1], b * h * w, h * w, x.device
     dt = _build.DTYPE_CODES[x.dtype]
@@ -317,7 +391,7 @@ def resnet_block(
     out = torch.empty(b, h, w, c_out, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    if x.dtype == torch.bfloat16 and _tensor_core_fits(c_in, c_out, groups):
+    if _tensor_core_fits(c_in, c_out, groups, x.dtype):
         _block_tensor_cores(x, emb, params, groups, eps, out)
     else:
         _block_cuda_cores(x, emb, params, groups, eps, out)
@@ -328,6 +402,39 @@ def resnet_block(
 resnet_block.launches = 0
 #: blocks of those that ran the bf16 tensor-core route
 resnet_block.tensor_core_launches = 0
+#: blocks of those that ran the float32 tensor-core route (3xTF32)
+resnet_block.tf32x3_launches = 0
+
+
+def conv_tf32x3(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The 3xTF32 conv of K3's float32 route alone, without GroupNorm:
+    x (B, H, W, Cin) float32, ``w`` (Co, Cin, k, k) for k in {1, 3} →
+    (B, H, W, Co) float32.  A CUDA tensor runs the kernel (Cin % 32 == 0,
+    Co % 8 == 0); a CPU tensor :func:`conv_tf32x3_plain`."""
+    if x.dim() != 4 or w.dim() != 4 or w.shape[1] != x.shape[-1] or w.shape[-1] not in (1, 3):
+        raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} are not a K3 conv")
+    if x.device.type == "cpu":
+        return conv_tf32x3_plain(x, w, bias)
+    route = TENSOR_CORE_ROUTES[torch.float32]
+    for name, t in (("x", x), ("w", w), ("bias", bias)):
+        _build.check_cuda(name, t, (torch.float32,))
+    b, h, wd, c_in = x.shape
+    c_out, m = w.shape[0], b * h * wd
+    if c_in % route.slice_k or c_out % 8 or x.data_ptr() % 16:
+        raise ValueError(f"the 3xTF32 conv takes Cin % 32 == 0, Co % 8 == 0, 16-byte aligned x; got "
+                         f"Cin={c_in}, Co={c_out}")
+    out = torch.empty(b, h, wd, c_out, dtype=torch.float32, device=x.device)
+    plan = conv_plan(m, h * wd, c_out, w.shape[-1] ** 2 * c_in // route.slice_k, _build.sm_count(x.device),
+                     route)
+    ws = torch.empty(plan.splits * m * c_out if plan.splits > 1 else 0, dtype=torch.float32, device=x.device)
+    with _build.launcher(x.device) as call:
+        _conv_tensor_cores(call, route, x.data_ptr(), packed_weight(w, route.layout), bias, out.data_ptr(),
+                           None, ws.data_ptr() if ws.numel() else None, x.shape, w.shape[-1], 1, plan)
+    conv_tf32x3.launches += 1
+    return out
+
+
+conv_tf32x3.launches = 0
 
 
 class _ResnetBlockFn(torch.autograd.Function):

@@ -1,8 +1,9 @@
-"""K3's bf16 tensor-core route, in plain torch on the CPU: the packed
-weight layout the conv reads, the per-tile GroupNorm partials and their
-Chan merge against the JAX package's GroupNorm, the tiling plan, and the
-wrapper's launches (pointers, offsets, split-K, statistics) run against
-an emulation of the C entry points on host memory."""
+"""K3's tensor-core routes, in plain torch on the CPU: the packed weight
+layout the conv reads, the per-tile GroupNorm partials and their Chan
+merge against the JAX package's GroupNorm, the tiling plan, and the
+wrapper's launches (pointers, offsets, split-K, statistics) of the bf16
+route, the float32 3xTF32 route and the CUDA-core route run against an
+emulation of the C entry points on host memory."""
 
 import contextlib
 import ctypes
@@ -145,7 +146,7 @@ def test_no_grad_forward_skips_the_autograd_node(monkeypatch):
 # (H·W, Co, batch, bm): HW=16 with 128-row tiles spanning 8 samples; cg=24
 # at Co=192; tiles that cut samples (HW=48; 192-row tiles at HW=1024);
 # samples over many tiles.  The merge takes any partition; the kernel's
-# tiles are those of fr.TILE_M
+# tiles are the routes' (fr.TENSOR_CORE_ROUTES)
 PARTITIONS = [(16, 768, 26, 128), (16, 192, 3, 64), (1024, 192, 2, 128), (48, 192, 5, 128),
               (64, 384, 3, 128), (256, 192, 3, 64), (1024, 384, 3, 192), (16, 1536, 13, 192)]
 
@@ -193,7 +194,7 @@ def test_merge_keeps_the_digits_that_e_x2_loses():
     (3 * 16, 16, 768, 6, (64, 1, 5)),          # too few K-slices to split
 ])
 def test_conv_plan(m, hw, co, k_slices, want):
-    assert tuple(fr.conv_plan(m, hw, co, k_slices, 132)) == want
+    assert tuple(fr.conv_plan(m, hw, co, k_slices, 132, fr.TENSOR_CORE_ROUTES[torch.bfloat16])) == want
 
 
 # -- the wrapper's launches against an emulation of the C entry points --------
@@ -230,6 +231,7 @@ class _EmulatedKernels:
     def nope_conv_wgmma(self, x, w, bias, bdt, out, part, ws, b, h, wd, cin, co, ks, groups, bm, splits,
                         segmax):
         m, k = b * h * wd, ks * ks * cin
+        assert cin % 64 == 0 and co % 8 == 0  # what the C entry point takes
         self.tiles.add(bm)
         xs = _view(x, m * cin, 1).reshape(b, h, wd, cin)
         wt = _view(w, co * k, 1).reshape(co, k)
@@ -241,6 +243,33 @@ class _EmulatedKernels:
             if splits > 1:
                 _store(ws + 4 * s * m * co, m * co, 0, cols[:, lo:hi] @ wt[:, lo:hi].double().t())
             acc += cols[:, lo:hi] @ wt[:, lo:hi].double().t()
+        res = (acc + _view(bias, co, bdt).double()).float()
+        _store(out, m * co, 0, res)
+        if part is not None:
+            p = fr.gn_partials_plain(res, h * wd, groups, bm)
+            assert p.shape[2] == segmax
+            _store(part, p.numel(), 0, p)
+
+    def nope_conv_tf32x3(self, x, w, bias, bdt, out, part, ws, b, h, wd, cin, co, ks, groups, bm, splits,
+                         segmax):
+        """The split arithmetic: x and the pack's planes as the tensor
+        cores read them (lo truncated), lo·hi + hi·lo + hi·hi per split of
+        32-deep K-slices, the splits summed in order."""
+        m, k = b * h * wd, ks * ks * cin
+        assert cin % 32 == 0 and co % 8 == 0  # what the C entry point takes
+        self.tiles.add(bm)
+        xh, xl = fr.tf32_split(_view(x, m * cin, 0).reshape(b, h, wd, cin))
+        x_hi, x_lo = im2col(xh.double(), ks), im2col(fr.tf32_truncate(xl).double(), ks)
+        pack = _view(w, 2 * co * k, 0).reshape(2, co, k)
+        w_hi, w_lo = pack[0].double(), fr.tf32_truncate(pack[1]).double()
+        kt = k // 32
+        acc = torch.zeros(m, co, dtype=torch.float64)
+        for s in range(splits):
+            sl = slice(32 * (s * kt // splits), 32 * ((s + 1) * kt // splits))
+            p = x_lo[:, sl] @ w_hi[:, sl].t() + x_hi[:, sl] @ w_lo[:, sl].t() + x_hi[:, sl] @ w_hi[:, sl].t()
+            if splits > 1:
+                _store(ws + 4 * s * m * co, m * co, 0, p)
+            acc += p
         res = (acc + _view(bias, co, bdt).double()).float()
         _store(out, m * co, 0, res)
         if part is not None:
@@ -292,21 +321,35 @@ class _EmulatedKernels:
     ("tensor_cores", 35, 4, 192, 192, False, True, 1),   # 192-row tiles of 12 samples, ragged (1 SM)
     ("cuda_cores", 2, 4, 16, 24, True, True, 132),
     ("cuda_cores", 2, 4, 24, 24, False, False, 132),
+    ("cuda_cores_bf16", 2, 4, 16, 24, True, True, 132),  # bf16 at widths the bf16 tiles do not take
+    ("cuda_cores_bf16", 3, 4, 96, 192, True, False, 132),
+    ("tf32x3", 3, 4, 96, 192, True, True, 132),  # ragged M; one 64-row tile over 3 samples, K split in 6
+    ("tf32x3", 2, 8, 32, 96, True, False, 132),  # Co = 96: rows past Co in the N tile
+    ("tf32x3", 6, 6, 64, 384, True, False, 2),  # 128-row tiles cutting samples, ragged (2 SMs)
+    ("tf32x3", 15, 4, 192, 192, False, True, 4),  # 64-row tiles, ragged (4 SMs)
+    ("tf32x3", 31, 4, 192, 192, False, True, 1),  # 128-row tiles of 8 samples, ragged (1 SM)
 ])
 def test_block_launches_match_the_plain_block(monkeypatch, route, batch, hw_side, cin, co, with_res,
                                                with_emb, sms):
     _check_block_launches(monkeypatch, route, batch, hw_side, cin, co, with_res, with_emb, sms)
 
 
-@pytest.mark.parametrize("route", ["tensor_cores", "cuda_cores"])
+@pytest.mark.parametrize("route", ["tensor_cores", "cuda_cores", "tf32x3"])
 @pytest.mark.parametrize("max_grid_y", [1, 2, 4])
 def test_block_launches_stride_past_the_grid_limit(monkeypatch, route, max_grid_y):
     """With the grid's y extent capped below B, each gn_silu block strides
     over several samples, and the block is still the plain one."""
     monkeypatch.setattr(_build, "MAX_GRID_Y", max_grid_y)
-    cin, co = (128, 192) if route == "tensor_cores" else (16, 24)
+    cin, co = (16, 24) if route == "cuda_cores" else (128, 192)
     emulated = _check_block_launches(monkeypatch, route, 5, 4, cin, co, True, True, 132)
     assert emulated.grid_y == [max_grid_y, max_grid_y]
+
+
+# route under test: (the wrapper's function, dtype, its C conv entry point)
+ROUTES = {"tensor_cores": ("_block_tensor_cores", torch.bfloat16, "nope_conv_wgmma"),
+          "tf32x3": ("_block_tensor_cores", torch.float32, "nope_conv_tf32x3"),
+          "cuda_cores": ("_block_cuda_cores", torch.float32, "nope_conv_nhwc"),
+          "cuda_cores_bf16": ("_block_cuda_cores", torch.bfloat16, "nope_conv_nhwc")}
 
 
 def _check_block_launches(monkeypatch, route, batch, hw_side, cin, co, with_res, with_emb, sms):
@@ -319,7 +362,7 @@ def _check_block_launches(monkeypatch, route, batch, hw_side, cin, co, with_res,
     monkeypatch.setattr(_build, "launcher", launcher)
     monkeypatch.setattr(_build, "sm_count", lambda device: sms)
     gen = torch.Generator().manual_seed(batch * co + cin)
-    dtype = torch.bfloat16 if route == "tensor_cores" else torch.float32
+    block, dtype, conv = ROUTES[route]
     x = torch.randn(batch, hw_side, hw_side, cin, generator=gen).to(dtype)
     emb = torch.randn(batch, co, generator=gen).to(dtype) if with_emb else None
     p = {"w1": torch.randn(co, cin, 3, 3, generator=gen) / (9 * cin) ** 0.5, "b1": 0.1 * torch.randn(co, generator=gen),
@@ -331,19 +374,22 @@ def _check_block_launches(monkeypatch, route, batch, hw_side, cin, co, with_res,
         p["res_b"] = 0.1 * torch.randn(co, generator=gen)
     p = {k: v.to(dtype) for k, v in p.items()}
     out = torch.empty(batch, hw_side, hw_side, co, dtype=dtype)
-    before = fr.resnet_block.tensor_core_launches
-    getattr(fr, f"_block_{route}")(x, emb, p, 8, 1e-5, out)
+    before = fr.resnet_block.tensor_core_launches, fr.resnet_block.tf32x3_launches
+    getattr(fr, block)(x, emb, p, 8, 1e-5, out)
     want = fr.resnet_block_plain(x.float(), None if emb is None else emb.float(),
                                  {k: v.float() for k, v in p.items()})
     # bf16: act and the output are rounded to bf16 (the chip's tolerance);
-    # float32: the emulation sums in float64
-    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    # float32: the emulation sums in float64; 3xTF32: the chip's float32
+    # tolerance (each product's dropped terms are ~2^-21 of it)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4 if route == "tf32x3" else 1e-5
     err = (out.float() - want).abs().max() / want.abs().max()
     assert err <= tol, err
-    if route == "tensor_cores":
-        assert emulated.calls.count("nope_conv_wgmma") == 2 + with_res
-        assert emulated.tiles == {fr.conv_plan(batch * hw_side ** 2, hw_side ** 2, co, 9 * cin // 64, sms).bm}
-        assert fr.resnet_block.tensor_core_launches == before + 1
-    else:
-        assert emulated.calls.count("nope_conv_nhwc") == 2 + with_res
+    assert emulated.calls.count(conv) == 2 + with_res
+    assert {"nope_conv_wgmma", "nope_conv_tf32x3", "nope_conv_nhwc"} & set(emulated.calls) == {conv}
+    if block == "_block_tensor_cores":
+        r = fr.TENSOR_CORE_ROUTES[dtype]
+        assert emulated.tiles == {fr.conv_plan(batch * hw_side ** 2, hw_side ** 2, co, 9 * cin // r.slice_k, sms, r).bm}
+    bf16_tc, tf32x3 = route == "tensor_cores", route == "tf32x3"
+    assert (fr.resnet_block.tensor_core_launches, fr.resnet_block.tf32x3_launches) == (before[0] + bf16_tc,
+                                                                                     before[1] + tf32x3)
     return emulated

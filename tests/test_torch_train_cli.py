@@ -7,6 +7,7 @@ noise handed in."""
 
 import json
 import os.path as osp
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -152,6 +153,39 @@ def test_cli_exports_load_with_restore_params(both_runs, warm_start):
         for a, b in zip(probe.vae.state_dict().values(), warm_start[2].vae.state_dict().values()):
             assert torch.equal(a, b)
     assert checkpoint.CheckpointManager(ckpts).latest_step() == STEPS
+
+
+def _same(a, b) -> bool:
+    """Nested optimizer states equal: tensors bitwise, the rest by value."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(map(_same, a, b))
+    return a == b
+
+
+def test_resume_keeps_the_checkpoint_over_the_warm_start(both_runs, train_root, warm_start, tmp_path):
+    """A resumed run that names ``model.u_net.pretrained_path`` keeps the
+    checkpoint's U-Net, EMA stream, step and optimizer state, not the warm
+    start's weights: the port warm-starts, then lets the resume restore
+    over it (``nope_tpu_torch/cli/train.py``).  The JAX CLI resumes first
+    and warm-starts after (``nope_tpu/cli/train.py:109-112``), so its
+    resumed U-Net would be the warm start's."""
+    shutil.copytree(osp.join(both_runs["dir"], "port"), tmp_path / "port")
+    state, trainer = train_cli.main(["--max-steps", str(STEPS), "--device", "cpu"]
+                                    + _overrides(train_root, tmp_path, warm_start, "port"))
+    trained = both_runs["state"]
+    assert state.step == trained.step == STEPS
+    for a, b in zip(state.unet.state_dict().values(), trained.unet.state_dict().values()):
+        assert torch.equal(a, b)
+    for a, b in zip(trainer.ema_params.state_dict().values(), both_runs["trainer"].ema_params.state_dict().values()):
+        assert torch.equal(a, b)
+    assert _same(state.opt.state_dict(), trained.opt.state_dict())
+    assert state.opt.state_dict()["count"] == STEPS
+    warm = torch.load(warm_start[0])
+    assert any(not torch.equal(v, warm[k]) for k, v in state.unet.state_dict().items())
 
 
 def test_orbax_directory_is_refused_by_name(tmp_path, warm_start):

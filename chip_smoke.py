@@ -176,6 +176,23 @@ it fails at once.
    the CPU path; (e) one fp32 train step each from the Objaverse and
    ``bop_texture`` loaders of ``build_train_loaders``.
 
+13. The port's tools (``nope_tpu_torch.utils``, ``scripts``, the grain
+   loader) with a seeded flagship ``PoseEstimator`` (bf16, N=26): (a)
+   ``utils.profiling.trace`` of one ``register_object`` and one
+   ``estimate`` (B=8), whose Chrome trace must name kernels of K1, K2 and
+   K3, with the same launch counts as an untraced run; (b)
+   ``profiling.benchmark`` of the same calls against the CUDA events of
+   its iterations, and of one K3 block at 3,328 items (device-bound)
+   against a CUDA-event median (min and mean at least 0.95x; the host
+   clock unfenced beside it), and ``device_memory_stats`` against
+   torch's allocator; (c) ``scripts.generate_data`` renders a generation
+   list (the 12 training CADs and 4 validation CADs of 612 listed, in one
+   ``--start``/``--end`` block) through a ``blenderproc`` stand-in that
+   writes its 652 PNGs an object, and ``cli.train`` takes 3 bf16 steps at
+   B=16 on the tree with the thread loader; (d) where grain imports, its
+   first batch (shuffling off) against the thread loader's and the same 3
+   steps with ``machine.loader=grain``.
+
 Phases run in the order 1 to 6, so phases 4 and 5 time the serving
 path and the kernels in a process that holds only phase 3's modules
 (more live modules slow the host's side of each call); then 4b times the evaluation program (images/s of both
@@ -183,7 +200,7 @@ protocols, ``estimate_many``), 4c refinement (one refine step split into
 kernels forward, backward and its plain recompute; refined ``estimate``
 at B=8 against the unrefined call; a refined eval batch), 5b profiles
 one full-protocol eval step and one refined ``estimate``, and phases 7
-and 8, then 9, 10, 11 and 12, run.  The last two lines are the kernel table (``ms`` with the host
+and 8, then 9, 10, 11, 12 and 13, run.  The last two lines are the kernel table (``ms`` with the host
 in the loop, ``device_ms`` on the device alone, ``launches`` of phase 3,
 ``eval_launches`` of phase 6 (a), ``refine_launches`` of one refined
 ``estimate`` in phase 7 (c), ``cli_launches`` of phase 8's two bf16 CLI
@@ -191,7 +208,8 @@ runs (fast and full protocol), ``train_launches`` and
 ``train_recomputes`` of phase 9's uninterrupted CLI run,
 ``parallel_launches`` of phase 10 (a) and (b) (both ranks),
 ``zoo_launches`` of phase 11 (b) by configuration, ``bop_launches``
-of phase 12's two CLI runs, for K3 ``tf32x3_launches`` (the blocks of
+of phase 12's two CLI runs, ``tools_launches`` of phase 13's traced
+calls (a) and its ``threads`` and ``grain`` training runs, for K3 ``tf32x3_launches`` (the blocks of
 phases 3, 6 (a) and 12's CLI runs that took the 3xTF32 route), for K2
 and K3 ``bop_fp32`` (phase 12's fp32 route times per U-Net forward at
 124 and 1,364 items; K3's also the CUDA-core route's, the plain
@@ -215,6 +233,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -315,6 +334,13 @@ BOP_HW = (540, 720)
 BOP_K = ((1075.65, 0.0, 367.07), (0.0, 1073.9, 247.72), (0.0, 0.0, 1.0))
 BOP_BOXES = ((60.0, 80.0, 100.0), (90.0, 50.0, 70.0))  # CAD extents, mm
 BOP_TRAIN_BATCH, OBJAVERSE_OBJECTS = 4, 2
+# the port's tools (phase 13): benchmark's iterations beside as many CUDA-event calls; a generation list
+# of 51 CADs in each of 12 training categories (the training split keeps one of each: 60 queries, 3
+# batches of 16) of which the 12 training and 4 validation CADs are rendered, at blenderproc_render.py's
+# 512 px; cli.train's steps on the generated tree, validation at the last
+GEN_BENCH_ITERS, GEN_CATEGORIES, GEN_PER_CATEGORY, GEN_VAL_OBJECTS, GEN_IMAGE, GEN_STEPS = 10, 12, 51, 4, 512, 3
+GEN_WORKERS = 8  # generate_data's worker processes: the card's host has 8 cores
+GEN_K3_ITEMS = 3328  # the K3 block that profiling.benchmark times device-bound: the fast protocol's 128 x 26
 
 
 def flagship_config():
@@ -2770,6 +2796,345 @@ def bop_phase(torch, dev, smi, counters, k3_calls, k2_calls, check, overrides=()
     return out
 
 
+# -- phase 13: the port's tools on the card ------------------------------------------------------
+
+
+def write_generation_list(save_dir, n_categories=GEN_CATEGORIES, val_objects=GEN_VAL_OBJECTS, seed=0):
+    """The inputs of ``generate_data --step generate_poses_and_images``: ``cad_paths.txt``,
+    ``cad_names.txt`` and ``obj_diameter.json`` for 51 CADs in each of the first ``n_categories``
+    training categories of ``data/shapenet.py``, whose training split keeps one CAD of each (the
+    category's cads[50:] of its seeded shuffle) and whose validation split the other 50.  The lines
+    are ordered so that the training CADs, then ``val_objects`` validation CADs, form one block
+    [start, end): ``--start``/``--end`` render only those.  The CAD paths name no file (the stand-in
+    renderer reads none).  Returns (start, end)."""
+    from nope_tpu_torch.data.categories import SHAPENET_CAT2ID, TRAIN_CATEGORIES
+    from nope_tpu_torch.data.shapenet import ShapeNetDataset
+    from nope_tpu_torch.utils.inout import save_json, write_txt
+
+    class Probe(ShapeNetDataset):  # a split's object ids, without images
+        def _load_metadata(self):
+            self.selected = self._selected_object_ids()
+            self.query_paths = []
+
+    root = Path(save_dir)
+    root.mkdir(parents=True, exist_ok=True)
+    cats = TRAIN_CATEGORIES[:n_categories]
+
+    def split_ids(order):
+        write_txt(str(root / "cad_names.txt"), [f"{SHAPENET_CAT2ID[c]}_gen{j:02d}" for c, j in order])
+        return [Probe(str(root), split=s).selected for s in ("training", "unseen_training")]
+
+    # a category's seeded shuffle depends only on how many CADs each category lists, so one probe of
+    # a layout in category blocks gives each training CAD's place j among its category's 51
+    blocks = [(c, j) for c in cats for j in range(GEN_PER_CATEGORY)]
+    place = {blocks[i][0]: blocks[i][1] for i in split_ids(blocks)[0]}
+    val = [c for c in cats if place[c] + 1 < GEN_PER_CATEGORY][:val_objects]
+    front = [(c, j) for c in cats for j in range(place[c])]
+    block = [(c, place[c]) for c in cats] + [(c, place[c] + 1) for c in val]
+    back = [(c, j) for c in cats for j in range(place[c] + 1, GEN_PER_CATEGORY) if (c, j) not in block]
+    order = front + block + back
+    start, end = len(front), len(front) + len(block)
+    train_ids, val_ids = split_ids(order)
+    if sorted(train_ids) != list(range(start, start + len(cats))) or not set(range(start + len(cats), end)) <= set(val_ids):
+        raise RuntimeError("the generation list's block is not the split's training and validation CADs")
+    rng = np.random.default_rng(seed)
+    names = [f"{SHAPENET_CAT2ID[c]}_gen{j:02d}" for c, j in order]
+    write_txt(str(root / "cad_paths.txt"),
+              [str(root / "shapenet" / n.split("_")[0] / n / "models" / "model_normalized.obj") for n in names])
+    save_json(str(root / "obj_diameter.json"), {n: float(d) for n, d in zip(names, rng.uniform(1.4, 2.0, len(names)))})
+    return start, end
+
+
+BLENDERPROC_STANDIN = '''#!{python}
+"""A stand-in for ``blenderproc run <script> <cad> <query.npy> <reference.npy> <templates.npy> <out_dir>``
+on a host without Blender: it writes the RGBA PNGs that nope_tpu_torch/scripts/blenderproc_render.py
+would, under its names ({{query,reference,templates}}_<i:06d>.png) and at its size, {px}x{px}: an
+alpha disc over colour cells seeded by the CAD path and shifted by the view's direction (8 azimuth x 4
+elevation bins).  One image is encoded a bin (the port's PNG writer); the other views of the bin are
+hard links to it."""
+import importlib.util
+import os
+import sys
+import zlib
+
+import numpy as np
+
+spec = importlib.util.spec_from_file_location("png", {png!r})
+png = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(png)
+verb, script, cad, query, reference, templates, out_dir = sys.argv[1:]
+PX = {px}
+palette = np.random.default_rng(zlib.crc32(cad.encode())).integers(0, 248, (8, 8, 3), dtype=np.uint8)
+yy, xx = np.mgrid[:PX, :PX]
+alpha = (((yy - PX / 2) ** 2 + (xx - PX / 2) ** 2 <= (0.35 * PX) ** 2) * 255).astype(np.uint8)
+os.makedirs(out_dir, exist_ok=True)
+first = {{}}
+for prefix, path in (("query", query), ("reference", reference), ("templates", templates)):
+    for i, pose in enumerate(np.load(path)):
+        x, y, z = -pose[:3, :3].T @ pose[:3, 3] / np.linalg.norm(pose[:3, 3])
+        view = (int((np.arctan2(y, x) + np.pi) / (2 * np.pi) * 8) % 8,
+                min(int((np.arcsin(np.clip(z, -1, 1)) + np.pi / 2) / np.pi * 4), 3))
+        out = os.path.join(out_dir, f"{{prefix}}_{{i:06d}}.png")
+        if os.path.exists(out):
+            os.remove(out)
+        if view in first:
+            os.link(first[view], out)
+            continue
+        cells = np.roll(np.roll(palette, view[0], axis=1), view[1], axis=0)
+        rgb = np.repeat(np.repeat(cells, PX // 8, 0), PX // 8, 1)
+        png.write_png(out, np.dstack([rgb, alpha]), level=1)
+        first[view] = out
+'''
+
+
+def write_blenderproc_standin(bin_dir, img_px=GEN_IMAGE):
+    """Write an executable ``blenderproc`` stand-in (``BLENDERPROC_STANDIN``) into ``bin_dir``: put the
+    directory first on ``PATH`` and ``generate_data`` runs it where it would run BlenderProc."""
+    path = Path(bin_dir) / "blenderproc"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(BLENDERPROC_STANDIN.format(python=sys.executable, px=img_px,
+                                               png=str(ROOT / "nope_tpu_torch" / "data" / "png.py")))
+    path.chmod(0o755)
+    return path
+
+
+def run_generate_data(save_dir, bin_dir, start, end, workers=8):
+    """``python -m nope_tpu_torch.scripts.generate_data --step generate_poses_and_images`` over
+    [start, end) of ``save_dir``'s lists, with ``bin_dir`` first on ``PATH``.  Returns the failed
+    renderings' lines."""
+    env = dict(os.environ, PATH=f"{bin_dir}{os.pathsep}{os.environ.get('PATH', '')}",
+               PYTHONPATH=os.pathsep.join([str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    out = subprocess.run([sys.executable, "-m", "nope_tpu_torch.scripts.generate_data", "--step",
+                          "generate_poses_and_images", "--save_dir", str(save_dir), "--start", str(start), "--end",
+                          str(end), "--num_workers", str(workers)], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    if out.returncode:
+        raise RuntimeError(f"generate_data failed ({out.returncode}): {out.stderr[-2000:]}")
+    return Path(save_dir, f"failed_renderings_{start}_{end}.txt").read_text().split()
+
+
+class _CountMissing:
+    """Inside the block, a root-logger filter that drops the readers' "missing object dir" warnings and
+    counts them (the validation split lists 50 CADs a category, and only a few are rendered)."""
+
+    def __init__(self):
+        self.count = 0
+
+    def __enter__(self):
+        logging.getLogger().addFilter(self)
+        return self
+
+    def __exit__(self, *exc):
+        logging.getLogger().removeFilter(self)
+
+    def filter(self, record):
+        if str(record.msg).startswith("missing object dir"):
+            self.count += 1
+            return False
+        return True
+
+
+def trace_kernels(log_dir):
+    """{kernel name: (launches, device ms)} of the one Chrome trace under ``log_dir``."""
+    traces = list(Path(log_dir).glob("*.pt.trace.json"))
+    if len(traces) != 1:
+        raise RuntimeError(f"phase 13 (a): expected one trace under {log_dir}, found {traces}")
+    kernels = {}
+    for e in json.loads(traces[0].read_text())["traceEvents"]:
+        if e.get("cat") == "kernel":
+            n, ms = kernels.get(e["name"], (0, 0.0))
+            kernels[e["name"]] = (n + 1, ms + e.get("dur", 0) / 1e3)
+    return kernels
+
+
+def tools_phase(torch, dev, smi, counters, phase9_step_ms):
+    """Phase 13: the port's tools on the card.  (a) ``utils.profiling.trace`` of one
+    ``register_object`` and one ``estimate`` (B=8) of a seeded flagship ``PoseEstimator`` (bf16, N=26):
+    its trace must name kernels of K1, K2 and K3, and the launch counts match an untraced run; (b)
+    ``profiling.benchmark`` of the same calls against the CUDA events of its iterations, and of one
+    device-bound K3 block against a CUDA-event median; ``device_memory_stats`` against torch's allocator; (c) ``scripts.generate_data`` renders a generation list through a
+    ``blenderproc`` stand-in and ``cli.train`` takes 3 steps on the tree with the thread loader; (d) the
+    same with the grain loader, where grain imports.  Returns the launches of (a), (c) and (d)."""
+    import importlib.util
+    import tempfile
+
+    from nope_tpu_torch.cli import train as train_cli
+    from nope_tpu_torch.data.pipeline import DataLoader
+    from nope_tpu_torch.data.shapenet import ShapeNetDataset
+    from nope_tpu_torch.models.factory import build_task
+    from nope_tpu_torch.ops import fused_resnet as fr
+    from nope_tpu_torch.serving import PoseEstimator
+    from nope_tpu_torch.tasks.pose_conditional import PoseConditionalTask
+    from nope_tpu_torch.utils import profiling
+
+    print(f"phase 13: the port's tools on the card (full width, seeded weights) [{smi}]")
+    t_phase = time.perf_counter()
+    out = {}
+
+    def run(label, fn):
+        for c in counters:
+            c.launches = 0
+        result = fn()
+        torch.cuda.synchronize()
+        got = {c.__name__: c.launches for c in counters}
+        out[label] = got
+        return result, got
+
+    # (a) the profiler's trace of the serving path
+    task32 = build_task(flagship_config(), dev, torch.Generator().manual_seed(13))
+    task = PoseConditionalTask(task32.unet, task32.vae, dataclasses.replace(task32.config, half_precision_eval=True))
+    est = PoseEstimator(task, fast_evaluation=True)
+    rng = np.random.default_rng(13)
+    ref_image = rng.uniform(-1, 1, (IMAGE, IMAGE, 3)).astype(np.float32)
+    queries = rng.integers(0, 256, (QUERIES, IMAGE, IMAGE, 3), dtype=np.uint8)
+
+    def calls():
+        est.register_object("object", ref_image)
+        return est.estimate("object", queries)
+
+    calls()  # warm-up: K3's weight packs, cuDNN's plans
+    with tempfile.TemporaryDirectory(prefix="nope_trace_") as log_dir:
+        with profiling.trace(log_dir):
+            _, traced = run("a", calls)
+        kernels = trace_kernels(log_dir)
+    result, untraced = run("a untraced", calls)
+    del out["a untraced"]
+    named = {k: {n: v for n, v in kernels.items() if any(s in n for s in names)}
+             for k, names in (("K1", K1_KERNELS), ("K2", K2_KERNELS), ("K3", K3_KERNELS))}
+    ok = (all(named.values()) and traced == untraced and all(traced.values())
+          and result.nearest_idx.shape == (QUERIES, 5) and np.isfinite(result.similarity).all())
+    print(f"  (a) profiling.trace of register_object + estimate (bf16, N={FAST_N}, B={QUERIES}): one .pt.trace.json, "
+          f"{len(kernels)} kernel names, {sum(n for n, _ in kernels.values())} launches, "
+          + ", ".join(f"{k} {sum(n for n, _ in v.values())} launches {sum(ms for _, ms in v.values()):.3f} ms "
+                      f"({', '.join(s for s in names if any(s in n for n in v))})"
+                      for (k, v), names in zip(named.items(), (K1_KERNELS, K2_KERNELS, K3_KERNELS)))
+          + f"; op counters traced {traced} vs untraced {untraced} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("phase 13 (a): the trace misses a kernel, or the traced run launched other counts")
+
+    # (b) benchmark's host clock, fenced, against CUDA events.  The serving calls are host-bound and their
+    # times spread (min to median ~20% on the card), so each is held to the events around its own
+    # iterations; the min-against-median test is made on one K3 block at the eval program's 3,328 items,
+    # which returns a CUDA tensor and is device-bound: there a timer that does not fence reads far lower
+    spans = []
+
+    def evented(fn):
+        def call():
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            spans.append((start, end))
+            return out
+        return call
+
+    stats = profiling.benchmark(evented(calls), iters=GEN_BENCH_ITERS, warmup=1)
+    torch.cuda.synchronize()
+    own = [a.elapsed_time(b) for a, b in spans[1:]]
+    event_ms = median_ms(torch, calls, reps=GEN_BENCH_ITERS)
+    shape = (LATENT, LATENT, 192, 192, False, True, 8)  # the U-Net's first block: 32x32, 192 -> 192
+    x, emb, params = k3_inputs(torch, shape, GEN_K3_ITEMS, dev, torch.bfloat16,
+                               torch.Generator(device=dev).manual_seed(13))
+    block = lambda: fr.resnet_block(x, emb, params)  # noqa: E731
+    k3_stats = profiling.benchmark(block, iters=GEN_BENCH_ITERS, warmup=1)
+    k3_event = median_ms(torch, block, reps=GEN_BENCH_ITERS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GEN_BENCH_ITERS):
+        block()
+    unfenced = 1e3 * (time.perf_counter() - t0) / GEN_BENCH_ITERS
+    torch.cuda.synchronize()
+    del x, emb, params
+    mem = profiling.device_memory_stats()
+    now, peak = torch.cuda.memory_allocated(0), torch.cuda.max_memory_allocated(0)
+    ok = (stats["min_s"] * 1e3 >= 0.95 * min(own) and stats["mean_s"] * 1e3 >= 0.95 * float(np.mean(own))
+          and k3_stats["min_s"] * 1e3 >= 0.95 * k3_event
+          and set(mem) == {f"cuda:{i}" for i in range(torch.cuda.device_count())}
+          and mem["cuda:0"] == {"bytes_in_use": now, "peak_bytes_in_use": peak})
+    print(f"  (b) profiling.benchmark of the same calls, {GEN_BENCH_ITERS} iters: mean {1e3 * stats['mean_s']:.2f} ms, "
+          f"min {1e3 * stats['min_s']:.2f} ms, max {1e3 * stats['max_s']:.2f} ms; CUDA events around those iterations: "
+          f"mean {np.mean(own):.2f}, min {min(own):.2f} ms (benchmark's mean and min must be >= 0.95x: "
+          f"{stats['mean_s'] * 1e3 / np.mean(own):.3f}, {stats['min_s'] * 1e3 / min(own):.3f}); phase 4's kind of "
+          f"CUDA-event median of {GEN_BENCH_ITERS} calls {event_ms:.2f} ms (min / median "
+          f"{stats['min_s'] * 1e3 / event_ms:.3f}) [{smi}]")
+    print(f"      one K3 block, bf16, {GEN_K3_ITEMS} items of {LATENT}x{LATENT}x192 -> 192: benchmark mean "
+          f"{1e3 * k3_stats['mean_s']:.3f} ms, min {1e3 * k3_stats['min_s']:.3f} ms; CUDA-event median "
+          f"{k3_event:.3f} ms (min must be >= 0.95x: {k3_stats['min_s'] * 1e3 / k3_event:.3f}); the host clock "
+          f"without a fence {unfenced:.3f} ms a call [{smi}]")
+    print(f"      device_memory_stats() {mem} vs memory_allocated {now}, max_memory_allocated {peak} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("phase 13 (b): the benchmark reads below the device time, or the memory stats disagree")
+    del est, task, task32, result
+    torch.cuda.empty_cache()
+
+    # (c) generated data, trained on
+    with tempfile.TemporaryDirectory(prefix="nope_gen_") as tmp, _CountMissing() as missing:
+        tmp = Path(tmp)
+        root = tmp / "shapenet_gen"
+        start, end = write_generation_list(root, GEN_CATEGORIES, GEN_VAL_OBJECTS)
+        write_blenderproc_standin(tmp / "bin", GEN_IMAGE)
+        t0 = time.perf_counter()
+        failed = run_generate_data(root, tmp / "bin", start, end, GEN_WORKERS)
+        gen_s = time.perf_counter() - t0
+        pngs = [len(list((root / "images" / f"obj_{i:06d}").glob("*.png"))) for i in range(start, end)]
+        print(f"  (c) generate_data --step generate_poses_and_images over objects [{start}, {end}) of "
+              f"{len(open(root / 'cad_names.txt').read().split())} listed ({GEN_CATEGORIES} training CADs, "
+              f"{GEN_VAL_OBJECTS} validation CADs), blenderproc stand-in at {GEN_IMAGE} px: {gen_s:.2f} s; PNGs an "
+              f"object {sorted(set(pngs))}; failed_renderings_{start}_{end}.txt {'empty' if not failed else failed}")
+        if failed or pngs != [652] * (end - start):
+            raise RuntimeError("phase 13 (c): generate_data failed to render the list")
+
+        def train(loader, workers):
+            save = tmp / f"run_{loader}"
+            _, launches = run(loader, lambda: train_cli.main([
+                "--max-steps", str(GEN_STEPS), f"data.datasets.shapeNet.root_dir={root}",
+                "model.optim_config.half_precision_train=true", f"machine.batch_size={TRAIN_BATCH}",
+                f"machine.loader={loader}", f"machine.num_workers={workers}",
+                f"trainer.checkpoint_every_n_steps={GEN_STEPS}", "trainer.keep_checkpoints=1",
+                f"trainer.val_check_interval={GEN_STEPS}", "trainer.media_every_n_steps=0",
+                "trainer.num_sanity_val_steps=0", "trainer.log_every_n_steps=1", "name_exp=gen", f"save_dir={save}"]))
+            rec = [json.loads(x) for x in open(save / "gen" / "metrics.jsonl")]
+            losses = [r["loss/train_avg"] for r in rec if "loss/train_avg" in r]
+            rates = [r["steps_per_sec"] for r in rec if "steps_per_sec" in r and r["step"] > 1]
+            step_ms = 1000 / float(np.median(rates))
+            val = [r for r in rec if any(k.startswith("val") for k in r)]
+            ok = (len(losses) == GEN_STEPS and all(np.isfinite(losses)) and len(val) == 1
+                  and all(launches[c.__name__] for c in counters))
+            print(f"      cli.train machine.loader={loader} num_workers={workers}, bf16, B={TRAIN_BATCH}: losses "
+                  f"{[round(x, 5) for x in losses]}, validation at step {GEN_STEPS}: {'yes' if val else 'MISSING'}; "
+                  f"{step_ms:.2f} ms a step (median of steps 2-{GEN_STEPS}, host clock); the card waits on the host "
+                  f"1 - {phase9_step_ms:.2f} / {step_ms:.2f} ms (phase 9 (d)'s step) = "
+                  f"{100 * max(0.0, 1 - phase9_step_ms / step_ms):.1f}%; launches {launches} "
+                  f"{'ok' if ok else 'FAIL'} [{smi}]")
+            if not ok:
+                raise RuntimeError(f"phase 13: cli.train on the generated tree with machine.loader={loader} failed")
+
+        train("threads", 4)
+
+        # (d) grain
+        has_grain = importlib.util.find_spec("grain") is not None
+        print(f"  (d) grain {'imports' if has_grain else 'does not import'} on this host")
+        if has_grain:
+            # grain imports jax and orbax where they are installed: hidden while it runs here, as this
+            # script imports no JAX (grain's worker processes are its own)
+            with hidden("jax", "orbax"):
+                from nope_tpu_torch.data.grain_pipeline import GrainLoader
+
+                ds = ShapeNetDataset(str(root), split="training", img_size=IMAGE)
+                a = next(iter(DataLoader(ds, TRAIN_BATCH, shuffle=False, num_workers=4)))
+                b = next(iter(GrainLoader(ds, TRAIN_BATCH, shuffle=False, num_workers=2, shard_by_process=False)))
+                same = a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+                print(f"      first batch, shuffling off: GrainLoader(num_workers=2) "
+                      f"{'equals' if same else 'DIFFERS from'} the thread loader's ({sorted(a)})")
+                if not same:
+                    raise RuntimeError("phase 13 (d): the grain loader's first batch differs from the thread loader's")
+                train("grain", 2)
+        print(f"      the readers' \"missing object dir\" warnings for the unrendered validation CADs: {missing.count}")
+    print(f"  phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 @contextlib.contextmanager
 def hidden(*names):
     """Imports of ``names`` raise ImportError inside the block, as on a host
@@ -3214,6 +3579,9 @@ def main() -> int:
     # -- phase 12: the BOP / T-LESS path ---------------------------------------------------
     bop = bop_phase(torch, dev, smi, counters, k3_calls, k2_calls, check)
 
+    # -- phase 13: the port's tools ------------------------------------------------------------------
+    tools = tools_phase(torch, dev, smi, counters, tr["timings"]["step_ms"])
+
     table = [
         ("reference_similarity", "K1", "nope_tpu_torch/csrc/similarity.cu",
          "nope_tpu/ops/experimental/pallas_similarity.py:29", sim.reference_similarity),
@@ -3235,6 +3603,7 @@ def main() -> int:
          "parallel_launches": {"a": par["a"][fn.__name__], "b": par["b"][fn.__name__]},
          "zoo_launches": {name: zoo[name][fn.__name__] for name in ZOO_EVAL},
          "bop_launches": bop["launches"][fn.__name__],
+         "tools_launches": {part: tools[part][fn.__name__] for part in tools},
          **({"tf32x3_launches": {"serve": serve_tf32x3, "eval": ev["tf32x3_launches"], "bop": bop["tf32x3_launches"]}}
             if k == "K3" else {}),
          **({"bop_fp32": {str(items): t for items, t in bop["times"][k].items()}} if k in bop["times"] else {}),

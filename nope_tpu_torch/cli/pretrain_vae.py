@@ -71,7 +71,7 @@ def main(argv=None):
     mesh = create_mesh(data=cfg.machine.mesh_data, template=cfg.machine.mesh_template)
     vae = build_vae(cfg.model.encoder, torch.Generator().manual_seed(cfg.trainer.seed), device)
     loaders = build_train_loaders(cfg)
-    if mesh.data > 1:
+    if mesh.size > 1:  # the rank's part of the global batch (Trainer's rule)
         for loader in loaders.values():
             loader.shard(mesh.index(DATA_AXIS), mesh.data)
     combined = CombinedLoader(loaders)

@@ -1,9 +1,8 @@
 """DatasetConfig → dataset and loader construction
-(``nope_tpu/data/builder.py``) on the thread loader: ShapeNet, Objaverse,
-the BOP readers (``tless``/``bop``) and the ``bop_texture`` group of BOP
-sets.  The ``grain`` loader is not ported (ROADMAP "Not ported": the
-thread loader does the same job) and raises ``NotImplementedError``
-naming that.
+(``nope_tpu/data/builder.py``): ShapeNet, Objaverse, the BOP readers
+(``tless``/``bop``) and the ``bop_texture`` group of BOP sets, on the
+thread loader (``machine.loader=threads``) or the grain loader
+(``machine.loader=grain``, :mod:`nope_tpu_torch.data.grain_pipeline`).
 """
 
 from __future__ import annotations
@@ -82,16 +81,6 @@ def build_bop_texture_group(cfg: ExperimentConfig, group: DatasetConfig) -> Conc
     return ConcatDataset(datasets)
 
 
-def _check_loader_kind(cfg: ExperimentConfig) -> None:
-    loader_kind = getattr(cfg.machine, "loader", "threads")
-    if loader_kind not in ("threads", "grain"):
-        # fail fast: a typo here would silently fall back to another loader
-        raise ValueError(f"machine.loader={loader_kind!r}: expected 'threads' or 'grain'")
-    if loader_kind == "grain":
-        raise NotImplementedError(
-            "machine.loader='grain' is not ported (ROADMAP 'Not ported'); use machine.loader=threads")
-
-
 def build_train_loaders(cfg: ExperimentConfig) -> Dict[str, DataLoader]:
     """Training loaders for each name in cfg.train_data_name, with the
     reference's split fixups (train.py:64-121)."""
@@ -109,8 +98,14 @@ def build_train_loaders(cfg: ExperimentConfig) -> Dict[str, DataLoader]:
             dataset = build_bop_texture_group(cfg, ds_cfg)
         else:
             dataset = build_dataset(ds_cfg)
-        _check_loader_kind(cfg)
-        collate_fn = None
+        loader_kind = getattr(cfg.machine, "loader", "threads")
+        if loader_kind not in ("threads", "grain"):
+            # fail fast: a typo here would silently fall back to the thread
+            # loader (no record shard per rank), so every rank would read
+            # the whole dataset
+            raise ValueError(f"machine.loader={loader_kind!r}: expected 'threads' or 'grain'")
+        use_grain = loader_kind == "grain"
+        collate_fn = post_batch_fn = None
         if ds_cfg.native_preprocess and getattr(ds_cfg, "wire_dtype", "float32") == "uint8":
             # the C++ fused path bakes normalization into its output;
             # the uint8 wire wants it deferred to the device
@@ -120,15 +115,34 @@ def build_train_loaders(cfg: ExperimentConfig) -> Dict[str, DataLoader]:
             )
         if ds_cfg.native_preprocess and name == "shapeNet":
             dataset = NativeCollateView(dataset)
-            collate_fn = make_native_collate(ds_cfg.img_size)
+            if use_grain:
+                from nope_tpu_torch.data.grain_pipeline import make_native_post_batch
+
+                post_batch_fn = make_native_post_batch(ds_cfg.img_size)
+            else:
+                collate_fn = make_native_collate(ds_cfg.img_size)
             logging.info("native fused preprocessing enabled for %s", name)
-        loaders[name] = DataLoader(
-            dataset,
-            batch_size=cfg.machine.batch_size,
-            shuffle=True,
-            num_workers=cfg.machine.num_workers,
-            collate_fn=collate_fn,
-        )
+        if use_grain:
+            from nope_tpu_torch.data.grain_pipeline import GrainLoader
+
+            # machine.batch_size is the step's global batch on either loader
+            # (GrainLoader's docstring)
+            loaders[name] = GrainLoader(
+                dataset,
+                batch_size=cfg.machine.batch_size,
+                shuffle=True,
+                num_workers=cfg.machine.num_workers,
+                shard_by_process=True,
+                post_batch_fn=post_batch_fn,
+            )
+        else:
+            loaders[name] = DataLoader(
+                dataset,
+                batch_size=cfg.machine.batch_size,
+                shuffle=True,
+                num_workers=cfg.machine.num_workers,
+                collate_fn=collate_fn,
+            )
         logging.info("train loader %s: %d batches", name, len(loaders[name]))
     return loaders
 

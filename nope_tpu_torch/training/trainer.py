@@ -131,8 +131,8 @@ class _NoLogger:
 class Trainer:
     """The JAX package's ``Trainer``: the task's modules (their device is
     the rank's) are the train state's.  ``train_loaders`` are
-    ``DataLoader``s of the global batch; on a data axis of more than one
-    rank each is told to load the rank's slice."""
+    ``DataLoader``s or ``GrainLoader``s of the global batch; with more
+    than one rank each is told to load the rank's slice."""
 
     def __init__(
         self,
@@ -147,7 +147,10 @@ class Trainer:
         self.device = task.device
         self.mesh = create_mesh(data=cfg.machine.mesh_data, template=cfg.machine.mesh_template)
         self.rank = process_index()
-        if self.mesh.data > 1:
+        if self.mesh.size > 1:
+            # each loader reads the rank's part of the global batch (a whole
+            # batch on a data axis of 1; a grain loader left alone would read
+            # a record shard per rank)
             for loader in train_loaders.values():
                 loader.shard(self.mesh.index(DATA_AXIS), self.mesh.data)
         self.combined = CombinedLoader(train_loaders)

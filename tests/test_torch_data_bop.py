@@ -293,9 +293,12 @@ def test_builder_branches(mini_bop, tmp_path):
     cfg, _ = _configs(mini_bop, obj_root, members, ["train_data_name=tless", "data.datasets.tless.split=",
                                                     f"data.datasets.tless.root_dir={members['hb']}"])
     assert builder.build_train_loaders(cfg)["tless"].dataset.split == "train_pbr"
-    cfg, _ = _configs(mini_bop, obj_root, members, ["train_data_name=objaverse", "machine.loader=grain"])
-    with pytest.raises(NotImplementedError, match="Not ported"):
-        builder.build_train_loaders(cfg)
+    cfg, jcfg = _configs(mini_bop, obj_root, members, ["train_data_name=objaverse", "machine.loader=grain"])
+    from nope_tpu_torch.data.grain_pipeline import GrainLoader
+
+    got, want = builder.build_train_loaders(cfg)["objaverse"], jax_builder.build_train_loaders(jcfg)["objaverse"]
+    assert isinstance(got, GrainLoader) and type(want).__name__ == "GrainLoader"
+    assert len(got) == len(want) > 0
 
 
 def test_detect_train_split(tmp_path):

@@ -163,13 +163,20 @@ def test_builder_shapenet_and_the_paths_that_wait(tmp_path):
                                          "data.datasets.shapeNet.wire_dtype=uint8"))
     with pytest.raises(ValueError, match="expected 'threads' or 'grain'"):
         builder.build_train_loaders(_cfg(root, "machine.loader=thread"))
-    with pytest.raises(NotImplementedError, match="Not ported"):
-        builder.build_train_loaders(_cfg(root, "machine.loader=grain"))
+    # machine.loader=grain: the port's GrainLoader, as long as the JAX builder's for the same config
+    from nope_tpu.configs import load_config as jax_load_config
+    from nope_tpu.data import builder as jax_builder
+    from nope_tpu_torch.data.grain_pipeline import GrainLoader
+
+    grain_ov = [f"data.datasets.shapeNet.root_dir={train_root}", "data.datasets.shapeNet.img_size=32",
+                "machine.batch_size=2", "machine.num_workers=2", "machine.loader=grain"]
+    grain = builder.build_train_loaders(load_config(None, grain_ov))["shapeNet"]
+    jax_grain = jax_builder.build_train_loaders(jax_load_config(None, grain_ov))["shapeNet"]
+    assert isinstance(grain, GrainLoader) and type(jax_grain).__name__ == "GrainLoader"
+    assert len(grain) == len(jax_grain) == 1 and grain.num_workers == 2 and grain.dataset.split == "training"
     # the Objaverse and BOP branches (tests/test_torch_data_bop.py) refuse this ShapeNet root as the
     # JAX builder does: no object with 10 renders and a group without members make no batch; no
     # single train split to detect
-    from nope_tpu.configs import load_config as jax_load_config
-    from nope_tpu.data import builder as jax_builder
 
     for names, expect in ((("objaverse", "bop_texture"), "yields 0 batches"),
                           (("tless", "bop"), "exactly one train/val split")):

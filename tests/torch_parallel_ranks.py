@@ -33,7 +33,8 @@ FP32 = TaskConfig(half_precision_eval=False)
 
 def foreign_modules():
     """The modules of this process that the port must never import."""
-    return sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "nope_tpu"))
+    return sorted(m for m, v in sys.modules.items()
+                  if v is not None and m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "nope_tpu"))
 
 
 def join(rank, world, init_method):
@@ -174,3 +175,58 @@ def train_cli_rank(rank, world, init_method, runs):
             process_barrier("copied")
             out.append(None)
     return {"runs": out, "foreign": foreign_modules()}
+
+
+GRAIN_RECORDS, GRAIN_BATCH, GRAIN_STEPS = 32, 8, 2  # GrainPairs' records
+GRAIN_TINY = ["model.img_size=32", "model.u_net.u_net_dim=8", "model.u_net.dim_mults=1,2",
+              "model.u_net.resnet_block_groups=4", "model.encoder.block_out_channels=8,8,8,8",
+              "model.encoder.layers_per_block=1", "model.encoder.norm_groups=4",
+              "model.optim_config.warm_up_steps=2", "trainer.num_sanity_val_steps=0",
+              "trainer.media_every_n_steps=0", "trainer.log_every_n_steps=1",
+              "trainer.checkpoint_every_n_steps=100", f"machine.batch_size={GRAIN_BATCH}"]
+
+
+def grain_fit(save_dir, loader, overrides=()):
+    """A tiny ``Trainer.fit`` of ``GRAIN_STEPS`` steps over ``loader``;
+    returns (loss per step, flat weights)."""
+    import json
+
+    from nope_tpu_torch.configs import load_config
+    from nope_tpu_torch.models.factory import build_task
+    from nope_tpu_torch.training.trainer import Trainer
+
+    cfg = load_config(None, GRAIN_TINY + [f"save_dir={save_dir}", "name_exp=run", *overrides])
+    task = build_task(cfg.model, torch.device("cpu"), torch.Generator().manual_seed(cfg.trainer.seed))
+    trainer = Trainer(cfg, task, {"pairs": loader})
+    state = trainer.fit(trainer.init_state(resume=False), max_steps=GRAIN_STEPS)
+    trainer.logger.close()
+    losses = None
+    if os.path.exists(os.path.join(cfg.save_dir, "metrics.jsonl")):
+        with open(os.path.join(cfg.save_dir, "metrics.jsonl")) as f:
+            losses = [r["loss/train_avg"] for r in map(json.loads, f) if "loss/train_avg" in r]
+    return losses, flat_params(state.unet), len(trainer.combined)
+
+
+def grain_rank(rank, world, init_method, workdir):
+    """One rank of 2: the ``GrainLoader`` alone (a record shard per rank,
+    batches of its batch size, 2 worker processes), then under the
+    data-parallel ``Trainer`` (``machine.batch_size`` the step's global
+    batch: ``GRAIN_BATCH / world`` records a rank a step)."""
+    # grain imports jax and orbax where they are installed; the port's grain path needs neither
+    sys.modules["jax"] = sys.modules["orbax"] = None
+    from nope_tpu_torch.data.grain_pipeline import GrainLoader
+    from tests.grain_datasets import GrainPairs
+
+    join(rank, world, init_method)
+    alone = GrainLoader(GrainPairs(), batch_size=4, num_workers=2, seed=11)
+    alone_ids = [b["_idx"].tolist() for b in alone]
+    fetched = []
+
+    def log_ids(batch):
+        fetched.append(batch.pop("_idx").tolist())
+        return batch
+
+    loader = GrainLoader(GrainPairs(), batch_size=GRAIN_BATCH, seed=11, post_batch_fn=log_ids)
+    losses, params, steps = grain_fit(os.path.join(workdir, f"rank{rank}"), loader, ["machine.mesh_data=2"])
+    return {"alone": alone_ids, "alone_len": len(alone), "fetched": fetched, "losses": losses, "params": params,
+            "steps_per_epoch": steps, "foreign": foreign_modules()}

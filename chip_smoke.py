@@ -235,6 +235,7 @@ import dataclasses
 import json
 import logging
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -254,6 +255,14 @@ TOL = {"float32": {"K1": 1e-5, "K2": 1e-5, "K3": 1e-4}, "bfloat16": {"K1": 1e-5,
 CPU_SIM_RTOL = 1e-3
 FAST_N, FULL_N, QUERIES, REQUESTS = 26, 341, 8, 3
 K3_BATCHES = (3, FAST_N, FULL_N)
+# K3 blocks at GroupNorm widths beside the flagship's 8 groups, as
+# record_shapes records a block (H, W, Cin, Co, residual, emb, groups):
+# 32 groups of 256 channels (24 in the first N tile) and 64 of 768 (12
+# channels, across 8-column blocks) take the bf16 conv's staged epilogue;
+# 8 of 256 (6 groups, then 2 in the last 64 columns) and 32 of 768 (8 in
+# an N tile) its register epilogue, at 108 K-slices
+K3_GROUP_SHAPES = ((8, 8, 768, 256, True, True, 32), (4, 4, 768, 768, False, True, 64),
+                   (8, 8, 768, 256, True, False, 8), (4, 4, 768, 768, False, True, 32))
 # K2 items: a ragged batch, the N=26 and the N=341 registration batches
 K2_ITEMS = (3, FAST_N, FULL_N)
 # K1 (B, N, bank lead): a B=64 request, the serving requests (one object's
@@ -548,9 +557,39 @@ def k3_library(torch, F, x, params):
 
 
 K3_KERNELS = ("conv_wgmma", "splitk_reduce", "gn_finalize", "gn_silu")  # K3 on the tensor cores
-K3_TF32X3_KERNELS = ("conv_wgmma_kernel<float",)  # of those, the float32 route's conv (3xTF32)
+K3_TF32X3_KERNELS = ("conv_wgmma_kernel<",)  # of those, the float32 route's conv (3xTF32)
 K2_KERNELS = ("la_chunk_kernel", "la_merge_kernel", "la_output_kernel")
 K1_KERNELS = ("similarity_kernel", "reduce_splits_kernel")
+
+
+def k3_kernel_split(torch, fr, k3_calls, items, dev, gen):
+    """K3's device time over the 22 blocks of one U-Net forward at
+    ``items`` items, by kernel, from a ``utils.profiling.trace`` window
+    (after one untraced forward)."""
+    from nope_tpu_torch.utils import profiling
+
+    inputs = {shape: k3_inputs(torch, shape, items, dev, torch.bfloat16, gen) for shape in set(k3_calls)}
+
+    def forward():
+        for shape in k3_calls:
+            x, emb, params = inputs[shape]
+            fr.resnet_block(x, emb, params, shape[6])
+
+    log_dir = ROOT / "build" / "chip_smoke" / "k3_trace"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    forward()
+    with profiling.trace(str(log_dir)):
+        forward()
+    kernels = trace_kernels(log_dir)
+    split = {k: (sum(n for name, (n, _) in kernels.items() if k in name),
+                 sum(ms for name, (_, ms) in kernels.items() if k in name)) for k in K3_KERNELS}
+    total = sum(ms for _, ms in split.values())
+    print(f"  K3 the 22 blocks at B={items} bfloat16 on the device by kernel (utils.profiling.trace): "
+          + ", ".join(f"{k} {ms:.3f} ms x{n} ({100 * ms / total:.1f}%)" for k, (n, ms) in split.items())
+          + f"; {total:.3f} ms in all")
+    del inputs
+    torch.cuda.empty_cache()
+    return split
 
 
 def profile_window(torch, label, fn, top=6, ranges=()):
@@ -2938,7 +2977,7 @@ def trace_kernels(log_dir):
     """{kernel name: (launches, device ms)} of the one Chrome trace under ``log_dir``."""
     traces = list(Path(log_dir).glob("*.pt.trace.json"))
     if len(traces) != 1:
-        raise RuntimeError(f"phase 13 (a): expected one trace under {log_dir}, found {traces}")
+        raise RuntimeError(f"expected one trace under {log_dir}, found {traces}")
     kernels = {}
     for e in json.loads(traces[0].read_text())["traceEvents"]:
         if e.get("cat") == "kernel":
@@ -3256,11 +3295,11 @@ def main() -> int:
                     raise RuntimeError(f"K2 items={items} n={n} {dn}: two launches on the same inputs differ")
                 torch.cuda.synchronize()
         for batch in K3_BATCHES:
-            for shape in k3_shapes:
+            for shape in k3_shapes + list(K3_GROUP_SHAPES):
                 x, emb, params = k3_inputs(torch, shape, batch, dev, dtype, gen)
                 f32 = {k: v.float() for k, v in params.items()}
                 label = (f"B={batch} {shape[0]}x{shape[1]} {shape[2]}->{shape[3]} res={int(shape[4])} "
-                         f"emb={int(shape[5])}")
+                         f"emb={int(shape[5])}" + (f" G={shape[6]}" if shape in K3_GROUP_SHAPES else ""))
                 before = fr.resnet_block.tf32x3_launches
                 got = fr.resnet_block(x, emb, params, shape[6])
                 if dtype == torch.float32 and fr.resnet_block.tf32x3_launches != before + 1:
@@ -3285,9 +3324,9 @@ def main() -> int:
             raise RuntimeError(f"the 3xTF32 conv {side}x{side} {cin}->{co} {ks}x{ks}: two launches differ")
     torch.cuda.synchronize()
     # the evaluation program's U-Net batches, bf16: inputs up to 2.6 GB,
-    # drawn on the card; K3 at its 32x32 blocks, where M is largest
+    # drawn on the card; K3 at every block shape (its tiles hold whole image
+    # rows or whole samples, and a multi-sample tile may end past B)
     dgen = torch.Generator(device=dev).manual_seed(2)
-    big_k3 = [s for s in k3_shapes if s[0] == LATENT]
     for items in CHECK_ITEMS:
         for n in k2_tokens:
             qkv = 2 * torch.randn(items, n, 384, generator=dgen, device=dev).to(torch.bfloat16)
@@ -3296,7 +3335,7 @@ def main() -> int:
             if not torch.equal(got, la.linear_attention_inner(qkv, 4, 32)):
                 raise RuntimeError(f"K2 items={items} n={n} bfloat16: two launches on the same inputs differ")
             del qkv, got
-        for shape in big_k3:
+        for shape in k3_shapes:
             x, emb, params = k3_inputs(torch, shape, items, dev, torch.bfloat16, dgen)
             label = f"B={items} {shape[0]}x{shape[1]} {shape[2]}->{shape[3]} res={int(shape[4])} emb={int(shape[5])}"
             got = fr.resnet_block(x, emb, params, shape[6])
@@ -3339,9 +3378,10 @@ def main() -> int:
                 raise RuntimeError(f"K1 B={b} N={n} lead {lead} C={c} {dn}: two launches on the same inputs differ")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    print(f"  K3 bf16: two launches bitwise equal at all {len(k3_shapes) * len(K3_BATCHES) + len(big_k3) * len(CHECK_ITEMS)}"
-          f" (shape, batch); K3 fp32: every block ran the 3xTF32 route, two launches bitwise equal at all "
-          f"{len(k3_shapes) * len(K3_BATCHES)}, and the conv alone at {len(convs)} shapes")
+    print(f"  K3 bf16: two launches bitwise equal at all {len(k3_shapes) * (len(K3_BATCHES) + len(CHECK_ITEMS))}"
+          f" (shape, batch) and {len(K3_GROUP_SHAPES) * len(K3_BATCHES)} at other GroupNorm widths; K3 fp32: every "
+          f"block ran the 3xTF32 route, two launches bitwise equal at all "
+          f"{(len(k3_shapes) + len(K3_GROUP_SHAPES)) * len(K3_BATCHES)}, and the conv alone at {len(convs)} shapes")
     print(f"  K1 and K2, both dtypes: two launches bitwise equal at all {len(K1_SHAPES) + len(K1_CHANNELS)} and "
           f"{len(K2_ITEMS) * len(k2_tokens)} shapes; K2 bf16 also at {len(CHECK_ITEMS) * len(k2_tokens)}")
 
@@ -3479,7 +3519,7 @@ def main() -> int:
                   f"{fwd_k:.4f} ms (device alone {fwd_d:.4f}) plain {fwd_p:.4f} ms bound {fwd_b:.4f} ms share "
                   f"{100 * fwd_b / fwd_k:.1f}% (device alone {100 * fwd_b / fwd_d:.1f}%)")
         for batch in ((FAST_N, FULL_N) + EVAL_ITEMS if dtype == torch.bfloat16 else (FAST_N,)):
-            tot_k = tot_d = tot_p = tot_l = tot_h = 0.0
+            tot_k = tot_d = tot_p = tot_l = tot_ld = tot_h = 0.0
             work = [0.0, 0.0, 0.0]
             for shape in k3_shapes:
                 x, emb, params = k3_inputs(torch, shape, batch, dev, dtype, dgen if batch in EVAL_ITEMS else gen)
@@ -3489,6 +3529,7 @@ def main() -> int:
                 t_d = device_ms(torch, lambda: fr.resnet_block(x, emb, params, shape[6]), reps)
                 t_p = cuda_ms(torch, lambda: fr.resnet_block_plain(x, emb, params, shape[6]), reps, warmup=2)
                 t_l = cuda_ms(torch, k3_library(torch, F, x, params), reps, warmup=2)
+                t_ld = device_ms(torch, k3_library(torch, F, x, params), reps)
                 torch.cuda.synchronize()
                 h0 = time.perf_counter()  # the host's side alone: launches queue up
                 for _ in range(reps):
@@ -3498,20 +3539,26 @@ def main() -> int:
                 tc_ops, f32_ops, nbytes = k3_work(shape, batch)
                 work = [a + count * b for a, b in zip(work, (tc_ops, f32_ops, nbytes))]
                 tot_k, tot_p, tot_l = tot_k + count * t_k, tot_p + count * t_p, tot_l + count * t_l
-                tot_d, tot_h = tot_d + count * t_d, tot_h + count * t_h
+                tot_d, tot_ld, tot_h = tot_d + count * t_d, tot_ld + count * t_ld, tot_h + count * t_h
                 print(f"  K3 B={batch} {shape[0]:>2}x{shape[1]:<2} {shape[2]:>4}->{shape[3]:<4} res={int(shape[4])} "
                       f"emb={int(shape[5])} x{count} {dn:<8} kernel {t_k:8.3f} ms ({tc_ops / t_k / 1e9:6.1f} TFLOP/s; "
-                      f"device alone {t_d:8.3f} ms) "
-                      f"plain {t_p:8.3f} ms conv2d {t_l:8.3f} ms ({tc_ops / t_l / 1e9:6.1f} TFLOP/s) "
-                      f"host {t_h:6.3f} ms")
+                      f"device alone {t_d:8.3f} ms, {tc_ops / t_d / 1e9:6.1f} TFLOP/s) "
+                      f"plain {t_p:8.3f} ms conv2d {t_l:8.3f} ms (device alone {t_ld:8.3f} ms, "
+                      f"{tc_ops / t_ld / 1e9:6.1f} TFLOP/s) host {t_h:6.3f} ms")
             b3 = bound(*work) if dtype == torch.bfloat16 else k3_bound_fp32(work)[0]
             print(f"  K3 all 22 blocks of one U-Net forward at B={batch} {dn:<8} kernel {tot_k:8.3f} ms "
-                  f"(device alone {tot_d:.3f} ms) plain {tot_p:8.3f} ms conv2d {tot_l:8.3f} ms host {tot_h:.3f} ms; "
-                  f"{work[0] / 1e12:.3f} TFLOP of conv, bound {b3[0]:.3f} ms ({b3[1]}"
-                  f"{'' if dtype == torch.bfloat16 else ', 3xTF32'}), kernel at {100 * b3[0] / tot_k:.1f}% of it")
+                  f"(device alone {tot_d:.3f} ms) plain {tot_p:8.3f} ms conv2d {tot_l:8.3f} ms (device alone "
+                  f"{tot_ld:.3f} ms) host {tot_h:.3f} ms; {work[0] / 1e12:.3f} TFLOP of conv, bound {b3[0]:.3f} ms "
+                  f"({b3[1]}{'' if dtype == torch.bfloat16 else ', 3xTF32'}), kernel at {100 * b3[0] / tot_k:.1f}% "
+                  f"of it (device alone {100 * b3[0] / tot_d:.1f}%, conv2d device alone {100 * b3[0] / tot_ld:.1f}%)")
+            if dtype == torch.bfloat16 and tot_d > tot_ld:
+                print(f"  note: K3 bf16 at B={batch} on the device alone {tot_d:.3f} ms is slower than F.conv2d over "
+                      f"the same convs {tot_ld:.3f} ms")
             if batch == FAST_N:
                 kernel_ms.setdefault("K3", (tot_k, tot_p, tot_l, tot_d))
                 bounds.setdefault("K3", b3)
+        if dtype == torch.bfloat16:
+            k3_kernel_split(torch, fr, k3_calls, EVAL_ITEMS[1], dev, dgen)
     if kernel_ms["K3"][0] >= kernel_ms["K3"][1]:
         print(f"  note: K3 bf16 per forward {kernel_ms['K3'][0]:.3f} ms is not below its plain version "
               f"{kernel_ms['K3'][1]:.3f} ms")

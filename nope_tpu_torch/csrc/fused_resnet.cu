@@ -19,20 +19,55 @@
 //   conv_wgmma     implicit-GEMM conv, M = B*H*W pixels, N = Co, K =
 //                  ks*ks*Cin ordered (tap, ci), float32 accumulators.  A
 //                  K-slice is one tap and one 128-byte row of a shifted
-//                  NHWC pixel (64 bf16 or 32 float32 channels): every
-//                  thread gathers A rows by 16-byte cp.async, zero-filled
-//                  for the halo; one thread asks the TMA for the weight
-//                  tile.  Both land in a ring of 128-byte-swizzled slots
-//                  that runs ahead of the tensor cores.  Tiles of 64 or
-//                  192 rows (one warpgroup per 64) by 192 columns: the N
-//                  tile holds whole GroupNorm groups (cg in {24, 48, 96,
-//                  192}), so the epilogue adds the bias, stores the
-//                  float32 pre-norm output and writes per tile a partial
-//                  (count, mean, M2) for every (sample, group) it touches.
-//                  Few tiles (the 4x4 to 16x16 stages at small batch)
-//                  split K over blocks; splitk_reduce sums the splits in a
-//                  fixed order.  The 1x1 residual is the same kernel with
-//                  one tap;
+//                  NHWC pixel (64 bf16 or 32 float32 channels); both
+//                  operands land in a ring of 128-byte-swizzled slots,
+//                  the weight tile by TMA.  The N tile is 192 columns and
+//                  holds whole GroupNorm groups (cg in {24, 48, 96, 192}),
+//                  so the epilogue adds the bias, stores the float32
+//                  pre-norm output and writes per tile a partial (count,
+//                  mean, M2) for every (sample, group) it touches.  Few
+//                  tiles (the 4x4 to 16x16 stages at small batch) split K
+//                  over blocks; splitk_reduce sums the splits in a fixed
+//                  order.  The 1x1 residual is the same kernel with one
+//                  tap.  Two mainloops:
+//                  bf16 (conv_wgmma_tma): A by TMA too.  The activation is
+//                  a 4-D tiled tensor map (Cin, W, H, B); a tile of 64 or
+//                  128 rows holds whole image rows of one sample (32x32: 2
+//                  or 4 rows; 16x16: 4 or 8) or whole samples (8x8: 1 or
+//                  2; 4x4: 4 or 8), so its A rows for a tap are one box of
+//                  (64 channels, W, rows, samples) at the tap's shift, and
+//                  the box's zero fill outside the tensor is the conv's
+//                  padding (and the samples past B of a ragged last
+//                  tile).  The tiled map was chosen over TMA's im2col mode
+//                  because the flagship's tiles are such boxes and its
+//                  coordinates are plain (x, y, sample) shifts, checked on
+//                  the CPU against im2col.  A persistent grid, one block
+//                  an SM: one producer thread keeps a ring of K-slices of
+//                  A and B in flight across the block's tiles, each slot
+//                  with a full and an empty mbarrier; one or two consumer
+//                  warpgroups wait on full, issue the slice's wgmmas,
+//                  commit, wait until only that group is in flight
+//                  (wait_group 1) and release the previous slice's slot:
+//                  the tensor cores do not drain between slices and no
+//                  block-wide barrier stands in the mainloop.  Where the
+//                  tiles fill the card twice over, 2-CTA clusters take
+//                  neighbouring M tiles and multicast the weight tile,
+//                  half from each.  Two epilogues: an unsplit tile of
+//                  fewer than 96 K-slices stages its sums in shared memory
+//                  and goes on, while three finisher warps complete the
+//                  tile (finish_tile) beside a ring of 3-5; longer tiles
+//                  finish from their registers beside a ring of 5, where
+//                  each group is whole 8-column blocks and an N tile
+//                  holds at most 8 groups (other groups stage), and so do
+//                  split tiles, which store raw sums for splitk_reduce.  (A
+//                  256-row tile, two m64n192 products per consumer,
+//                  spilled its 192 accumulators a thread and ran 2.5-3.5x
+//                  slower: PERF.md.)
+//                  float32 (conv_wgmma, 3xTF32, below): every thread
+//                  gathers A rows by 16-byte cp.async, zero-filled for the
+//                  halo, then splits them; the block meets at a barrier
+//                  every K-slice and drains its wgmmas, as its running
+//                  totals need (tiles of 64 or 128 rows);
 //   gn_finalize    merges a (sample, group)'s partials in tile order with
 //                  Chan's formula (no E[x^2] - mean^2 cancellation) into
 //                  per-channel tables;
@@ -41,7 +76,11 @@
 //                  rounded as the TPU's MXU rounded its float32 scratch at
 //                  default precision; in float32 kept whole.
 //
-// bfloat16: wgmma m64n192k16 on bf16 operands (989 TFLOP/s).
+// bfloat16: wgmma m64n192k16 on bf16 operands (989 TFLOP/s).  Per K-slice a
+// 128 x 192 tile reads 40 KB from L2 for 3.1 MFLOP (77 operations a byte).
+// Beside the convs, the block moves its float32 pre-norm outputs through
+// device memory (written by the conv's epilogue, read by gn_silu): at 3,328
+// items gn_silu alone is ~16% of K3's device time (PERF.md).
 //
 // float32, 3xTF32 (Cin % 32 == 0, Co % 8 == 0, cg | 192): the same
 // kernel on tf32 operands, wgmma m64n192k8.  Each operand is split as
@@ -271,20 +310,28 @@ constexpr int kTileN = 192;               // N tile: whole groups for cg | 192
 constexpr int kRowBytes = 128;            // one swizzled smem row: one K-slice
 constexpr int kPitch = kTileN + 8;        // floats per row of the staged tile
 constexpr int kEpiThreads = 1024;
+constexpr int kSmemMax = 232448;          // shared memory a block may use (227 KB)
+constexpr int kRegGroups = 8;             // the most groups the register epilogue's N tile holds
+
+// The A-by-TMA conv's ring holds at most NOPE_CONV_RING K-slices (5 hides
+// the TMA's latency; scripts/k3_tiles.py builds other depths to sweep them)
+#ifndef NOPE_CONV_RING
+#define NOPE_CONV_RING 5
+#endif
 
 // A K-slice is one tap x kSlice channels (one 128-byte row); a wgmma step
-// reads 32 bytes of every row.  float32 operands arrive as kPlanes = 2
-// tf32 planes (hi, lo), so a stage holds A and B twice.
+// reads 32 bytes of every row.  (float32 operands arrive as two tf32
+// planes, hi and lo, so a 3xTF32 stage holds A and B twice.)
 template <typename T>
 struct Operand;
 template <>
 struct Operand<__nv_bfloat16> {
-  static constexpr int kSlice = 64, kPlanes = 1;
+  static constexpr int kSlice = 64;
   static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 };
 template <>
 struct Operand<float> {
-  static constexpr int kSlice = 32, kPlanes = 2;
+  static constexpr int kSlice = 32;
   static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
 };
 
@@ -370,18 +417,26 @@ __device__ __forceinline__ void wgmma_wait(float (&d)[96]) {
   for (int i = 0; i < 96; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// The epilogue of one (BM x 192) tile staged as float32 in shared memory
-// (row pitch kPitch, then 2 x 192 floats of scratch): add the bias, store
-// rows m0.. of `out` (M, Cout), and, when `part` is given, write the
-// tile's partial GroupNorm statistics: for every (sample, group) it
-// touches, (count, mean, M2) at part[((mt * G + g) * segmax + s) * 3],
-// s = sample - first sample of the tile.
+// `threads` threads of the block (a multiple of 32, from thread 0) meet at
+// named barrier 1: the A-by-TMA conv's epilogue runs without its producer
+// warpgroup, which has left
+__device__ __forceinline__ void sync_threads(int threads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
+}
+
+// The epilogue of one (bm x 192) tile staged as float32 in shared memory
+// (row pitch kPitch, then 2 x 192 floats of scratch), run by threads
+// 0 .. threads - 1: add the bias, store rows m0.. of `out` (M, Cout), and,
+// when `part` is given, write the tile's partial GroupNorm statistics: for
+// every (sample, group) it touches, (count, mean, M2) at
+// part[((mt * G + g) * segmax + s) * 3], s = sample - first sample of the tile.
 __device__ void finish_tile(float* stage, int bm, int mt, int n0, int M, int Cout, int HW,
                             int G, int segmax, const void* bias, int bdt,
-                            float* __restrict__ out, float* __restrict__ part) {
+                            float* __restrict__ out, float* __restrict__ part, int tid,
+                            int threads) {
   const int m0 = mt * bm;
   const int rows = min(bm, M - m0), cols = min(kTileN, Cout - n0);
-  for (int i = threadIdx.x; i < rows * (kTileN / 4); i += blockDim.x) {
+  for (int i = tid; i < rows * (kTileN / 4); i += threads) {
     const int r = i / (kTileN / 4), c = 4 * (i % (kTileN / 4));
     if (c >= cols) continue;
     float4 v = *reinterpret_cast<float4*>(&stage[r * kPitch + c]);
@@ -402,20 +457,20 @@ __device__ void finish_tile(float* stage, int bm, int mt, int n0, int M, int Cou
   for (int s = 0; s < nseg; ++s) {
     const int ra = max(m0, (b0 + s) * HW) - m0, rb = min(m0 + rows, (b0 + s + 1) * HW) - m0;
     const float n = static_cast<float>((rb - ra) * cg);
-    __syncthreads();
-    for (int c = threadIdx.x; c < cols; c += blockDim.x) {
+    sync_threads(threads);
+    for (int c = tid; c < cols; c += threads) {
       float a = 0.f;
       for (int r = ra; r < rb; ++r) a += stage[r * kPitch + c];
       colsum[c] = a;
     }
-    __syncthreads();
-    for (int g = threadIdx.x; g < ng; g += blockDim.x) {
+    sync_threads(threads);
+    for (int g = tid; g < ng; g += threads) {
       float a = 0.f;
       for (int c = g * cg; c < (g + 1) * cg; ++c) a += colsum[c];
       gmean[g] = a / n;
     }
-    __syncthreads();
-    for (int c = threadIdx.x; c < cols; c += blockDim.x) {
+    sync_threads(threads);
+    for (int c = tid; c < cols; c += threads) {
       const float mu = gmean[c / cg];
       float a = 0.f;
       for (int r = ra; r < rb; ++r) {
@@ -424,8 +479,8 @@ __device__ void finish_tile(float* stage, int bm, int mt, int n0, int M, int Cou
       }
       colsum[c] = a;
     }
-    __syncthreads();
-    for (int g = threadIdx.x; g < ng; g += blockDim.x) {
+    sync_threads(threads);
+    for (int g = tid; g < ng; g += threads) {
       float a = 0.f;
       for (int c = g * cg; c < (g + 1) * cg; ++c) a += colsum[c];
       float* o = part + ((static_cast<size_t>(mt) * G + n0 / cg + g) * segmax + s) * 3;
@@ -440,9 +495,11 @@ __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
-// wait for the completion of the barrier's phase of parity `parity`
+// wait for the completion of the barrier's phase of parity `parity`; a
+// wait that never ends (a phase that cannot complete) traps, so the launch
+// fails instead of hanging the card
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
+  uint32_t done, tries = 0;
   do {
     asm volatile(
         "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
@@ -450,6 +507,7 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "=r"(done)
         : "r"(bar), "r"(parity)
         : "memory");
+    if (++tries == (1u << 26)) __trap();
   } while (!done);
 }
 
@@ -469,29 +527,79 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// TMA: the 4-D box of `map` at (c0, c1, c2, c3), innermost first; parts
+// of the box outside the tensor arrive as zeros
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                            int c3, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// TMA multicast: the 2-D box of `map` at (c0, c1) into the same offset of
+// every CTA of the cluster in `mask`, completing each one's mbarrier at `bar`
+__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                                      uint32_t bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar), "h"(mask)
+      : "memory");
+}
+
+// arrive on the mbarrier at offset `bar` of CTA `cta` of the cluster
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
+      "r"(cta)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of the cluster that has not exited meets here
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// wait until at most N of this warpgroup's wgmma groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait_group() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// The float32 conv in 3xTF32:
 // out[m, co] = bias[co] + sum_{tap, ci} x[pixel(m) + shift(tap), ci] * w[co, tap, ci]
-// x: (B, H, W, Cin) NHWC of T, Cin % kSlice == 0; w: (Cout, ks*ks*Cin) of T
-// (float32: the hi plane, then the lo plane), read through the TMA maps
-// `wmap` (and `wmap_lo`), boxes of 192 rows x one K-slice, swizzled.
-// Block (mt, nt, split) takes K-slices [kt0, kt1) of tile (mt, nt) with
-// BM/64 warpgroups, which all multiply and all gather the A tiles
-// (cp.async); one thread asks the TMA for each B tile.  A ring of STAGES
-// slots runs ahead of the tensor cores.  With one split the block
-// finishes the tile; with more it stores its raw sums to ws[split] for
-// splitk_reduce.
-template <typename T, int BM, int STAGES>
+// x: (B, H, W, Cin) NHWC float32, Cin % 32 == 0; w: (2, Cout, ks*ks*Cin),
+// the hi plane, then the lo plane, read through the TMA maps `wmap` and
+// `wmap_lo`, boxes of 192 rows x one K-slice, swizzled.  Block (mt, nt,
+// split) takes K-slices [kt0, kt1) of tile (mt, nt) with BM/64
+// warpgroups, which all multiply and all gather the A tiles (cp.async);
+// one thread asks the TMA for each B tile.  A ring of STAGES slots runs
+// ahead of the tensor cores.  With one split the block finishes the tile;
+// with more it stores its raw sums to ws[split] for splitk_reduce.  (bf16
+// runs conv_wgmma_tma_kernel, below.)
+template <int BM, int STAGES>
 __global__ void __launch_bounds__(BM * 2, 1)
-conv_wgmma_kernel(const T* __restrict__ x, const __grid_constant__ CUtensorMap wmap,
+conv_wgmma_kernel(const float* __restrict__ x, const __grid_constant__ CUtensorMap wmap,
                   const __grid_constant__ CUtensorMap wmap_lo, const void* __restrict__ bias,
                   int bdt, float* __restrict__ out, float* __restrict__ part,
                   float* __restrict__ ws, int B, int H, int W, int Cin, int Cout, int ks, int G,
                   int segmax, int splits) {
-  constexpr int kSlice = Operand<T>::kSlice, kPlanes = Operand<T>::kPlanes;
-  constexpr int kChunk = 16 / static_cast<int>(sizeof(T));  // elements per 16-byte chunk
+  constexpr int kSlice = Operand<float>::kSlice, kChunk = 4;  // floats per 16-byte chunk
   constexpr int kThreads = BM * 2, kRowStep = kThreads / 8;
-  // a stage: A hi, [A lo,] B hi, [B lo]
+  // a stage: A hi, A lo, B hi, B lo
   constexpr int kABytes = BM * kRowBytes, kBBytes = kTileN * kRowBytes;
-  constexpr int kStageBytes = kPlanes * (kABytes + kBBytes);
+  constexpr int kStageBytes = 2 * (kABytes + kBBytes);
   extern __shared__ uint8_t smem_raw[];
   // swizzled tiles sit on 1024-byte boundaries (the swizzle's period)
   const uint32_t raw = smem_u32(smem_raw);
@@ -521,24 +629,24 @@ conv_wgmma_kernel(const T* __restrict__ x, const __grid_constant__ CUtensorMap w
   auto load_stage = [&](int slot, int kt) {
     const int tap = kt / per_tap, c0 = (kt - tap * per_tap) * kSlice + chunk * kChunk;
     const int dy = tap / ks - pad, dx = tap % ks - pad;
-    const uint32_t sa = ring + slot * kStageBytes, sb = sa + kPlanes * kABytes;
+    const uint32_t sa = ring + slot * kStageBytes, sb = sa + 2 * kABytes;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = (tid >> 3) + i * kRowStep;
       const int yy = ay[i] + dy, xx = ax[i] + dx;
       const bool ok = yy >= 0 && yy < H && xx >= 0 && xx < W;
-      const T* src = ok ? x + static_cast<size_t>(am[i] + dy * W + dx) * Cin + c0 : x;
+      const float* src = ok ? x + static_cast<size_t>(am[i] + dy * W + dx) * Cin + c0 : x;
       cp_async_16(sa + r * kRowBytes + ((chunk ^ (r & 7)) << 4), src, ok);
     }
     if (tid == 0) {  // rows past Cout arrive as zeros
-      mbar_expect_tx(bar + 8 * slot, kPlanes * kBBytes);
+      mbar_expect_tx(bar + 8 * slot, 2 * kBBytes);
       tma_load_2d(sb, &wmap, kt * kSlice, n0, bar + 8 * slot);
-      if constexpr (kPlanes == 2) tma_load_2d(sb + kBBytes, &wmap_lo, kt * kSlice, n0, bar + 8 * slot);
+      tma_load_2d(sb + kBBytes, &wmap_lo, kt * kSlice, n0, bar + 8 * slot);
     }
   };
 
-  // float32: this thread's own A chunks of `slot`, once they have landed,
-  // become hi in place and lo = x - hi at the same offset of the lo slot
+  // this thread's own A chunks of `slot`, once they have landed, become hi
+  // in place and lo = x - hi at the same offset of the lo slot
   auto split_stage = [&](int slot) {
     uint8_t* sa = smem + slot * kStageBytes;
 #pragma unroll
@@ -557,14 +665,12 @@ conv_wgmma_kernel(const T* __restrict__ x, const __grid_constant__ CUtensorMap w
     for (int s = 0; s < STAGES; ++s) mbar_init(bar + 8 * s, 1);
   __syncthreads();
 
-  // float32: each K-slice's products go into acc from zero, and acc into
-  // `total` with round-to-nearest adds.  The tensor cores' accumulation
-  // truncates: across a 20,736-deep K it drifted ~1e-4 of the output.
-  float acc[96], total[kPlanes == 2 ? 96 : 1];
+  // each K-slice's products go into acc from zero, and acc into `total`
+  // with round-to-nearest adds.  The tensor cores' accumulation truncates:
+  // across a 20,736-deep K it drifted ~1e-4 of the output.
+  float acc[96], total[96];
 #pragma unroll
-  for (int i = 0; i < 96; ++i) acc[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < (kPlanes == 2 ? 96 : 1); ++i) total[i] = 0.f;
+  for (int i = 0; i < 96; ++i) acc[i] = total[i] = 0.f;
 
   // loads run kAhead K-slices ahead of the tensor cores
   constexpr int kAhead = STAGES - 1;
@@ -577,24 +683,20 @@ conv_wgmma_kernel(const T* __restrict__ x, const __grid_constant__ CUtensorMap w
   for (int kt = kt0; kt < kt1; ++kt) {
     const int i = kt - kt0, slot = i % STAGES;
     cp_async_wait<kAhead - 1>();
-    if constexpr (kPlanes == 2) split_stage(slot);
-    // this thread's copies (and splits) of `slot` are done; make them
+    split_stage(slot);
+    // this thread's copies and splits of `slot` are done; make them
     // visible to the tensor cores (async proxy), then wait for every thread's
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
     mbar_wait(bar + 8 * slot, (i / STAGES) & 1);
     const uint32_t sa = ring + slot * kStageBytes + wg * 64 * kRowBytes;
-    const uint32_t sb = ring + slot * kStageBytes + kPlanes * kABytes;
+    const uint32_t sb = ring + slot * kStageBytes + 2 * kABytes;
     wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {  // 32 bytes of every row a step
-      if constexpr (kPlanes == 2) {  // small terms first: lo*hi, hi*lo, hi*hi
-        wgmma_m64n192k8_tf32(acc, smem_desc(sa + kABytes + 32 * k), smem_desc(sb + 32 * k), k > 0);
-        wgmma_m64n192k8_tf32(acc, smem_desc(sa + 32 * k), smem_desc(sb + kBBytes + 32 * k), 1);
-        wgmma_m64n192k8_tf32(acc, smem_desc(sa + 32 * k), smem_desc(sb + 32 * k), 1);
-      } else {
-        wgmma_m64n192k16(acc, smem_desc(sa + 32 * k), smem_desc(sb + 32 * k));
-      }
+    for (int k = 0; k < 4; ++k) {  // 32 bytes of every row a step; small terms first: lo*hi, hi*lo, hi*hi
+      wgmma_m64n192k8_tf32(acc, smem_desc(sa + kABytes + 32 * k), smem_desc(sb + 32 * k), k > 0);
+      wgmma_m64n192k8_tf32(acc, smem_desc(sa + 32 * k), smem_desc(sb + kBBytes + 32 * k), 1);
+      wgmma_m64n192k8_tf32(acc, smem_desc(sa + 32 * k), smem_desc(sb + 32 * k), 1);
     }
     wgmma_commit();
     // refill the slot of K-slice i - 1: every warpgroup waited for that
@@ -602,15 +704,11 @@ conv_wgmma_kernel(const T* __restrict__ x, const __grid_constant__ CUtensorMap w
     if (kt + kAhead < kt1) load_stage((i + kAhead) % STAGES, kt + kAhead);
     cp_async_commit();
     wgmma_wait(acc);
-    if constexpr (kPlanes == 2) {
 #pragma unroll
-      for (int j = 0; j < 96; ++j) total[j] += acc[j];
-    }
+    for (int j = 0; j < 96; ++j) total[j] += acc[j];
   }
-  if constexpr (kPlanes == 2) {
 #pragma unroll
-    for (int j = 0; j < 96; ++j) acc[j] = total[j];
-  }
+  for (int j = 0; j < 96; ++j) acc[j] = total[j];
   cp_async_wait<0>();
   __syncthreads();  // the ring is free: it becomes the staged tile
 
@@ -627,7 +725,7 @@ conv_wgmma_kernel(const T* __restrict__ x, const __grid_constant__ CUtensorMap w
   }
   __syncthreads();
   if (splits == 1) {
-    finish_tile(stage, BM, mt, n0, M, Cout, H * W, G, segmax, bias, bdt, out, part);
+    finish_tile(stage, BM, mt, n0, M, Cout, H * W, G, segmax, bias, bdt, out, part, tid, kThreads);
     return;
   }
   float* dst = ws + static_cast<size_t>(split) * M * Cout;
@@ -638,6 +736,313 @@ conv_wgmma_kernel(const T* __restrict__ x, const __grid_constant__ CUtensorMap w
       *reinterpret_cast<float4*>(&dst[static_cast<size_t>(m0 + r) * Cout + n0 + c]) =
           *reinterpret_cast<const float4*>(&stage[r * kPitch + c]);
   }
+}
+
+// The register epilogue of one bf16 conv tile (no staging): + bias,
+// float32 stores (or, with more than one split, the raw sums to ws[split]),
+// and the tile's GroupNorm partials as finish_tile writes them.  The tile
+// holds whole rows of one sample or whole samples (segment s = its s-th
+// sample).  Per row, each 8-column block's sum (a quad's four lanes) goes
+// to `rowsum`; a warp per (segment, group) sums them in a fixed order (its
+// lanes down the rows, then a shuffle tree): the mean into `gmean`, then
+// the same for the squared deviations from it.  Run by the `threads`
+// consumer threads, which meet at named barrier 1.  Only for groups that
+// register_groups takes: each a whole number of 8-column blocks, at most
+// kRegGroups of them in the N tile (gmean holds kRegGroups a segment).
+__device__ __forceinline__ void finish_registers(float (&acc)[96], int threads, int tid, int r0, int mt,
+                                                 int split, int m0, int n0, int M, int HW, int Cout,
+                                                 int G, int bm, int segmax, int splits,
+                                                 const void* bias, int bdt, float* out, float* part,
+                                                 float* ws, float* rowsum, float* gmean) {
+  constexpr int kQ = kTileN / 8, kRowSums = kQ + 1;  // padded: lanes on consecutive rows, other banks
+  const int lane = tid & 31, quad = lane & 3;
+  const int rows = min(bm, M - m0), cols = min(kTileN, Cout - n0);
+  float* dst = splits > 1 ? ws + static_cast<size_t>(split) * M * Cout : out;
+  if (splits == 1) {
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      const int c = 8 * q + 2 * quad;
+      const float b0 = c < cols ? load_f(bias, n0 + c, bdt) : 0.f;
+      const float b1 = c < cols ? load_f(bias, n0 + c + 1, bdt) : 0.f;
+      acc[4 * q] += b0;
+      acc[4 * q + 1] += b1;
+      acc[4 * q + 2] += b0;
+      acc[4 * q + 3] += b1;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      const int c = 8 * q + 2 * quad;
+      if (c < cols)
+        *reinterpret_cast<float2*>(&dst[static_cast<size_t>(m0 + r) * Cout + n0 + c]) =
+            make_float2(acc[4 * q + 2 * h], acc[4 * q + 2 * h + 1]);
+    }
+  }
+  if (splits > 1 || part == nullptr) return;
+  const int cg = Cout / G, qg = cg / 8;  // a group's 8-column blocks (register_groups)
+  const int b0 = m0 / HW, nseg = (m0 + rows - 1) / HW - b0 + 1, ng = cols / cg;
+  int seg[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) seg[h] = (m0 + r0 + 8 * h) / HW - b0;
+  for (int pass = 0; pass < 2; ++pass) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        float v0 = acc[4 * q + 2 * h], v1 = acc[4 * q + 2 * h + 1];
+        if (pass == 1 && seg[h] < nseg && q / qg < ng) {
+          const float mu = gmean[seg[h] * kRegGroups + q / qg];
+          v0 = (v0 - mu) * (v0 - mu);
+          v1 = (v1 - mu) * (v1 - mu);
+        }
+        float sum = v0 + v1;
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        if (quad == 0) rowsum[(r0 + 8 * h) * kRowSums + q] = sum;
+      }
+    }
+    sync_threads(threads);
+    for (int i = tid >> 5; i < nseg * ng; i += threads / 32) {
+      const int sgm = i / ng, g = i % ng;
+      const int ra = max(m0, (b0 + sgm) * HW) - m0, rb = min(m0 + rows, (b0 + sgm + 1) * HW) - m0;
+      float a = 0.f;
+      for (int r = ra + lane; r < rb; r += 32)
+        for (int q = g * qg; q < (g + 1) * qg; ++q) a += rowsum[r * kRowSums + q];
+      a = warp_sum(a);
+      const float n = static_cast<float>((rb - ra) * cg);
+      if (lane != 0) continue;
+      if (pass == 0) {
+        gmean[sgm * kRegGroups + g] = a / n;
+      } else {
+        float* o = part + ((static_cast<size_t>(mt) * G + n0 / cg + g) * segmax + sgm) * 3;
+        o[0] = n;
+        o[1] = gmean[sgm * kRegGroups + g];
+        o[2] = a;
+      }
+    }
+    sync_threads(threads);
+  }
+}
+
+// Whether finish_registers takes the GroupNorm groups of cg = Cout / G
+// channels: whole 8-column blocks, at most kRegGroups groups in an N tile.
+// Other groups (e.g. 32 groups of 256 channels, 24 in the first N tile)
+// take the staged epilogue, whose finish_tile takes any cg | 192.
+__host__ __device__ constexpr bool register_groups(int Cout, int G) {
+  return Cout % G == 0 && (Cout / G) % 8 == 0 && (Cout < kTileN ? Cout : kTileN) / (Cout / G) <= kRegGroups;
+}
+
+// The A-by-TMA conv's shared memory after its ring, in floats: the staged
+// tile and finish_tile's scratch, or finish_registers' row sums and the
+// means of kRegGroups groups of `segmax` samples
+__host__ __device__ constexpr int after_ring_floats(int bm, bool staged, int segmax) {
+  return staged ? bm * kPitch + 2 * kTileN : bm * (kTileN / 8 + 1) + kRegGroups * segmax;
+}
+
+// its ring's depth in K-slices: the deepest that fits beside that (segmax
+// up to the tile's rows) and its barriers, at most NOPE_CONV_RING: 5 for
+// 64-row tiles and for 128 from registers, 3 beside a staged 128-row tile
+template <int CONS, bool STAGED>
+__host__ __device__ constexpr int conv_ring() {
+  constexpr int kBM = 64 * CONS, kStageBytes = (kBM + kTileN) * kRowBytes;
+  constexpr int kFits =
+      (kSmemMax - 1024 - 4 * after_ring_floats(kBM, STAGED, kBM) - 8 * (2 * NOPE_CONV_RING + 2)) / kStageBytes;
+  return kFits < NOPE_CONV_RING ? kFits : NOPE_CONV_RING;
+}
+
+// The bf16 conv with A by TMA, a persistent grid: block i takes tiles i,
+// i + gridDim.x, ... of (mt, nt, split), mt fastest.  A tile is output
+// pixels [mt * bm, mt * bm + bm), a box of `rows` whole image rows of
+// `samples` samples (bm <= BM = 64 * CONS), by 192 columns, over K-slices
+// [kt0, kt1) of its split.  Warpgroups 0 .. CONS - 1 multiply, one
+// m64n192 product each.  In warpgroup CONS, one thread of warp 0 is the
+// producer: it asks the TMA for each K-slice's A box (x at the slice's tap
+// shift: the image's padding arrives as the box's zero fill) and B tile,
+// into a ring of kRing slots (conv_ring), each with a `full` and an `empty` mbarrier,
+// across tiles.  A consumer waits on `full`, issues the slice's wgmmas,
+// commits, and waits until only that group is in flight (wait_group 1)
+// before it releases the previous slice's slot on `empty`: the tensor
+// cores do not drain between slices, and no block-wide barrier stands in
+// the mainloop.  With CL = 2 the grid is of 2-CTA clusters that take
+// neighbouring M tiles (2 p, 2 p + 1) of the same (nt, split): each CTA
+// asks for half the weight tile and multicasts it to both, so a pair reads
+// each weight slice from L2 once, and a slot is free only when both CTAs'
+// consumers have released it (their arrivals meet on each CTA's `empty`).
+// A pair's second tile past the last M tile is a ghost: it loads zeros and
+// skips its epilogue.  Two epilogues:
+// - STAGED (tiles of few K-slices, whose epilogue would rival their
+//   mainloop): the consumers stage their sums in shared memory
+//   (`staged_full`) and go on to the next tile; warps 1-3 of warpgroup
+//   CONS finish the staged tile meanwhile (finish_tile; or, with more than
+//   one split, the raw sums to ws[split] for splitk_reduce) and free it
+//   (`staged_empty`).  The staged tile leaves room for a ring of 3 slots
+//   at 128 rows.  Any groups cg | 192.
+// - otherwise the consumers finish the tile from their registers
+//   (finish_registers, for the groups register_groups takes), which
+//   leaves room for a ring of 5.
+template <int CONS, bool STAGED, int CL>
+__global__ void __launch_bounds__(128 * (CONS + 1), 1)
+conv_wgmma_tma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+                      const void* __restrict__ bias, int bdt, float* __restrict__ out,
+                      float* __restrict__ part, float* __restrict__ ws, int M, int HW, int W, int Cout,
+                      int ks, int per_tap, int G, int bm, int segmax, int splits) {
+  constexpr int kSlice = Operand<__nv_bfloat16>::kSlice, kRing = conv_ring<CONS, STAGED>();
+  static_assert(kRing >= 2, "the ring is too short");
+  constexpr int kBM = 64 * CONS, kConsumers = 128 * CONS, kFinishers = 96;
+  constexpr int kABytes = kBM * kRowBytes, kStageBytes = kABytes + kTileN * kRowBytes;
+  extern __shared__ uint8_t smem_raw[];
+  // swizzled tiles sit on 1024-byte boundaries (the swizzle's period); the
+  // staged tile, or finish_registers' sums, follow the ring
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  float* after_ring = reinterpret_cast<float*>(smem_raw + (ring - raw) + kRing * kStageBytes);
+  __shared__ __align__(8) uint64_t full_bars[kRing], empty_bars[kRing], staged_bars[2];
+  const uint32_t full = smem_u32(full_bars), empty = smem_u32(empty_bars);
+  const uint32_t staged_full = smem_u32(staged_bars), staged_empty = staged_full + 8;
+
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int tiles_m = (M + bm - 1) / bm, tiles_n = (Cout + kTileN - 1) / kTileN;
+  // a block walks units (a tile, or with CL = 2 its cluster's pair of tiles)
+  const int units_m = (tiles_m + CL - 1) / CL, rank = CL > 1 ? static_cast<int>(cluster_rank()) : 0;
+  const int n_units = units_m * tiles_n * splits, KT = ks * ks * per_tap;
+  const int first = blockIdx.x / CL, stride = gridDim.x / CL;
+  if (tid == 0) {
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(full + 8 * s, 1);               // the producer's expect_tx
+      mbar_init(empty + 8 * s, 4 * CONS * CL);  // one arrive per consumer warp of the cluster
+    }
+    mbar_init(staged_full, 4 * CONS);
+    mbar_init(staged_empty, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if constexpr (CL > 1)
+    cluster_sync();  // the partner's barriers exist before any multicast or remote arrive
+  else
+    __syncthreads();
+
+  if (wg == CONS) {
+    const int warp = (tid >> 5) & 3;
+    if (warp == 0) {  // the producer
+      if (lane != 0) return;
+      const int pad = ks / 2;
+      const uint32_t bytes = bm * kRowBytes + kTileN * kRowBytes;  // out-of-bounds zeros count
+      int slot = 0, phase = 0, issued = 0;
+      for (int u = first; u < n_units; u += stride) {
+        const int mt = (u % units_m) * CL + rank, nt = (u / units_m) % tiles_n, split = u / (units_m * tiles_n);
+        const int m0 = mt * bm, b0 = m0 / HW, y0 = (m0 - b0 * HW) / W;
+        const int kt0 = static_cast<int>(static_cast<long long>(split) * KT / splits);
+        const int kt1 = static_cast<int>(static_cast<long long>(split + 1) * KT / splits);
+        for (int kt = kt0; kt < kt1; ++kt, ++issued) {
+          if (issued >= kRing) mbar_wait(empty + 8 * slot, phase ^ 1);  // its last reader is done
+          const int tap = kt / per_tap, c = (kt - tap * per_tap) * kSlice;
+          const int dy = tap / ks - pad, dx = tap % ks - pad;
+          const uint32_t sa = ring + slot * kStageBytes, bar = full + 8 * slot;
+          mbar_expect_tx(bar, bytes);
+          tma_load_4d(sa, &xmap, c, dx, y0 + dy, b0, bar);
+          if constexpr (CL > 1)  // this CTA's half of the weight tile, to both
+            tma_load_2d_multicast(sa + kABytes + rank * (kTileN / 2) * kRowBytes, &wmap, kt * kSlice,
+                                  nt * kTileN + rank * (kTileN / 2), bar, 3);
+          else
+            tma_load_2d(sa + kABytes, &wmap, kt * kSlice, nt * kTileN, bar);  // rows past Cout: zeros
+          if (++slot == kRing) {
+            slot = 0;
+            phase ^= 1;
+          }
+        }
+      }
+      if constexpr (CL > 1) cluster_sync();  // the partner may still multicast into this CTA
+      return;
+    }
+    if constexpr (STAGED) {  // the finishers: warps 1-3, named barrier 1 among themselves
+      const int ftid = tid - kConsumers - 32;
+      int i = 0;
+      for (int u = first; u < n_units; u += stride, ++i) {
+        const int mt = (u % units_m) * CL + rank, nt = (u / units_m) % tiles_n, split = u / (units_m * tiles_n);
+        const int m0 = mt * bm, n0 = nt * kTileN;
+        mbar_wait(staged_full, i & 1);
+        if (m0 >= M) {  // a ghost tile
+        } else if (splits == 1) {
+          finish_tile(after_ring, bm, mt, n0, M, Cout, HW, G, segmax, bias, bdt, out, part, ftid, kFinishers);
+        } else {
+          float* dst = ws + static_cast<size_t>(split) * M * Cout;
+          const int rows = min(bm, M - m0), cols = min(kTileN, Cout - n0);
+          for (int e = ftid; e < rows * (kTileN / 4); e += kFinishers) {
+            const int r = e / (kTileN / 4), c = 4 * (e % (kTileN / 4));
+            if (c < cols)
+              *reinterpret_cast<float4*>(&dst[static_cast<size_t>(m0 + r) * Cout + n0 + c]) =
+                  *reinterpret_cast<const float4*>(&after_ring[r * kPitch + c]);
+          }
+        }
+        sync_threads(kFinishers);  // every finisher is done with the staged tile
+        if (ftid == 0) mbar_arrive(staged_empty);
+      }
+    }
+    if constexpr (CL > 1) cluster_sync();
+    return;
+  }
+
+  // accumulator layout of m64nNkK: thread (warp, lane) of a warpgroup holds
+  // rows 16 warp + lane/4 (+8), columns 8 q + 2 (lane % 4) (+1)
+  const int r0 = wg * 64 + ((tid & 127) >> 5) * 16 + (lane >> 2);
+  const uint32_t a_rows = wg * 64 * kRowBytes;
+  int slot = 0, phase = 0, i = 0;
+  float acc[96];
+  auto release = [&](int s) {  // in every CTA of the cluster
+#pragma unroll
+    for (int cta = 0; cta < CL; ++cta) {
+      if constexpr (CL > 1)
+        mbar_arrive_cluster(empty + 8 * s, cta);
+      else
+        mbar_arrive(empty + 8 * s);
+    }
+  };
+  for (int u = first; u < n_units; u += stride, ++i) {
+    const int mt = (u % units_m) * CL + rank, nt = (u / units_m) % tiles_n, split = u / (units_m * tiles_n);
+    const int kt0 = static_cast<int>(static_cast<long long>(split) * KT / splits);
+    const int kt1 = static_cast<int>(static_cast<long long>(split + 1) * KT / splits);
+#pragma unroll
+    for (int j = 0; j < 96; ++j) acc[j] = 0.f;
+    int prev = -1;
+    for (int kt = kt0; kt < kt1; ++kt) {
+      mbar_wait(full + 8 * slot, phase);
+      const uint32_t sa = ring + slot * kStageBytes + a_rows, sb = ring + slot * kStageBytes + kABytes;
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < 4; ++k)  // 32 bytes of every row a step
+        wgmma_m64n192k16(acc, smem_desc(sa + 32 * k), smem_desc(sb + 32 * k));
+      wgmma_commit();
+      wgmma_wait_group<1>();  // the previous slice's products are done: free its slot
+      if (prev >= 0 && lane == 0) release(prev);
+      prev = slot;
+      if (++slot == kRing) {
+        slot = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait(acc);
+    if (prev >= 0 && lane == 0) release(prev);
+    if constexpr (STAGED) {
+      if (i > 0) mbar_wait(staged_empty, (i - 1) & 1);  // the finishers are done with the last tile
+#pragma unroll
+      for (int q = 0; q < kTileN / 8; ++q) {
+        const int c = 8 * q + 2 * (lane & 3);
+        *reinterpret_cast<float2*>(&after_ring[r0 * kPitch + c]) = make_float2(acc[4 * q], acc[4 * q + 1]);
+        *reinterpret_cast<float2*>(&after_ring[(r0 + 8) * kPitch + c]) =
+            make_float2(acc[4 * q + 2], acc[4 * q + 3]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(staged_full);
+    } else if (mt * bm < M) {  // not a ghost tile
+      finish_registers(acc, kConsumers, tid, r0, mt, split, mt * bm, nt * kTileN, M, HW, Cout, G, bm,
+                       segmax, splits, bias, bdt, out, part, ws, after_ring,
+                       after_ring + kBM * (kTileN / 8 + 1));  // after_ring_floats
+    }
+  }
+  if constexpr (CL > 1) cluster_sync();  // the partner's consumers may still arrive on this CTA
 }
 
 // Sum the splits of one (bm x 192) tile in split order, then finish it.
@@ -666,7 +1071,8 @@ splitk_reduce_kernel(const float* __restrict__ ws, int splits, const void* __res
     *reinterpret_cast<float4*>(&stage_f[r * kPitch + c]) = a;
   }
   __syncthreads();
-  finish_tile(stage_f, bm, mt, n0, M, Cout, HW, G, segmax, bias, bdt, out, part);
+  finish_tile(stage_f, bm, mt, n0, M, Cout, HW, G, segmax, bias, bdt, out, part, threadIdx.x,
+              kEpiThreads);
 }
 
 // One warp per (sample, group): its lanes load up to 32 of the tiles'
@@ -703,20 +1109,20 @@ gn_finalize_kernel(const float* __restrict__ part, const void* __restrict__ gamm
   write_norm_tables(mean, scale, gamma, pdt, b, g, C, C / G, mu, m2 / n, eps, lane, 32);
 }
 
-template <typename T, int BM, int STAGES>
-cudaError_t launch_conv_wgmma(dim3 grid, cudaStream_t stream, const void* x, const CUtensorMap& w,
+template <int BM, int STAGES>
+cudaError_t launch_conv_wgmma(dim3 grid, cudaStream_t stream, const float* x, const CUtensorMap& w,
                               const CUtensorMap& w_lo, const void* bias, int bdt, float* out,
                               float* part, float* ws, int B, int H, int W, int Cin, int Cout,
                               int ks, int G, int segmax, int splits) {
-  constexpr int kRing = STAGES * Operand<T>::kPlanes * (BM + kTileN) * kRowBytes;
+  constexpr int kRing = STAGES * 2 * (BM + kTileN) * kRowBytes;
   constexpr int kSmem = kRing + 1024;
   static_assert((BM * kPitch + 2 * kTileN) * 4 <= kRing, "the staged tile exceeds the ring");
-  static_assert(kSmem + 8 * STAGES <= 232448, "the ring exceeds a block's shared memory");
-  auto kernel = conv_wgmma_kernel<T, BM, STAGES>;
+  static_assert(kSmem + 8 * STAGES <= kSmemMax, "the ring exceeds a block's shared memory");
+  auto kernel = conv_wgmma_kernel<BM, STAGES>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, BM * 2, kSmem, stream>>>(static_cast<const T*>(x), w, w_lo, bias, bdt, out, part,
-                                          ws, B, H, W, Cin, Cout, ks, G, segmax, splits);
+  kernel<<<grid, BM * 2, kSmem, stream>>>(x, w, w_lo, bias, bdt, out, part, ws, B, H, W, Cin, Cout, ks, G,
+                                          segmax, splits);
   return cudaGetLastError();
 }
 
@@ -725,10 +1131,12 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// The TMA map of a packed weight plane (Cout, K) of T: boxes of 192 rows
-// x one K-slice (128 bytes), 128-byte swizzle, as the wgmma descriptors read.
-template <typename T>
-cudaError_t weight_map(CUtensorMap* map, const void* w, int K, int Cout) {
+// A TMA map of a `rank`-D tensor (dims innermost first, byte strides of
+// the outer dims), boxes of `box`, 128-byte swizzle as the wgmma
+// descriptors read; out-of-bounds elements arrive as zeros.  The CUDA driver's
+// encoder is looked up once (no -lcuda).
+cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
+                       const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -743,58 +1151,175 @@ cudaError_t weight_map(CUtensorMap* map, const void* w, int K, int Cout) {
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(Cout)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * sizeof(T)};
-  const cuuint32_t box[2] = {Operand<T>::kSlice, kTileN};
-  const cuuint32_t steps[2] = {1, 1};
-  const CUresult r = encode(map, Operand<T>::kMapType, 2, const_cast<void*>(w), dims, strides, box,
-                            steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const cuuint32_t steps[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, type, rank, const_cast<void*>(base), dims, strides, box, steps,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The tensor-core conv of T (Cin % kSlice == 0, Cout % 8 == 0, cg | 192):
-// bm in {64, 192} rows per tile; with splits > 1, ws holds splits * M *
-// Cout floats.  part (may be null) receives the tiles' GroupNorm partials,
-// (ceil(M / bm), G, segmax, 3) floats.  Tiles and rings: bf16 192 rows
-// (4 x 48 KB, one block an SM) or 64 (3 x 32 KB, two); float32 128 rows
-// (2 x 80 KB) or 64 (3 x 64 KB), one block an SM either way: a thread
-// holds 96 accumulators and their 96 running totals, which 192-row
-// blocks' 384 threads have no registers for.
+// The TMA map of a packed weight plane (Cout, K) of T: boxes of `rows`
+// rows (the N tile, or half of it) x one K-slice (128 bytes).
 template <typename T>
-int conv_tensor_cores(const void* x, const void* w, const void* bias, int bdt, float* out,
-                      float* part, float* ws, int B, int H, int W, int Cin, int Cout, int ks, int G,
-                      int bm, int splits, int segmax, cudaStream_t s) {
+cudaError_t weight_map(CUtensorMap* map, const void* w, int K, int Cout, int rows = kTileN) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(Cout)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * sizeof(T)};
+  const cuuint32_t box[2] = {Operand<T>::kSlice, static_cast<cuuint32_t>(rows)};
+  return encode_map(map, Operand<T>::kMapType, 2, w, dims, strides, box);
+}
+
+// The TMA map of a bf16 activation (B, H, W, Cin) as a 4-D tensor (Cin, W,
+// H, B): boxes of one K-slice (64 channels, 128 bytes) of W x rows x
+// samples pixels, a tile's A rows in pixel order.
+cudaError_t activation_map(CUtensorMap* map, const void* x, int B, int H, int W, int Cin, int rows,
+                           int samples) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(Cin), static_cast<cuuint64_t>(W),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = static_cast<cuuint64_t>(Cin) * sizeof(__nv_bfloat16);
+  const cuuint64_t strides[3] = {row, row * W, row * W * H};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(Operand<__nv_bfloat16>::kSlice),
+                             static_cast<cuuint32_t>(W), static_cast<cuuint32_t>(rows),
+                             static_cast<cuuint32_t>(samples)};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, x, dims, strides, box);
+}
+
+// Sum a split conv's ws into out (and its tiles' partials) in split order.
+cudaError_t reduce_splits(dim3 tiles, cudaStream_t s, const float* ws, int splits, const void* bias,
+                          int bdt, float* out, float* part, int M, int Cout, int HW, int G, int bm,
+                          int segmax) {
+  const int smem = (bm * kPitch + 2 * kTileN) * 4;
+  cudaError_t err =
+      cudaFuncSetAttribute(splitk_reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  splitk_reduce_kernel<<<tiles, kEpiThreads, smem, s>>>(ws, splits, bias, bdt, out, part, M, Cout, HW,
+                                                        G, bm, segmax);
+  return cudaGetLastError();
+}
+
+// The float32 tensor-core conv in 3xTF32 (Cin % 32 == 0, Cout % 8 == 0,
+// cg | 192): bm in {64, 128} rows per tile; with splits > 1, ws holds
+// splits * M * Cout floats.  part (may be null) receives the tiles'
+// GroupNorm partials, (ceil(M / bm), G, segmax, 3) floats.  Tiles and
+// rings: 128 rows (2 x 80 KB) or 64 (3 x 64 KB), one block an SM either
+// way: a thread holds 96 accumulators and their 96 running totals, which
+// 192-row blocks' 384 threads have no registers for.
+int conv_tf32x3(const void* x, const void* w, const void* bias, int bdt, float* out, float* part,
+                float* ws, int B, int H, int W, int Cin, int Cout, int ks, int G, int bm, int splits,
+                int segmax, cudaStream_t s) {
   const int M = B * H * W, K = ks * ks * Cin;
-  if (Cin % Operand<T>::kSlice || Cout % 8 || (part != nullptr && kTileN % (Cout / G)) ||
+  if (Cin % Operand<float>::kSlice || Cout % 8 || (part != nullptr && kTileN % (Cout / G)) ||
       splits < 1 || (splits > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((M + bm - 1) / bm, (Cout + kTileN - 1) / kTileN, splits);
-  CUtensorMap wmap, wmap_lo;
-  cudaError_t err = weight_map<T>(&wmap, w, K, Cout);
+  CUtensorMap wmap, wmap_lo;  // the lo plane follows the hi plane
+  cudaError_t err = weight_map<float>(&wmap, w, K, Cout);
+  if (err == cudaSuccess)
+    err = weight_map<float>(&wmap_lo, static_cast<const float*>(w) + static_cast<size_t>(Cout) * K, K, Cout);
   if (err != cudaSuccess) return static_cast<int>(err);
-  wmap_lo = wmap;
-  if (Operand<T>::kPlanes == 2) {  // the lo plane follows the hi plane
-    err = weight_map<T>(&wmap_lo, static_cast<const T*>(w) + static_cast<size_t>(Cout) * K, K, Cout);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  constexpr bool kSplit = Operand<T>::kPlanes == 2;
-  constexpr int kBig = kSplit ? 128 : 192, kBigStages = kSplit ? 2 : 4;
-  if (bm == kBig)
-    err = launch_conv_wgmma<T, kBig, kBigStages>(grid, s, x, wmap, wmap_lo, bias, bdt, out, part, ws,
-                                                 B, H, W, Cin, Cout, ks, G, segmax, splits);
+  const float* xf = static_cast<const float*>(x);
+  if (bm == 128)
+    err = launch_conv_wgmma<128, 2>(grid, s, xf, wmap, wmap_lo, bias, bdt, out, part, ws, B, H, W, Cin, Cout,
+                                    ks, G, segmax, splits);
   else if (bm == 64)
-    err = launch_conv_wgmma<T, 64, 3>(grid, s, x, wmap, wmap_lo, bias, bdt, out, part, ws, B, H, W,
-                                      Cin, Cout, ks, G, segmax, splits);
+    err = launch_conv_wgmma<64, 3>(grid, s, xf, wmap, wmap_lo, bias, bdt, out, part, ws, B, H, W, Cin, Cout,
+                                   ks, G, segmax, splits);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const int smem = (bm * kPitch + 2 * kTileN) * 4;
-  err = cudaFuncSetAttribute(splitk_reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  return static_cast<int>(reduce_splits(dim3(grid.x, grid.y), s, ws, splits, bias, bdt, out, part, M,
+                                        Cout, H * W, G, bm, segmax));
+}
+
+template <int CONS, bool STAGED, int CL>
+cudaError_t launch_conv_tma(int units, cudaStream_t stream, const CUtensorMap& xmap, const CUtensorMap& wmap,
+                            const void* bias, int bdt, float* out, float* part, float* ws, int M, int HW,
+                            int W, int Cout, int ks, int per_tap, int G, int bm, int segmax, int splits) {
+  constexpr int kBM = 64 * CONS, kStageBytes = (kBM + kTileN) * kRowBytes;
+  // the ring, then after_ring_floats; one block an SM
+  if (bm > kBM || segmax > bm) return cudaErrorInvalidValue;
+  const int smem = 1024 + conv_ring<CONS, STAGED>() * kStageBytes + 4 * after_ring_floats(kBM, STAGED, segmax);
+  auto kernel = conv_wgmma_tma_kernel<CONS, STAGED, CL>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(128 * (CONS + 1));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = CL;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  // a persistent grid: as many clusters as the card holds at once (not
+  // every SM takes part in a 2-CTA cluster), per device
+  static int resident[16] = {};
+  int device = 0;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess || device >= 16) return err != cudaSuccess ? err : cudaErrorInvalidValue;
+  if (resident[device] == 0) {
+    cfg.gridDim = dim3(CL);
+    err = cudaOccupancyMaxActiveClusters(&resident[device], kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    if (resident[device] < 1) return cudaErrorInvalidConfiguration;
+  }
+  cfg.gridDim = dim3(CL * min(units, resident[device]));
+  err = cudaLaunchKernelEx(&cfg, kernel, xmap, wmap, bias, bdt, out, part, ws, M, HW, W, Cout, ks, per_tap, G,
+                           bm, segmax, splits);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The bf16 tensor-core conv (Cin % 64 == 0, Cout % 8 == 0, cg | 192) with
+// A by TMA: kernel tiles of `tile` in {64, 128} rows, of which bm = W *
+// rows * samples hold output pixels (rows whole image rows of one sample,
+// H % rows == 0, or samples whole samples); the staged epilogue (finisher
+// warps) or the register one, which takes the GroupNorm partials only of
+// the groups register_groups takes.  ws and part as conv_tf32x3.
+int conv_bf16(const void* x, const void* w, const void* bias, int bdt, float* out, float* part,
+              float* ws, int B, int H, int W, int Cin, int Cout, int ks, int G, int tile, int bm, int rows,
+              int samples, int staged, int splits, int segmax, cudaStream_t s) {
+  const int M = B * H * W, K = ks * ks * Cin;
+  if (Cin % Operand<__nv_bfloat16>::kSlice || Cout % 8 || (part != nullptr && kTileN % (Cout / G)) ||
+      splits < 1 || (splits > 1 && ws == nullptr) ||
+      (!staged && splits == 1 && part != nullptr && !register_groups(Cout, G)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // a box of whole rows of one sample, or of whole samples, of at most 256 a side
+  if (rows < 1 || samples < 1 || rows > H || H % rows || (samples > 1 && rows != H) || W > 256 ||
+      rows > 256 || samples > 256 || bm != W * rows * samples || bm > tile)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((M + bm - 1) / bm, (Cout + kTileN - 1) / kTileN, splits);
+  // 2-CTA clusters share the weight tile where the tiles fill the card
+  // twice over (with fewer, the pairs' lockstep costs more than it saves)
+  static int sms[16] = {};
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device >= 16) return static_cast<int>(cudaErrorInvalidValue);
+  if (sms[device] == 0 &&
+      cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int pair = grid.x > 1 && static_cast<long long>(grid.x) * grid.y * grid.z >= 2 * sms[device];
+  const int units = (pair ? (grid.x + 1) / 2 : grid.x) * grid.y * grid.z;
+  CUtensorMap xmap, wmap;
+  cudaError_t err = weight_map<__nv_bfloat16>(&wmap, w, K, Cout, pair ? kTileN / 2 : kTileN);
+  if (err == cudaSuccess) err = activation_map(&xmap, x, B, H, W, Cin, rows, samples);
   if (err != cudaSuccess) return static_cast<int>(err);
-  splitk_reduce_kernel<<<dim3(grid.x, grid.y), kEpiThreads, smem, s>>>(
-      ws, splits, bias, bdt, out, part, M, Cout, H * W, G, bm, segmax);
-  return static_cast<int>(cudaGetLastError());
+  const int per_tap = Cin / Operand<__nv_bfloat16>::kSlice;
+#define NOPE_CONV_TMA(CONS, STAGED)                                                                       \
+  (pair ? launch_conv_tma<CONS, STAGED, 2>(units, s, xmap, wmap, bias, bdt, out, part, ws, M, H * W, W,    \
+                                           Cout, ks, per_tap, G, bm, segmax, splits)                      \
+        : launch_conv_tma<CONS, STAGED, 1>(units, s, xmap, wmap, bias, bdt, out, part, ws, M, H * W, W,    \
+                                           Cout, ks, per_tap, G, bm, segmax, splits))
+  if (tile == 128)
+    err = staged ? NOPE_CONV_TMA(2, true) : NOPE_CONV_TMA(2, false);
+  else if (tile == 64)
+    err = staged ? NOPE_CONV_TMA(1, true) : NOPE_CONV_TMA(1, false);
+  else
+    err = cudaErrorInvalidValue;
+#undef NOPE_CONV_TMA
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  return static_cast<int>(reduce_splits(dim3(grid.x, grid.y), s, ws, splits, bias, bdt, out, part, M,
+                                        Cout, H * W, G, bm, segmax));
 }
 
 }  // namespace
@@ -835,12 +1360,13 @@ NOPE_API int nope_gn_silu(const float* h, const float* mean, const float* scale,
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 conv on the tensor cores (Cin % 64 == 0): conv_tensor_cores.
+// bf16 conv on the tensor cores, A by TMA: conv_bf16.
 NOPE_API int nope_conv_wgmma(const void* x, const void* w, const void* bias, int bdt, float* out,
                              float* part, float* ws, int B, int H, int W, int Cin, int Cout,
-                             int ks, int G, int bm, int splits, int segmax, void* stream) {
-  return conv_tensor_cores<__nv_bfloat16>(x, w, bias, bdt, out, part, ws, B, H, W, Cin, Cout, ks, G,
-                                          bm, splits, segmax, static_cast<cudaStream_t>(stream));
+                             int ks, int G, int tile, int bm, int rows, int samples, int staged,
+                             int splits, int segmax, void* stream) {
+  return conv_bf16(x, w, bias, bdt, out, part, ws, B, H, W, Cin, Cout, ks, G, tile, bm, rows, samples,
+                   staged, splits, segmax, static_cast<cudaStream_t>(stream));
 }
 
 // float32 conv on the tensor cores in 3xTF32 (Cin % 32 == 0): w is the
@@ -848,8 +1374,8 @@ NOPE_API int nope_conv_wgmma(const void* x, const void* w, const void* bias, int
 NOPE_API int nope_conv_tf32x3(const void* x, const void* w, const void* bias, int bdt, float* out,
                               float* part, float* ws, int B, int H, int W, int Cin, int Cout,
                               int ks, int G, int bm, int splits, int segmax, void* stream) {
-  return conv_tensor_cores<float>(x, w, bias, bdt, out, part, ws, B, H, W, Cin, Cout, ks, G, bm,
-                                  splits, segmax, static_cast<cudaStream_t>(stream));
+  return conv_tf32x3(x, w, bias, bdt, out, part, ws, B, H, W, Cin, Cout, ks, G, bm, splits, segmax,
+                     static_cast<cudaStream_t>(stream));
 }
 
 NOPE_API int nope_gn_finalize(const float* part, const void* gamma, int pdt, float* mean,

@@ -12,9 +12,11 @@ tensors: conv weights OIHW, as ``nn.Conv2d`` stores them.
 :func:`resnet_block` runs the K3 CUDA kernels (``csrc/fused_resnet.cu``)
 for CUDA tensors and :func:`resnet_block_plain` for CPU tensors.  At the
 widths the tensor-core tiles take (:data:`TENSOR_CORE_ROUTES`) its convs
-run on the tensor cores (``wgmma``): bfloat16 directly, float32 in
-3xTF32, each operand split into a tf32 hi and lo and three products
-summed (:func:`conv_tf32x3_plain` is that arithmetic in plain PyTorch);
+run on the tensor cores (``wgmma``): bfloat16 directly, its activation
+tiles by TMA as boxes of whole image rows or samples (:func:`tile_box`),
+float32 in 3xTF32, each operand split into a tf32 hi and lo and three
+products summed (:func:`conv_tf32x3_plain` is that arithmetic in plain
+PyTorch);
 the GroupNorm statistics come from the convs' epilogue as per-tile
 partials (:func:`gn_partials_plain` and :func:`gn_merge_plain` are their
 plain versions).  Other widths run on the CUDA cores.  Conv weights are
@@ -47,18 +49,28 @@ class TensorCoreRoute(NamedTuple):
     entry: str  # its C entry point
     layout: str  # the weight pack it reads (packed_weight)
     slice_k: int  # K-slice depth: one tap × slice_k channels, one 128-byte row
-    tiles: Tuple[int, int]  # the tile heights (output pixels) it is built for
-    blocks_64: int  # 64-row tiles an SM holds at once (the taller tiles: one)
+    tiles: Tuple[int, ...]  # the kernel's tile heights (output pixels), shortest first; one block an SM
+    staged_below: int  # K-slices a block below which its tile is staged (0: never)
+    b_rows: int  # weight rows a tile's cost counts beside its own: bf16 waits on what L2 feeds it, A and B
+    boxed: bool  # A arrives by TMA in boxes of whole image rows (tiles of whole rows or samples)
     counter: str  # resnet_block's count of the blocks that ran the route
 
 
-#: bf16: 64-channel slices, a 97 KB ring at 64 rows; float32 (3xTF32): a
-#: tf32 step reads 8 channels, so a slice is 32, and hi and lo planes of
-#: A and B make a 64-row stage 64 KB (a ring of 3 fills an SM); its tall
-#: tile is 128 rows, since each thread also keeps running totals
+#: bf16: 64-channel slices, A by TMA, one block an SM: a ring of 5 slots
+#: of 32 or 40 KB, or, where an unsplit tile takes fewer than 96 K-slices
+#: and its epilogue would rival its mainloop (or its groups do not suit the
+#: register epilogue: :func:`register_groups`), a staged tile (51 or 102
+#: KB) that finisher warps complete during the next tile, beside a ring of
+#: 5 or 3 (the kernel sizes its ring; scripts/k3_tiles.py); float32
+#: (3xTF32): a tf32 step reads 8 channels, so a slice is 32, and hi and lo
+#: planes of A and B make a 64-row stage 64 KB (a ring of 3 fills an SM);
+#: its tall tile is 128 rows, since each thread also keeps running totals.  3xTF32 is bound by its products, so
+#: a tile costs its rows; bf16 by the bytes L2 feeds it, so a tile costs
+#: its rows and the weight tile's 192
 TENSOR_CORE_ROUTES = {
-    torch.bfloat16: TensorCoreRoute("nope_conv_wgmma", "co_k", 64, (64, 192), 2, "tensor_core_launches"),
-    torch.float32: TensorCoreRoute("nope_conv_tf32x3", "co_k_tf32x3", 32, (64, 128), 1, "tf32x3_launches"),
+    torch.bfloat16: TensorCoreRoute("nope_conv_wgmma", "co_k", 64, (64, 128), 96, TILE_N, True,
+                                    "tensor_core_launches"),
+    torch.float32: TensorCoreRoute("nope_conv_tf32x3", "co_k_tf32x3", 32, (64, 128), 0, 0, False, "tf32x3_launches"),
 }
 #: per parameter: (its storage key, {layout: pack}) -- see packed_weight
 _PACKS = WeakIdKeyDictionary()
@@ -155,31 +167,76 @@ def packed_weight(w: torch.Tensor, layout: str) -> torch.Tensor:
 
 
 class ConvPlan(NamedTuple):
-    bm: int  # output rows (pixels) per tile, one of the route's tiles
+    bm: int  # output rows (pixels) per tile
     splits: int  # K split over this many blocks, summed in order after
     segmax: int  # most samples one tile can touch (GroupNorm partials per group)
+    tile: int  # the kernel's tile height, one of the route's tiles (>= bm)
+    rows: int  # boxed routes: image rows of one sample a tile holds (or all H) ...
+    samples: int  # ... of this many samples; unboxed: 0, 0
+    staged: int  # 1: the tile is staged and finished during the next one (boxed routes)
 
 
-def conv_plan(m: int, hw: int, c_out: int, k_slices: int, sms: int, route: TensorCoreRoute) -> ConvPlan:
+def tile_box(tile: int, h: int, w: int) -> Optional[Tuple[int, int]]:
+    """(rows, samples) of the TMA box of a ``tile``-row tile over (h, w)
+    images: whole samples when one fits, else the most whole image rows
+    that fit and divide ``h``, so that tiles never straddle samples; None
+    when an image row is longer than the tile."""
+    if h * w <= tile:
+        return h, tile // (h * w)
+    if w > tile:
+        return None
+    return max(r for r in range(1, tile // w + 1) if h % r == 0), 1
+
+
+def register_groups(c_out: int, groups: int) -> bool:
+    """Whether the bf16 conv's register epilogue takes the GroupNorm
+    partials of ``groups`` groups over ``c_out`` channels: each group whole
+    8-column blocks, at most 8 groups in a 192-wide N tile (as
+    ``register_groups`` in csrc/fused_resnet.cu).  Other groups, e.g. 32
+    of 256 channels (24 in the first N tile), take the staged epilogue."""
+    cg = c_out // groups
+    return c_out % groups == 0 and cg % 8 == 0 and min(c_out, TILE_N) // cg <= 8
+
+
+def conv_plan(m: int, hw: int, c_out: int, k_slices: int, sms: int, route: TensorCoreRoute,
+              width: Optional[int] = None, groups: Optional[int] = None) -> ConvPlan:
     """Tiling of the tensor-core conv of an (m, c_out) output with
     ``k_slices`` K-slices of ``route.slice_k`` channels, on a card with
-    ``sms`` SMs: tall tiles (192 rows in bf16, 128 in 3xTF32; one block
-    to an SM) or 64-row tiles (``route.blocks_64`` blocks to an SM: two
-    in bf16, one in 3xTF32), whichever costs less in waves × rows an SM
-    computes per wave (the tall tile on a tie: fewer bytes per
-    operation).  64-row tiles that do not fill the card split K until
-    they do, each split keeping at least 4 K-slices.  ``bm`` depends on
-    (m, c_out) alone, so a block's two convs write partials of one
-    layout."""
+    ``sms`` SMs.  A boxed route (bf16) needs the image ``width``: a tile
+    holds whole image rows or whole samples (:func:`tile_box`), so bm =
+    width × rows × samples may be short of the kernel's tile.  The
+    shortest tile, when its blocks do not fill the card, splits K until
+    they do, each split keeping at least 4 K-slices.  Of the route's
+    tiles, the one that costs least in waves × rows an SM loads (the
+    tile's, and ``route.b_rows`` of the weight tile) per wave ÷ splits
+    (the taller on a tie: fewer bytes per operation).  The tile depends
+    on (m, hw, c_out) alone, not on K, so a block's convs write partials
+    of one layout.  An unsplit boxed tile is staged when it takes fewer
+    than ``route.staged_below`` K-slices, or when the conv writes
+    GroupNorm partials of ``groups`` groups that :func:`register_groups`
+    refuses; a split tile stores its raw sums from registers."""
     n_tiles = -(-c_out // TILE_N)
-    small, tall = route.tiles
-    t_small, t_tall = -(-m // small) * n_tiles, -(-m // tall) * n_tiles
-    per_sm = route.blocks_64
-    if -(-t_tall // sms) * tall <= -(-t_small // (per_sm * sms)) * small * per_sm:
-        bm, splits = tall, 1
-    else:
-        bm, splits = small, max(1, min(per_sm * sms // t_small, k_slices // 4))
-    return ConvPlan(bm, splits, min(bm, (bm - 2) // hw + 2))
+    best = None
+    for tile in route.tiles:
+        rows = samples = 0
+        bm = tile
+        if route.boxed:
+            box = tile_box(tile, hw // width, width)
+            if box is None:
+                continue
+            rows, samples = box
+            bm = width * rows * samples
+        t = -(-m // bm) * n_tiles
+        fill = max(1, sms // t) if tile == route.tiles[0] else 1
+        cost = -(-t * fill // sms) * (tile + route.b_rows) / fill
+        if best is None or cost <= best[0]:
+            splits = min(fill, max(1, k_slices // 4))
+            staged = int(route.boxed and splits == 1 and (k_slices < route.staged_below or (
+                groups is not None and not register_groups(c_out, groups))))
+            best = (cost, ConvPlan(bm, splits, min(bm, (bm - 2) // hw + 2), tile, rows, samples, staged))
+    if best is None:
+        raise ValueError(f"no tile of {route.tiles} holds a whole image row of width {width}")
+    return best[1]
 
 
 def gn_partials_plain(h: torch.Tensor, hw: int, groups: int, bm: int) -> torch.Tensor:
@@ -246,19 +303,21 @@ def _check(x: torch.Tensor, emb: Optional[torch.Tensor], params: Params, groups:
 
 def _check_aligned(x: torch.Tensor, emb: Optional[torch.Tensor], params: Params) -> None:
     """The kernels read x (also the identity residual), emb and the
-    GroupNorm shifts 4 channels at a time, x by 16-byte ``cp.async``."""
+    GroupNorm shifts 4 channels at a time, x by 16-byte ``cp.async`` or
+    TMA boxes."""
     for name, t in (("x", x), ("emb", emb), ("be1", params["be1"]), ("be2", params["be2"])):
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned, got address {t.data_ptr():#x}")
 
 
-def _tensor_core_fits(c_in: int, c_out: int, groups: int, dtype: torch.dtype) -> bool:
+def _tensor_core_fits(c_in: int, c_out: int, groups: int, dtype: torch.dtype, width: int = 1) -> bool:
     """Widths the tensor-core conv of ``dtype`` tiles: whole K-slices (64
     bf16 or 32 float32 channels) of x and of ``act``, the second conv's
-    input, and GroupNorm groups that never straddle a 192-wide N tile."""
+    input, and GroupNorm groups that never straddle a 192-wide N tile; in
+    bf16, image rows that fit its tallest tile (the TMA box)."""
     route = TENSOR_CORE_ROUTES.get(dtype)
     return (route is not None and c_in % route.slice_k == 0 and c_out % route.slice_k == 0
-            and TILE_N % (c_out // groups) == 0)
+            and TILE_N % (c_out // groups) == 0 and (not route.boxed or width <= route.tiles[-1]))
 
 
 class _Scratch:
@@ -284,9 +343,9 @@ def _conv_tensor_cores(call, route, x_ptr, w, bias, out_ptr, part_ptr, ws_ptr, s
     ((ceil(M / plan.bm), G, plan.segmax, 3) float32) unless part_ptr is
     None; ws_ptr holds plan.splits·M·Co floats when K is split."""
     b, h, wd, c_in = shape
+    tiling = (plan.tile, plan.bm, plan.rows, plan.samples, plan.staged) if route.boxed else (plan.bm,)
     call(route.entry, x_ptr, w.data_ptr(), bias.data_ptr(), _build.DTYPE_CODES[bias.dtype],
-         out_ptr, part_ptr, ws_ptr, b, h, wd, c_in, w.shape[-2], ks, groups, plan.bm, plan.splits,
-         plan.segmax)
+         out_ptr, part_ptr, ws_ptr, b, h, wd, c_in, w.shape[-2], ks, groups, *tiling, plan.splits, plan.segmax)
 
 
 def _block_tensor_cores(x, emb, params, groups, eps, out):
@@ -296,9 +355,9 @@ def _block_tensor_cores(x, emb, params, groups, eps, out):
     b, h, w, c_in = x.shape
     c_out, m, hw, dev = out.shape[-1], b * h * w, h * w, x.device
     sms = _build.sm_count(dev)
-    plan1 = conv_plan(m, hw, c_out, 9 * c_in // route.slice_k, sms, route)
-    plan2 = conv_plan(m, hw, c_out, 9 * c_out // route.slice_k, sms, route)
-    plan_r = conv_plan(m, hw, c_out, c_in // route.slice_k, sms, route) if "res_w" in params else None
+    plan1 = conv_plan(m, hw, c_out, 9 * c_in // route.slice_k, sms, route, w, groups)
+    plan2 = conv_plan(m, hw, c_out, 9 * c_out // route.slice_k, sms, route, w, groups)
+    plan_r = conv_plan(m, hw, c_out, c_in // route.slice_k, sms, route, w) if "res_w" in params else None
     splits = max(p.splits for p in (plan1, plan2, plan_r) if p is not None)
     mc = m * c_out
     scratch = _Scratch(
@@ -391,7 +450,7 @@ def resnet_block(
     out = torch.empty(b, h, w, c_out, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    if _tensor_core_fits(c_in, c_out, groups, x.dtype):
+    if _tensor_core_fits(c_in, c_out, groups, x.dtype, w):
         _block_tensor_cores(x, emb, params, groups, eps, out)
     else:
         _block_cuda_cores(x, emb, params, groups, eps, out)

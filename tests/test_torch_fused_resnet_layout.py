@@ -33,6 +33,59 @@ def im2col(x: torch.Tensor, ks: int) -> torch.Tensor:
     return torch.cat(cols, dim=-1).reshape(b * h * w, ks * ks * c)
 
 
+def box_cols(x: torch.Tensor, ks: int, bm: int, rows: int, samples: int) -> torch.Tensor:
+    """(B·H·W, ks·ks·Cin), K ordered (tap, ci): the A rows of every
+    ``bm``-pixel tile as the bf16 conv's TMA loads deliver them.  Tile mt
+    starts at pixel m0 = mt·bm, sample b0 = m0 // HW, row y0 = (m0 mod HW)
+    // W; tap (dy, dx) is the box of (W, rows, samples) pixels at (dx − p,
+    y0 + dy − p, b0), zero where it leaves x; a ragged last tile keeps its
+    first M − m0 rows."""
+    b, h, w, c = x.shape
+    p, hw, m = ks // 2, h * w, b * h * w
+    xp = F.pad(x, (0, 0, p, p, p, p))
+    xp = torch.cat([xp, xp.new_zeros(samples, *xp.shape[1:])])  # samples past B read as zeros
+    out = x.new_empty(m, ks * ks * c)
+    for mt in range(-(-m // bm)):
+        m0 = mt * bm
+        b0, y0, n = m0 // hw, (m0 % hw) // w, min(bm, m - m0)
+        taps = []
+        for tap in range(ks * ks):
+            dy, dx = tap // ks - p, tap % ks - p
+            box = xp[b0:b0 + samples, y0 + dy + p:y0 + dy + p + rows, dx + p:dx + p + w]
+            assert box.shape == (samples, rows, w, c)
+            taps.append(box.reshape(-1, c)[:n])
+        out[m0:m0 + n] = torch.cat(taps, 1)
+    return out
+
+
+# (B, H, W, ks, tile): whole rows of one sample (32x32 in 2 or 4 rows, 16x16
+# in 4 or 8), whole samples (8x8 in 1 or 2, 4x4 in 4 or 8) with a last tile
+# past B, rows that do not fill the tile (28x28: 2 rows of 28 in 64, 4 in
+# 128), a non-square image, samples that do not fill it (6x6: 3 of 36 in 128)
+BOXES = [(2, 32, 32, 3, 128), (2, 32, 32, 3, 64), (3, 16, 16, 3, 128), (3, 16, 16, 1, 64), (3, 8, 8, 3, 128),
+         (5, 4, 4, 3, 64), (13, 4, 4, 3, 128), (19, 4, 4, 1, 128), (2, 28, 28, 3, 128), (2, 28, 28, 1, 64),
+         (3, 6, 10, 3, 64), (7, 6, 6, 3, 128)]
+
+
+@pytest.mark.parametrize("b,h,w,ks,tile", BOXES)
+def test_tma_boxes_are_the_padded_im2col(b, h, w, ks, tile):
+    """The shifted boxes with zero fill reproduce im2col of the padded input,
+    tile by tile, at the box that ``tile_box`` gives the kernel."""
+    rows, samples = fr.tile_box(tile, h, w)
+    bm = w * rows * samples
+    assert bm <= tile and h % rows == 0 and (samples == 1 or rows == h)
+    x = torch.randn(b, h, w, 8, generator=torch.Generator().manual_seed(b * h + w))
+    torch.testing.assert_close(box_cols(x, ks, bm, rows, samples), im2col(x, ks), rtol=0, atol=0)
+
+
+def test_tile_box():
+    assert fr.tile_box(128, 32, 32) == (4, 1) and fr.tile_box(64, 32, 32) == (2, 1)
+    assert fr.tile_box(128, 16, 16) == (8, 1) and fr.tile_box(64, 8, 8) == (8, 1)
+    assert fr.tile_box(128, 8, 8) == (8, 2) and fr.tile_box(128, 4, 4) == (4, 8)
+    assert fr.tile_box(128, 28, 28) == (4, 1) and fr.tile_box(64, 5, 40) == (1, 1)
+    assert fr.tile_box(128, 2, 300) is None  # a row longer than the tile: no box
+
+
 @pytest.mark.parametrize("ks", [3, 1])
 def test_packed_layout_is_the_gemm_operand(ks):
     rng = np.random.default_rng(ks)
@@ -185,16 +238,60 @@ def test_merge_keeps_the_digits_that_e_x2_loses():
     assert np.abs(naive.double().numpy() - want).max() > 10 * want.max()
 
 
-@pytest.mark.parametrize("m,hw,co,k_slices,want", [
-    (26 * 1024, 1024, 192, 27, (64, 1, 2)),    # 32x32 at B=26: 416 tiles of 64 rows in 2 waves, not 139 of 192
-    (341 * 1024, 1024, 192, 27, (192, 1, 2)),  # 32x32 at B=341: as many waves, fewer bytes
-    (26 * 256, 256, 192, 27, (64, 2, 2)),      # 16x16 at B=26: 104 tiles, K split in two
-    (26 * 16, 16, 768, 108, (64, 9, 5)),       # 4x4 at B=26: 28 tiles
-    (341 * 16, 16, 768, 108, (192, 1, 13)),    # 4x4 at B=341: one wave of 116 tiles, not two
-    (3 * 16, 16, 768, 6, (64, 1, 5)),          # too few K-slices to split
+# (m, hw, W, co, k_slices) → (bm, splits, segmax, tile, rows, samples, staged); split tiles leave
+# their raw sums from registers
+@pytest.mark.parametrize("m,hw,width,co,k_slices,want", [
+    (26 * 1024, 1024, 32, 192, 27, (128, 1, 2, 128, 4, 1, 1)),    # 32x32 at B=26: 4 whole rows, staged
+    (3328 * 1024, 1024, 32, 192, 27, (128, 1, 2, 128, 4, 1, 1)),  # the eval call: as many waves as 64 rows
+    (3 * 1024, 1024, 32, 192, 27, (64, 2, 2, 64, 2, 1, 0)),       # 32x32 at B=3: 2 rows, K split in 2
+    (26 * 256, 256, 16, 192, 27, (64, 1, 2, 64, 4, 1, 1)),        # 16x16 at B=26: 104 tiles fill the card
+    (26 * 256, 256, 16, 384, 81, (128, 1, 2, 128, 8, 1, 1)),      # 16x16, Co=384: 8 whole rows
+    (26 * 64, 64, 8, 768, 162, (64, 1, 2, 64, 8, 1, 0)),          # 8x8 at B=26: one sample; 162 slices
+    (3328 * 64, 64, 8, 768, 162, (128, 1, 3, 128, 8, 2, 0)),      # 8x8 at 3,328: two samples a tile
+    (3 * 16, 16, 4, 1536, 216, (64, 16, 5, 64, 4, 4, 0)),         # 4x4 at B=3: the tile past B; 16 splits
+    (26 * 16, 16, 4, 1536, 216, (64, 2, 5, 64, 4, 4, 0)),         # 4x4 at B=26: 56 tiles, K split in 2
+    (341 * 16, 16, 4, 768, 108, (128, 1, 9, 128, 4, 8, 0)),       # 4x4 at B=341: 8 samples, the last past B
+    (3 * 16, 16, 4, 768, 6, (64, 1, 5, 64, 4, 4, 1)),             # too few K-slices to split
+    (2 * 784, 784, 28, 192, 27, (56, 4, 2, 64, 2, 1, 0)),         # 28x28: 2 rows of 28 fill 56 of 64 rows
 ])
-def test_conv_plan(m, hw, co, k_slices, want):
-    assert tuple(fr.conv_plan(m, hw, co, k_slices, 132, fr.TENSOR_CORE_ROUTES[torch.bfloat16])) == want
+def test_conv_plan(m, hw, width, co, k_slices, want):
+    assert tuple(fr.conv_plan(m, hw, co, k_slices, 132, fr.TENSOR_CORE_ROUTES[torch.bfloat16], width)) == want
+
+
+# (m, hw, W, co, k_slices, groups) → staged: the register epilogue takes
+# groups of whole 8-column blocks, at most 8 of them in the N tile
+@pytest.mark.parametrize("m,hw,width,co,k_slices,groups,staged", [
+    (341 * 16, 16, 4, 768, 108, 8, 0),     # the flagship's 8 groups: cg = 96, 2 in an N tile
+    (341 * 16, 16, 4, 768, 108, 32, 0),    # cg = 24: 8 in an N tile
+    (341 * 16, 16, 4, 768, 108, 64, 1),    # cg = 12: groups straddle 8-column blocks
+    (341 * 64, 64, 8, 256, 108, 32, 1),    # cg = 8: 24 groups in the first N tile
+    (341 * 64, 64, 8, 256, 108, 8, 0),     # cg = 32: 6 groups, then 2 in the last 64 columns
+    (341 * 64, 64, 8, 128, 108, 8, 0),     # cg = 16: 8 groups in the one 128-column tile
+    (341 * 64, 64, 8, 256, 108, None, 0),  # no partials (the 1x1 residual): any groups
+])
+def test_conv_plan_stages_the_groups_the_registers_cannot_take(m, hw, width, co, k_slices, groups, staged):
+    r = fr.TENSOR_CORE_ROUTES[torch.bfloat16]
+    plan = fr.conv_plan(m, hw, co, k_slices, 132, r, width, groups)
+    assert plan.splits == 1 and plan.staged == staged
+    without = fr.conv_plan(m, hw, co, k_slices, 132, r, width)
+    assert plan._replace(staged=0) == without._replace(staged=0)  # the same tile either way
+
+
+def test_conv_plan_takes_the_tile_and_not_k():
+    """A block's two convs (and its 1x1 residual) share one partial layout:
+    the tile depends on the output, not on K."""
+    r = fr.TENSOR_CORE_ROUTES[torch.bfloat16]
+    for m, hw, width, co in ((3 * 16, 16, 4, 1536), (26 * 256, 256, 16, 384), (341 * 1024, 1024, 32, 192)):
+        plans = [fr.conv_plan(m, hw, co, k, 132, r, width) for k in (2, 6, 27, 216)]
+        assert len({(p.bm, p.segmax, p.tile, p.rows, p.samples) for p in plans}) == 1, plans
+
+
+def test_wide_rows_leave_the_bf16_tensor_cores():
+    """A row wider than the tallest bf16 tile has no TMA box: the block runs
+    on the CUDA cores in bf16; float32 gathers A and keeps its route."""
+    assert fr._tensor_core_fits(192, 192, 8, torch.bfloat16, 128)
+    assert not fr._tensor_core_fits(192, 192, 8, torch.bfloat16, 129)
+    assert fr._tensor_core_fits(192, 192, 8, torch.float32, 129)
 
 
 # -- the wrapper's launches against an emulation of the C entry points --------
@@ -211,6 +308,47 @@ def _store(ptr, n, dt, value):
     _view(ptr, n, dt).copy_(value.reshape(-1).to(torch.float32 if dt == 0 else torch.bfloat16))
 
 
+def register_partials(h: torch.Tensor, hw: int, groups: int, bm: int, segmax: int) -> torch.Tensor:
+    """The GroupNorm partials as the bf16 conv's register epilogue
+    (finish_registers) indexes them: per tile and 192-wide N tile, each
+    row's 8-column block sums; a group is blocks q // (cg // 8); the means
+    sit at gmean[segment * 8 + group] of an (8 · segmax) buffer, then the
+    squared deviations from them are summed the same way.  Groups it does
+    not take land on each other's means or past the buffer."""
+    m, co = h.shape
+    cg = co // groups
+    qg = cg // 8
+    out = torch.zeros(-(-m // bm), groups, segmax, 3, dtype=torch.float64)
+    for mt in range(out.shape[0]):
+        m0 = mt * bm
+        rows = min(bm, m - m0)
+        b0 = m0 // hw
+        nseg = (m0 + rows - 1) // hw - b0 + 1
+        seg = [(m0 + r) // hw - b0 for r in range(rows)]
+        for n0 in range(0, co, fr.TILE_N):
+            cols = min(fr.TILE_N, co - n0)
+            ng = cols // cg
+            tile = h[m0:m0 + rows, n0:n0 + cols].double().reshape(rows, cols // 8, 8)
+            gmean = torch.zeros(8 * segmax, dtype=torch.float64)
+            for pass_ in (0, 1):
+                v = tile
+                if pass_:
+                    g_of = torch.arange(cols // 8) // qg
+                    inside = (g_of < ng).expand(rows, -1)
+                    idx = torch.where(inside, torch.tensor(seg)[:, None] * 8 + g_of, 0)
+                    v = (tile - torch.where(inside, gmean[idx], 0.0)[:, :, None]) ** 2
+                rowsum = v.sum(-1)
+                for i in range(nseg * ng):
+                    sgm, g = divmod(i, ng)
+                    ra, rb = max(m0, (b0 + sgm) * hw) - m0, min(m0 + rows, (b0 + sgm + 1) * hw) - m0
+                    a, n = rowsum[ra:rb, g * qg:(g + 1) * qg].sum(), (rb - ra) * cg
+                    if pass_ == 0:
+                        gmean[sgm * 8 + g] = a / n
+                    else:
+                        out[mt, n0 // cg + g, sgm] = torch.stack([a.new_tensor(float(n)), gmean[sgm * 8 + g], a])
+    return out.float()
+
+
 class _EmulatedKernels:
     """The C entry points of csrc/fused_resnet.cu on host memory, by what
     each kernel computes (in float64), with the kernels' own tiling."""
@@ -218,6 +356,7 @@ class _EmulatedKernels:
     def __init__(self):
         self.calls = []
         self.tiles = set()  # the bm of every tensor-core conv
+        self.epilogues = []  # bf16 convs with partials: (staged, splits)
         self.grid_y = []  # the y extent of every gn_silu launch
 
     def __call__(self, name, *args):
@@ -228,14 +367,20 @@ class _EmulatedKernels:
     def _conv(x, w_kco, ks):
         return im2col(x.double(), ks) @ w_kco.double()
 
-    def nope_conv_wgmma(self, x, w, bias, bdt, out, part, ws, b, h, wd, cin, co, ks, groups, bm, splits,
-                        segmax):
+    def nope_conv_wgmma(self, x, w, bias, bdt, out, part, ws, b, h, wd, cin, co, ks, groups, tile, bm, rows,
+                        samples, staged, splits, segmax):
+        """A by the kernel's TMA boxes (box_cols), B by its weight tiles;
+        the partials of a tile finished from registers as finish_registers
+        indexes them."""
         m, k = b * h * wd, ks * ks * cin
         assert cin % 64 == 0 and co % 8 == 0  # what the C entry point takes
+        assert tile in fr.TENSOR_CORE_ROUTES[torch.bfloat16].tiles and staged in (0, 1)
+        assert 1 <= rows <= h and h % rows == 0 and samples >= 1 and (samples == 1 or rows == h)
+        assert bm == wd * rows * samples <= tile and max(wd, rows, samples) <= 256
         self.tiles.add(bm)
         xs = _view(x, m * cin, 1).reshape(b, h, wd, cin)
         wt = _view(w, co * k, 1).reshape(co, k)
-        cols = im2col(xs.double(), ks)
+        cols = box_cols(xs.double(), ks, bm, rows, samples)
         kt = k // 64
         acc = torch.zeros(m, co, dtype=torch.float64)
         for s in range(splits):  # the split ranges of the kernel, summed in order
@@ -246,7 +391,13 @@ class _EmulatedKernels:
         res = (acc + _view(bias, co, bdt).double()).float()
         _store(out, m * co, 0, res)
         if part is not None:
-            p = fr.gn_partials_plain(res, h * wd, groups, bm)
+            self.epilogues.append((staged, splits))
+            registers = not staged and splits == 1
+            if registers:  # what the C entry point refuses: register_groups
+                cg = co // groups
+                assert cg % 8 == 0 and min(co, 192) // cg <= 8, f"{groups} groups of {co} from registers"
+            p = register_partials(res, h * wd, groups, bm, segmax) if registers else fr.gn_partials_plain(
+                res, h * wd, groups, bm)
             assert p.shape[2] == segmax
             _store(part, p.numel(), 0, p)
 
@@ -318,7 +469,10 @@ class _EmulatedKernels:
     ("tensor_cores", 2, 8, 192, 192, False, False, 132),
     ("tensor_cores", 6, 8, 64, 384, True, False, 2),     # 192-row tiles cutting samples (2 SMs)
     ("tensor_cores", 15, 4, 192, 192, False, True, 1),   # 64-row tiles, ragged (1 SM)
-    ("tensor_cores", 35, 4, 192, 192, False, True, 1),   # 192-row tiles of 12 samples, ragged (1 SM)
+    ("tensor_cores", 35, 4, 192, 192, False, True, 1),   # 128-row tiles of 8 samples, the last past B (1 SM)
+    ("tensor_cores", 5, 4, 128, 192, True, True, 1),     # one 128-row tile of 8 samples over B = 5 (1 SM)
+    ("tensor_cores", 11, 8, 64, 192, True, True, 1),     # 128-row tiles of 2 samples, the last past B (1 SM)
+    ("tensor_cores", 2, 16, 64, 192, True, False, 1),    # 128-row tiles of 8 rows of 16x16 (1 SM)
     ("cuda_cores", 2, 4, 16, 24, True, True, 132),
     ("cuda_cores", 2, 4, 24, 24, False, False, 132),
     ("cuda_cores_bf16", 2, 4, 16, 24, True, True, 132),  # bf16 at widths the bf16 tiles do not take
@@ -332,6 +486,23 @@ class _EmulatedKernels:
 def test_block_launches_match_the_plain_block(monkeypatch, route, batch, hw_side, cin, co, with_res,
                                                with_emb, sms):
     _check_block_launches(monkeypatch, route, batch, hw_side, cin, co, with_res, with_emb, sms)
+
+
+# (B, side, Cin, Co, groups, staged): the first conv's 108 K-slices in one
+# split (1 SM) take the register epilogue unless the groups need the staged
+# one (the second conv's 36 at Co = 256 stage by K)
+@pytest.mark.parametrize("batch,hw_side,cin,co,groups,staged", [
+    (3, 8, 768, 256, 8, 0),    # cg = 32: 6 groups, then 2 in the last 64 columns
+    (3, 8, 768, 256, 32, 1),   # cg = 8: 24 groups in the first N tile
+    (3, 4, 768, 768, 64, 1),   # cg = 12: groups straddle 8-column blocks
+    (5, 4, 768, 768, 32, 0),   # cg = 24: 8 groups an N tile, 8 samples a tile, the last past B
+])
+def test_block_launches_take_any_groups(monkeypatch, batch, hw_side, cin, co, groups, staged):
+    """Every GroupNorm width the route takes (cg | 192) gives the plain
+    block; the register epilogue gets only the groups it can index."""
+    emulated = _check_block_launches(monkeypatch, "tensor_cores", batch, hw_side, cin, co, cin != co, True, 1,
+                                     groups)
+    assert emulated.epilogues[0] == (staged, 1) and len(emulated.epilogues) == 2
 
 
 @pytest.mark.parametrize("route", ["tensor_cores", "cuda_cores", "tf32x3"])
@@ -352,7 +523,7 @@ ROUTES = {"tensor_cores": ("_block_tensor_cores", torch.bfloat16, "nope_conv_wgm
           "cuda_cores_bf16": ("_block_cuda_cores", torch.bfloat16, "nope_conv_nhwc")}
 
 
-def _check_block_launches(monkeypatch, route, batch, hw_side, cin, co, with_res, with_emb, sms):
+def _check_block_launches(monkeypatch, route, batch, hw_side, cin, co, with_res, with_emb, sms, groups=8):
     emulated = _EmulatedKernels()
 
     @contextlib.contextmanager
@@ -375,9 +546,9 @@ def _check_block_launches(monkeypatch, route, batch, hw_side, cin, co, with_res,
     p = {k: v.to(dtype) for k, v in p.items()}
     out = torch.empty(batch, hw_side, hw_side, co, dtype=dtype)
     before = fr.resnet_block.tensor_core_launches, fr.resnet_block.tf32x3_launches
-    getattr(fr, block)(x, emb, p, 8, 1e-5, out)
+    getattr(fr, block)(x, emb, p, groups, 1e-5, out)
     want = fr.resnet_block_plain(x.float(), None if emb is None else emb.float(),
-                                 {k: v.float() for k, v in p.items()})
+                                 {k: v.float() for k, v in p.items()}, groups)
     # bf16: act and the output are rounded to bf16 (the chip's tolerance);
     # float32: the emulation sums in float64; 3xTF32: the chip's float32
     # tolerance (each product's dropped terms are ~2^-21 of it)
@@ -388,7 +559,8 @@ def _check_block_launches(monkeypatch, route, batch, hw_side, cin, co, with_res,
     assert {"nope_conv_wgmma", "nope_conv_tf32x3", "nope_conv_nhwc"} & set(emulated.calls) == {conv}
     if block == "_block_tensor_cores":
         r = fr.TENSOR_CORE_ROUTES[dtype]
-        assert emulated.tiles == {fr.conv_plan(batch * hw_side ** 2, hw_side ** 2, co, 9 * cin // r.slice_k, sms, r).bm}
+        plan = fr.conv_plan(batch * hw_side ** 2, hw_side ** 2, co, 9 * cin // r.slice_k, sms, r, hw_side)
+        assert emulated.tiles == {plan.bm}
     bf16_tc, tf32x3 = route == "tensor_cores", route == "tf32x3"
     assert (fr.resnet_block.tensor_core_launches, fr.resnet_block.tf32x3_launches) == (before[0] + bf16_tc,
                                                                                      before[1] + tf32x3)

@@ -22,7 +22,10 @@ it fails at once.
    and 1,664; K1 at the serving requests, B=64, a bank per query (also the
    evaluation program's (64, 31), (128, 26) and (8, 341)), a ragged B, and
    phase 11's (64, 26) shared, (32, 13) and (64, 26) per query.  Two launches on the
-   same inputs must be bitwise equal (K1, K2 and K3, both dtypes).
+   same inputs must be bitwise equal (K1, K2 and K3, both dtypes).  A
+   bf16 K3 block whose plan fuses a GroupNorm into its conv's epilogue
+   must equal the same block with every GroupNorm chained (``k3_chain``)
+   bitwise, at B = 26 and 341 and in one 32x32 block at 3,328 items.
    Past the grid's 65,535 y extent: K3 at B=65,600 (its smallest block,
    4x4; samples on both sides of 65,535 held) and K1 at B=65,600 with a
    bank per query of N=1.  K1 at other channel counts, both dtypes,
@@ -48,7 +51,8 @@ it fails at once.
    341 and with a bank per query at (64, 31) and (128, 26), and at C = 8
    at (64, 341) and (64, 26) per query; K3 per block
    shape (bf16 also at 1,984 and 3,328 items) beside ``F.conv2d`` over
-   the block's convs (bf16, channels-last), with TFLOP/s.  After phase 6
+   the block's convs (bf16, channels-last), with TFLOP/s, and summed by
+   stage (image side).  After phase 6
    (4b), the evaluation program, median of 3: images/s of ``bench.py``'s
    two shapes, bank plus retrieval only (fast: B=128, N=26, bank made
    whole; full: B=64, N=341, streamed in chunks of 31) and of the whole
@@ -180,7 +184,9 @@ it fails at once.
    loader) with a seeded flagship ``PoseEstimator`` (bf16, N=26): (a)
    ``utils.profiling.trace`` of one ``register_object`` and one
    ``estimate`` (B=8), whose Chrome trace must name kernels of K1, K2 and
-   K3, with the same launch counts as an untraced run; (b)
+   K3, with the same launch counts as an untraced run, and launch
+   ``gn_silu`` and ``gn_finalize`` once for each chained GroupNorm and
+   never for a fused one; (b)
    ``profiling.benchmark`` of the same calls against the CUDA events of
    its iterations, and of one K3 block at 3,328 items (device-bound)
    against a CUDA-event median (min and mean at least 0.95x; the host
@@ -255,14 +261,21 @@ TOL = {"float32": {"K1": 1e-5, "K2": 1e-5, "K3": 1e-4}, "bfloat16": {"K1": 1e-5,
 CPU_SIM_RTOL = 1e-3
 FAST_N, FULL_N, QUERIES, REQUESTS = 26, 341, 8, 3
 K3_BATCHES = (3, FAST_N, FULL_N)
+# the K3 block phase 2 also holds against the chain at the fast protocol's
+# 3,328 items: 32x32 samples in clusters of 8 tiles, with res and emb
+K3_FUSED_CHECK = (32, 32, 384, 192, True, True, 8)
 # K3 blocks at GroupNorm widths beside the flagship's 8 groups, as
 # record_shapes records a block (H, W, Cin, Co, residual, emb, groups):
 # 32 groups of 256 channels (24 in the first N tile) and 64 of 768 (12
-# channels, across 8-column blocks) take the bf16 conv's staged epilogue;
-# 8 of 256 (6 groups, then 2 in the last 64 columns) and 32 of 768 (8 in
-# an N tile) its register epilogue, at 108 K-slices
+# channels, across 8-column blocks) take the bf16 conv's staged epilogue
+# and keep the chain; 8 of 256 (6 groups, then 2 in the last 64 columns)
+# and 32 of 768 (8 in an N tile) its register epilogue at 216 K-slices
+# (the first conv, chained) and the fused staged one (the second); 64 of
+# 192 (3 channels, narrower than the staged epilogue's 4-column quads)
+# finish_tile's
 K3_GROUP_SHAPES = ((8, 8, 768, 256, True, True, 32), (4, 4, 768, 768, False, True, 64),
-                   (8, 8, 768, 256, True, False, 8), (4, 4, 768, 768, False, True, 32))
+                   (8, 8, 1536, 256, True, False, 8), (4, 4, 1536, 768, True, True, 32),
+                   (8, 8, 192, 192, False, True, 64))
 # K2 items: a ragged batch, the N=26 and the N=341 registration batches
 K2_ITEMS = (3, FAST_N, FULL_N)
 # K1 (B, N, bank lead): a B=64 request, the serving requests (one object's
@@ -491,6 +504,18 @@ def k3_inputs(torch, shape, batch, dev, dtype, gen):
     if res:
         params["res_w"], params["res_b"] = rnd(co, cin, 1, 1, scale=cin ** -0.5), rnd(co, scale=0.1)
     return rnd(batch, h, w, cin), (rnd(batch, co) if emb else None), params
+
+
+def k3_chain(fr, x, emb, params, groups):
+    """K3 with every GroupNorm in the chain: ``conv_plan``'s tiles with
+    ``fuse=False`` (the float32 pre-norm output, ``gn_finalize``,
+    ``gn_silu``), the yardstick the fused epilogue equals bitwise."""
+    plan = fr.conv_plan
+    fr.conv_plan = lambda *args, **kwargs: plan(*args, **{**kwargs, "fuse": False})
+    try:
+        return fr.resnet_block(x, emb, params, groups)
+    finally:
+        fr.conv_plan = plan
 
 
 def k3_work(shape, batch):
@@ -3032,21 +3057,28 @@ def tools_phase(torch, dev, smi, counters, phase9_step_ms):
         return est.estimate("object", queries)
 
     calls()  # warm-up: K3's weight packs, cuDNN's plans
+    blocks0, fused0 = fr.resnet_block.tensor_core_launches, fr.resnet_block.fused_norms
     with tempfile.TemporaryDirectory(prefix="nope_trace_") as log_dir:
         with profiling.trace(log_dir):
             _, traced = run("a", calls)
         kernels = trace_kernels(log_dir)
+    # every bf16 block runs two GroupNorms: each either fused in a conv's epilogue or chained
+    chained = 2 * (fr.resnet_block.tensor_core_launches - blocks0) - (fr.resnet_block.fused_norms - fused0)
+    norms = {k: sum(n for name, (n, _) in kernels.items() if k in name) for k in ("gn_silu", "gn_finalize")}
     result, untraced = run("a untraced", calls)
     del out["a untraced"]
     named = {k: {n: v for n, v in kernels.items() if any(s in n for s in names)}
              for k, names in (("K1", K1_KERNELS), ("K2", K2_KERNELS), ("K3", K3_KERNELS))}
     ok = (all(named.values()) and traced == untraced and all(traced.values())
-          and result.nearest_idx.shape == (QUERIES, 5) and np.isfinite(result.similarity).all())
+          and result.nearest_idx.shape == (QUERIES, 5) and np.isfinite(result.similarity).all()
+          and norms == {"gn_silu": chained, "gn_finalize": chained} and fr.resnet_block.fused_norms > fused0)
     print(f"  (a) profiling.trace of register_object + estimate (bf16, N={FAST_N}, B={QUERIES}): one .pt.trace.json, "
           f"{len(kernels)} kernel names, {sum(n for n, _ in kernels.values())} launches, "
           + ", ".join(f"{k} {sum(n for n, _ in v.values())} launches {sum(ms for _, ms in v.values()):.3f} ms "
                       f"({', '.join(s for s in names if any(s in n for n in v))})"
                       for (k, v), names in zip(named.items(), (K1_KERNELS, K2_KERNELS, K3_KERNELS)))
+          + f"; gn_silu x{norms['gn_silu']} and gn_finalize x{norms['gn_finalize']} for the {chained} chained "
+          f"GroupNorms ({fr.resnet_block.fused_norms - fused0} fused in a conv's epilogue)"
           + f"; op counters traced {traced} vs untraced {untraced} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise RuntimeError("phase 13 (a): the trace misses a kernel, or the traced run launched other counts")
@@ -3275,6 +3307,7 @@ def main() -> int:
         worst[kernel] = max(worst[kernel], err)
 
     print("phase 2: kernels vs plain on the card")
+    fused_checks = [0, 0, 0]  # bf16 K3 blocks all chained, blocks with a fused GroupNorm, fused GroupNorms
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
         for b, n, lead in K1_SHAPES:
@@ -3300,14 +3333,20 @@ def main() -> int:
                 f32 = {k: v.float() for k, v in params.items()}
                 label = (f"B={batch} {shape[0]}x{shape[1]} {shape[2]}->{shape[3]} res={int(shape[4])} "
                          f"emb={int(shape[5])}" + (f" G={shape[6]}" if shape in K3_GROUP_SHAPES else ""))
-                before = fr.resnet_block.tf32x3_launches
+                before, fused_before = fr.resnet_block.tf32x3_launches, fr.resnet_block.fused_norms
                 got = fr.resnet_block(x, emb, params, shape[6])
+                fused = fr.resnet_block.fused_norms - fused_before
                 if dtype == torch.float32 and fr.resnet_block.tf32x3_launches != before + 1:
                     raise RuntimeError(f"K3 {label} float32 did not run the 3xTF32 route")
                 check("K3", label, got,
                       fr.resnet_block_plain(x.float(), None if emb is None else emb.float(), f32, shape[6]), dn)
                 if not torch.equal(got, fr.resnet_block(x, emb, params, shape[6])):
                     raise RuntimeError(f"K3 {label} {dn}: two launches on the same inputs differ")
+                if dtype == torch.bfloat16:
+                    if fused and not torch.equal(got, k3_chain(fr, x, emb, params, shape[6])):
+                        raise RuntimeError(f"K3 {label}: the fused GroupNorm differs from the chain")
+                    fused_checks[fused > 0] += 1
+                    fused_checks[2] += fused
                 torch.cuda.synchronize()
     # the 3xTF32 conv alone against its plain version (the split arithmetic
     # in float64): each distinct conv of the blocks at B=26
@@ -3345,6 +3384,12 @@ def main() -> int:
             del want
             if not torch.equal(got, fr.resnet_block(x, emb, params, shape[6])):
                 raise RuntimeError(f"K3 {label}: two launches on the same inputs differ")
+            if items == EVAL_ITEMS[1] and shape == K3_FUSED_CHECK:  # the fused sample clusters at full size
+                chain = k3_chain(fr, x, emb, params, shape[6])
+                if not torch.equal(got, chain):
+                    raise RuntimeError(f"K3 {label}: the fused GroupNorm differs from the chain")
+                print(f"  K3 {label} bfloat16 fused == chain bitwise")
+                del chain
             del x, emb, params, got
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -3378,6 +3423,10 @@ def main() -> int:
                 raise RuntimeError(f"K1 B={b} N={n} lead {lead} C={c} {dn}: two launches on the same inputs differ")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    print(f"  K3 bf16 fused GroupNorm == chain bitwise at all {fused_checks[1]} (shape, batch) with a fused conv "
+          f"({fused_checks[2]} fused GroupNorms; {fused_checks[0]} all chained)")
+    if not fused_checks[1]:
+        raise RuntimeError("no K3 bf16 block fused its GroupNorm")
     print(f"  K3 bf16: two launches bitwise equal at all {len(k3_shapes) * (len(K3_BATCHES) + len(CHECK_ITEMS))}"
           f" (shape, batch) and {len(K3_GROUP_SHAPES) * len(K3_BATCHES)} at other GroupNorm widths; K3 fp32: every "
           f"block ran the 3xTF32 route, two launches bitwise equal at all "
@@ -3521,6 +3570,7 @@ def main() -> int:
         for batch in ((FAST_N, FULL_N) + EVAL_ITEMS if dtype == torch.bfloat16 else (FAST_N,)):
             tot_k = tot_d = tot_p = tot_l = tot_ld = tot_h = 0.0
             work = [0.0, 0.0, 0.0]
+            stages = {}  # image side: [K3 device alone, F.conv2d device alone] over the forward's blocks
             for shape in k3_shapes:
                 x, emb, params = k3_inputs(torch, shape, batch, dev, dtype, dgen if batch in EVAL_ITEMS else gen)
                 count = k3_calls.count(shape)
@@ -3540,6 +3590,8 @@ def main() -> int:
                 work = [a + count * b for a, b in zip(work, (tc_ops, f32_ops, nbytes))]
                 tot_k, tot_p, tot_l = tot_k + count * t_k, tot_p + count * t_p, tot_l + count * t_l
                 tot_d, tot_ld, tot_h = tot_d + count * t_d, tot_ld + count * t_ld, tot_h + count * t_h
+                stage = stages.setdefault(shape[0], [0.0, 0.0])
+                stage[0], stage[1] = stage[0] + count * t_d, stage[1] + count * t_ld
                 print(f"  K3 B={batch} {shape[0]:>2}x{shape[1]:<2} {shape[2]:>4}->{shape[3]:<4} res={int(shape[4])} "
                       f"emb={int(shape[5])} x{count} {dn:<8} kernel {t_k:8.3f} ms ({tc_ops / t_k / 1e9:6.1f} TFLOP/s; "
                       f"device alone {t_d:8.3f} ms, {tc_ops / t_d / 1e9:6.1f} TFLOP/s) "
@@ -3551,6 +3603,8 @@ def main() -> int:
                   f"{tot_ld:.3f} ms) host {tot_h:.3f} ms; {work[0] / 1e12:.3f} TFLOP of conv, bound {b3[0]:.3f} ms "
                   f"({b3[1]}{'' if dtype == torch.bfloat16 else ', 3xTF32'}), kernel at {100 * b3[0] / tot_k:.1f}% "
                   f"of it (device alone {100 * b3[0] / tot_d:.1f}%, conv2d device alone {100 * b3[0] / tot_ld:.1f}%)")
+            print(f"  K3 the 22 blocks at B={batch} {dn:<8} by stage, device alone: " + "; ".join(
+                f"{side}x{side} K3 {k3:.3f} ms F.conv2d {lib:.3f} ms" for side, (k3, lib) in stages.items()))
             if dtype == torch.bfloat16 and tot_d > tot_ld:
                 print(f"  note: K3 bf16 at B={batch} on the device alone {tot_d:.3f} ms is slower than F.conv2d over "
                       f"the same convs {tot_ld:.3f} ms")

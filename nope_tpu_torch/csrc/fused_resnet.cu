@@ -9,7 +9,12 @@
 // GroupNorm takes per-(sample, group) statistics of a conv output.  The
 // TPU kernel holds one sample's whole activation in VMEM; on an H100 one
 // 32x32x192 float32 sample is 768 KiB, more than the 227 KB of shared
-// memory a block may use.  So the block runs as a chain of kernels.
+// memory a block may use.  So in bf16 a thread-block cluster of the tiles
+// that make one sample (8 at 32x32) merges their statistics over
+// distributed shared memory and normalises in the conv's epilogue, or a
+// tile of whole samples does so alone; where a conv's plan cannot (split
+// K, a register epilogue, float32, other groups), the block runs as a
+// chain of kernels through a float32 pre-norm output.
 //
 // The tensor-core route (bfloat16, the serving dtype, and float32) --
 // what bounds it on an H100 is the convolutions' operations (~29 GFLOP a
@@ -23,9 +28,12 @@
 //                  operands land in a ring of 128-byte-swizzled slots,
 //                  the weight tile by TMA.  The N tile is 192 columns and
 //                  holds whole GroupNorm groups (cg in {24, 48, 96, 192}),
-//                  so the epilogue adds the bias, stores the float32
-//                  pre-norm output and writes per tile a partial (count,
-//                  mean, M2) for every (sample, group) it touches.  Few
+//                  so the epilogue adds the bias and takes per tile a
+//                  partial (count, mean, M2) for every (sample, group) it
+//                  touches: fused, it merges them (its cluster's, in tile
+//                  order) and stores SiLU(GN) + emb or + res in bf16;
+//                  chained, it stores the float32 pre-norm output and the
+//                  partials for gn_finalize and gn_silu.  Few
 //                  tiles (the 4x4 to 16x16 stages at small batch) split K
 //                  over blocks; splitk_reduce sums the splits in a fixed
 //                  order.  The 1x1 residual is the same kernel with one
@@ -49,38 +57,44 @@
 //                  commit, wait until only that group is in flight
 //                  (wait_group 1) and release the previous slice's slot:
 //                  the tensor cores do not drain between slices and no
-//                  block-wide barrier stands in the mainloop.  Where the
-//                  tiles fill the card twice over, 2-CTA clusters take
-//                  neighbouring M tiles and multicast the weight tile,
+//                  block-wide barrier stands in the mainloop.  The grid is
+//                  of clusters along M: a fused sample's tiles, or 2
+//                  neighbouring tiles; where the tiles fill the card twice
+//                  over, pairs of a cluster multicast the weight tile,
 //                  half from each.  Two epilogues: an unsplit tile of
-//                  fewer than 96 K-slices stages its sums in shared memory
-//                  and goes on, while three finisher warps complete the
-//                  tile (finish_tile) beside a ring of 3-5; longer tiles
-//                  finish from their registers beside a ring of 5, where
-//                  each group is whole 8-column blocks and an N tile
-//                  holds at most 8 groups (other groups stage), and so do
-//                  split tiles, which store raw sums for splitk_reduce.  (A
-//                  256-row tile, two m64n192 products per consumer,
-//                  spilled its 192 accumulators a thread and ran 2.5-3.5x
-//                  slower: PERF.md.)
+//                  fewer than 128 K-slices stages its sums in shared
+//                  memory and goes on, while three finisher warps
+//                  complete the tile (finish_staged; fused, with the
+//                  cluster's exchange of partials by st.async and the
+//                  normalising, norm_staged) beside a ring of 3-5; longer
+//                  tiles finish from their registers beside a ring of 5,
+//                  where each group is whole 8-column blocks and an N
+//                  tile holds at most 8 groups (other groups stage), and
+//                  keep the chain, and so do split tiles, which store raw
+//                  sums for splitk_reduce.  (A 256-row tile, two m64n192
+//                  products per consumer, spilled its 192 accumulators a
+//                  thread and ran 2.5-3.5x slower; a fused register
+//                  epilogue, run between mainloops, cost more than the
+//                  chain's separate pass: PERF.md.)
 //                  float32 (conv_wgmma, 3xTF32, below): every thread
 //                  gathers A rows by 16-byte cp.async, zero-filled for the
 //                  halo, then splits them; the block meets at a barrier
 //                  every K-slice and drains its wgmmas, as its running
 //                  totals need (tiles of 64 or 128 rows);
-//   gn_finalize    merges a (sample, group)'s partials in tile order with
-//                  Chan's formula (no E[x^2] - mean^2 cancellation) into
-//                  per-channel tables;
+//   gn_finalize    (chained convs) merges a (sample, group)'s partials in
+//                  tile order with Chan's formula (no E[x^2] - mean^2
+//                  cancellation) into per-channel tables;
 //   gn_silu        as below, storing the first Block's activation in the
 //                  block's dtype: in bf16 the second conv's operand,
 //                  rounded as the TPU's MXU rounded its float32 scratch at
-//                  default precision; in float32 kept whole.
+//                  default precision; in float32 kept whole.  The fused
+//                  epilogue shares their arithmetic (chan_merge,
+//                  norm_rstd, gn_act) and equals the chain bitwise.
 //
 // bfloat16: wgmma m64n192k16 on bf16 operands (989 TFLOP/s).  Per K-slice a
 // 128 x 192 tile reads 40 KB from L2 for 3.1 MFLOP (77 operations a byte).
-// Beside the convs, the block moves its float32 pre-norm outputs through
-// device memory (written by the conv's epilogue, read by gn_silu): at 3,328
-// items gn_silu alone is ~16% of K3's device time (PERF.md).
+// Fused, a block's float32 pre-norm outputs never reach device memory (in
+// the chain, gn_silu was ~16% of K3's device time at 3,328 items: PERF.md).
 //
 // float32, 3xTF32 (Cin % 32 == 0, Co % 8 == 0, cg | 192): the same
 // kernel on tf32 operands, wgmma m64n192k8.  Each operand is split as
@@ -229,16 +243,42 @@ __device__ __forceinline__ void store4(void* p, size_t i, int dt, float4 v) {
   *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(p) + i) = raw;
 }
 
+// The GroupNorm arithmetic that the chain (gn_finalize, gn_silu) and the bf16
+// conv's fused epilogue share, with every rounding explicit (no FMA
+// contraction left to the compiler), so that both give the same bits.
+//
+// Chan's merge of a partial (nb, mb, qb) = (count, mean, M2) into (n, mu, m2)
+__device__ __forceinline__ void chan_merge(float& n, float& mu, float& m2, float nb, float mb, float qb) {
+  const float nt = __fadd_rn(n, nb), d = __fsub_rn(mb, mu);
+  mu = __fadd_rn(mu, __fmul_rn(d, __fdiv_rn(nb, nt)));
+  m2 = __fadd_rn(m2, __fadd_rn(qb, __fmul_rn(__fmul_rn(d, d), __fdiv_rn(__fmul_rn(n, nb), nt))));
+  n = nt;
+}
+
+// 1 / sqrt(var + eps), var = m2 / n
+__device__ __forceinline__ float norm_rstd(float m2, float n, float eps) {
+  return __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(__fdiv_rn(m2, n), eps)));
+}
+
+// y / (1 + e^-y) by the fast intrinsics (ex2 and rcp, within a few ulp):
+// branch-free, so a warp's elements interleave (IEEE division puts each in
+// a branch region of its own, which the fused epilogue's few warps could
+// not hide)
+__device__ __forceinline__ float silu(float y) { return __fdividef(y, __fadd_rn(1.f, __expf(-y))); }
+
+// SiLU((v - mu) * scale + beta) + em; scale = rstd * gamma (__fmul_rn)
+__device__ __forceinline__ float gn_act(float v, float mu, float scale, float beta, float em) {
+  return __fadd_rn(silu(__fmaf_rn(__fsub_rn(v, mu), scale, beta)), em);
+}
+
 // GroupNorm of (sample b, group g) as per-channel tables the normalise
-// pass reads: mean[b, c] = mu, scale[b, c] = gamma[c] / sqrt(var + eps)
+// pass reads: mean[b, c] = mu, scale[b, c] = rs * gamma[c]
 __device__ __forceinline__ void write_norm_tables(float* mean, float* scale, const void* gamma,
                                                   int pdt, int b, int g, int C, int cg,
-                                                  float mu, float var, float eps, int first,
-                                                  int step) {
-  const float rs = 1.f / sqrtf(var + eps);
+                                                  float mu, float rs, int first, int step) {
   for (int c = g * cg + first; c < (g + 1) * cg; c += step) {
     mean[static_cast<size_t>(b) * C + c] = mu;
-    scale[static_cast<size_t>(b) * C + c] = rs * load_f(gamma, c, pdt);
+    scale[static_cast<size_t>(b) * C + c] = __fmul_rn(rs, load_f(gamma, c, pdt));
   }
 }
 
@@ -262,10 +302,9 @@ group_stats_kernel(const float* __restrict__ h, const void* __restrict__ gamma, 
     v += d * d;
   }
   const float var = block_sum(v, scratch) / static_cast<float>(count);
-  write_norm_tables(mean, scale, gamma, pdt, b, g, C, cg, mu, var, eps, threadIdx.x, kStatsThreads);
+  write_norm_tables(mean, scale, gamma, pdt, b, g, C, cg, mu, 1.f / sqrtf(var + eps), threadIdx.x,
+                    kStatsThreads);
 }
-
-__device__ __forceinline__ float silu(float y) { return y / (1.f + expf(-y)); }
 
 // out = SiLU((h - mean[b, c]) * scale[b, c] + beta[c]) [+ emb[b, c]] [+ res]
 // Block (C / 4, ny) covers `rows` pixels of samples blockIdx.y,
@@ -289,13 +328,11 @@ gn_silu_kernel(const float* __restrict__ h, const float* __restrict__ mean,
     for (int p = p0 + static_cast<int>(threadIdx.y); p < p1; p += static_cast<int>(blockDim.y)) {
       const size_t i = (static_cast<size_t>(b) * HW + p) * C + c;
       const float4 v = *reinterpret_cast<const float4*>(h + i);
-      float4 y = make_float4(silu((v.x - mu.x) * sc.x + be.x) + em.x,
-                             silu((v.y - mu.y) * sc.y + be.y) + em.y,
-                             silu((v.z - mu.z) * sc.z + be.z) + em.z,
-                             silu((v.w - mu.w) * sc.w + be.w) + em.w);
+      float4 y = make_float4(gn_act(v.x, mu.x, sc.x, be.x, em.x), gn_act(v.y, mu.y, sc.y, be.y, em.y),
+                             gn_act(v.z, mu.z, sc.z, be.z, em.z), gn_act(v.w, mu.w, sc.w, be.w, em.w));
       if (res != nullptr) {
         const float4 r = load4(res, i, rdt);
-        y = make_float4(y.x + r.x, y.y + r.y, y.z + r.z, y.w + r.w);
+        y = make_float4(__fadd_rn(y.x, r.x), __fadd_rn(y.y, r.y), __fadd_rn(y.z, r.z), __fadd_rn(y.w, r.w));
       }
       store4(out, i, odt, y);
     }
@@ -312,6 +349,8 @@ constexpr int kPitch = kTileN + 8;        // floats per row of the staged tile
 constexpr int kEpiThreads = 1024;
 constexpr int kSmemMax = 232448;          // shared memory a block may use (227 KB)
 constexpr int kRegGroups = 8;             // the most groups the register epilogue's N tile holds
+constexpr int kFuseSegs = 9;              // the most samples a tile normalises in its epilogue
+constexpr int kMaxCluster = 8;            // the portable thread-block cluster size
 
 // The A-by-TMA conv's ring holds at most NOPE_CONV_RING K-slices (5 hides
 // the TMA's latency; scripts/k3_tiles.py builds other depths to sweep them)
@@ -491,6 +530,85 @@ __device__ void finish_tile(float* stage, int bm, int mt, int n0, int M, int Cou
   }
 }
 
+// The bf16 conv's staged epilogue of one unsplit (bm x 192) tile, run by
+// the kThreads finisher threads (a multiple of 48): thread t keeps the four
+// columns 4 (t % 48) .. + 3 (inside one group: cg % 4 == 0) down the rows
+// r = t / 48 (mod kThreads / 48), as norm_staged does, with float4 sums, so
+// its few warps have independent work in flight.  Per segment (the tile's
+// rows of one sample): pass A adds the bias in place, stores the rows to
+// `out` unless it is null, and sums each column down the thread's rows;
+// the group's column sums make the segment's (count, mean); pass B sums the
+// squared deviations from it into M2.  The partial goes to part[((mt * G
+// + g) * segmax + s) * 3] or, fused, to own[(s * kRegGroups + g) * 3]
+// (shared memory); neither given, only pass A runs.  Scratch after the
+// tile: kThreads / 48 x 192 column sums, then kRegGroups means.
+template <int kThreads>
+__device__ void finish_staged(float* stage, int bm, int mt, int n0, int M, int Cout, int HW, int G, int segmax,
+                              const void* bias, int bdt, float* out, float* part, float* own, int tid) {
+  constexpr int kQuads = kTileN / 4, kStep = kThreads / kQuads;
+  static_assert(kThreads % kQuads == 0, "a thread a column quad");
+  float4* red = reinterpret_cast<float4*>(stage + bm * kPitch);
+  float* gmean = stage + bm * kPitch + kStep * kTileN;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int m0 = mt * bm, rows = min(bm, M - m0), cols = min(kTileN, Cout - n0);
+  const int quad = tid % kQuads, c = 4 * quad, par = tid / kQuads, cg = Cout / G, ng = cols / cg;
+  const bool live = c < cols, stats = part != nullptr || own != nullptr;
+  const float4 bv = live ? make_float4(load_f(bias, n0 + c, bdt), load_f(bias, n0 + c + 1, bdt),
+                                       load_f(bias, n0 + c + 2, bdt), load_f(bias, n0 + c + 3, bdt))
+                         : zero;
+  const int b0 = m0 / HW, nseg = (m0 + rows - 1) / HW - b0 + 1;
+  for (int s = 0; s < nseg; ++s) {
+    const int ra = max(m0, (b0 + s) * HW) - m0, rb = min(m0 + rows, (b0 + s + 1) * HW) - m0;
+    const int first = ra + ((par - ra) % kStep + kStep) % kStep;
+    const float n = static_cast<float>((rb - ra) * cg);
+    float4 sum = zero;
+    for (int r = live ? first : rb; r < rb; r += kStep) {  // pass A
+      float4* p = reinterpret_cast<float4*>(&stage[r * kPitch + c]);
+      float4 v = *p;
+      v = make_float4(v.x + bv.x, v.y + bv.y, v.z + bv.z, v.w + bv.w);
+      *p = v;
+      if (out != nullptr) *reinterpret_cast<float4*>(&out[static_cast<size_t>(m0 + r) * Cout + n0 + c]) = v;
+      sum = make_float4(sum.x + v.x, sum.y + v.y, sum.z + v.z, sum.w + v.w);
+    }
+    if (!stats) continue;
+    red[par * kQuads + quad] = sum;
+    sync_threads(kThreads);
+    float* o = own != nullptr ? own + (s * kRegGroups + tid) * 3
+                              : part + ((static_cast<size_t>(mt) * G + n0 / cg + tid) * segmax + s) * 3;
+    if (tid < ng) {  // the group's columns, each parity in turn
+      float4 a = zero;
+      for (int k = tid * cg / 4; k < (tid + 1) * cg / 4; ++k)
+        for (int j = 0; j < kStep; ++j) {
+          const float4 v = red[j * kQuads + k];
+          a = make_float4(a.x + v.x, a.y + v.y, a.z + v.z, a.w + v.w);
+        }
+      gmean[tid] = ((a.x + a.y) + (a.z + a.w)) / n;
+      o[0] = n;
+      o[1] = gmean[tid];
+    }
+    sync_threads(kThreads);
+    const float mu = live ? gmean[c / cg] : 0.f;
+    float4 sq = zero;
+    for (int r = live ? first : rb; r < rb; r += kStep) {  // pass B
+      const float4 v = *reinterpret_cast<const float4*>(&stage[r * kPitch + c]);
+      const float4 d = make_float4(v.x - mu, v.y - mu, v.z - mu, v.w - mu);
+      sq = make_float4(sq.x + d.x * d.x, sq.y + d.y * d.y, sq.z + d.z * d.z, sq.w + d.w * d.w);
+    }
+    red[par * kQuads + quad] = sq;
+    sync_threads(kThreads);
+    if (tid < ng) {
+      float4 a = zero;
+      for (int k = tid * cg / 4; k < (tid + 1) * cg / 4; ++k)
+        for (int j = 0; j < kStep; ++j) {
+          const float4 v = red[j * kQuads + k];
+          a = make_float4(a.x + v.x, a.y + v.y, a.z + v.z, a.w + v.w);
+        }
+      o[2] = (a.x + a.y) + (a.z + a.w);
+    }
+    sync_threads(kThreads);  // red and gmean serve the next segment
+  }
+}
+
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
@@ -569,6 +687,107 @@ __device__ __forceinline__ uint32_t cluster_rank() {
 // every thread of the cluster that has not exited meets here
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// store {a, b, c, d} at this CTA's shared address `addr` in CTA `cta` of the
+// cluster (distributed shared memory), completing 16 bytes of the
+// transaction count of the mbarrier at offset `bar` there: the receiver
+// arms its barrier with the bytes it expects and waits on it, as for a TMA
+// load, with no fence on either side
+__device__ __forceinline__ void st_async_v4(uint32_t addr, uint32_t cta, float a, float b, float c, float d,
+                                            uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b32 ra, rb;\nmapa.shared::cluster.u32 ra, %0, %1;\nmapa.shared::cluster.u32 rb, %2, %1;\n"
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [ra], {%3, %4, %5, %6}, [rb];\n}\n" ::"r"(addr),
+      "r"(cta), "r"(bar), "f"(a), "f"(b), "f"(c), "f"(d)
+      : "memory");
+}
+
+// The bf16 conv's fused GroupNorm epilogue.  With dst set, a tile's biased
+// sums h are normalised where they are, SiLU((h - mu) * rstd * gamma + beta)
+// + emb[sample] (+ res), with gn_silu's arithmetic, and stored as bf16 rows
+// of dst (M, Cout); neither the float32 h nor its partials leave the SM.
+struct FusedNorm {
+  const void* gamma;
+  const void* beta;
+  const void* emb;  // (B, Cout), or null
+  const void* res;  // (M, Cout) of dtype rdt, or null
+  int pdt, rdt;     // dtype codes: gamma, beta and emb; res
+  __nv_bfloat16* dst;
+  float eps;
+};
+
+// The normalisation tables of a tile: for each (segment s, group g) of its
+// nseg samples and ng groups, Chan's merge from zero of `parts` (count,
+// mean, M2) partials, in order: part p of (s, g) at
+// slot[(p * kRegGroups + s * kRegGroups + g) * stride] -- the tile's own
+// (one part, stride 3), or the partials of a sample's tiles that the
+// cluster's CTAs stored here in rank order, which is tile order (stride 4):
+// the merge of gn_finalize.  table[(s * kRegGroups + g) * 2] = (mu, rstd).
+__device__ void merge_tables(const float* slot, float* table, int nseg, int ng, int parts, int stride, float eps,
+                             int tid, int threads) {
+  for (int k = tid; k < nseg * ng; k += threads) {
+    const int i = (k / ng) * kRegGroups + k % ng;
+    float n = 0.f, mu = 0.f, m2 = 0.f;
+    for (int p = 0; p < parts; ++p) {
+      const float* e = slot + (p * kRegGroups + i) * stride;
+      chan_merge(n, mu, m2, e[0], e[1], e[2]);
+    }
+    table[2 * i] = mu;
+    table[2 * i + 1] = norm_rstd(m2, n, eps);
+  }
+}
+
+// Normalise a staged (bm x 192) tile of biased sums (as finish_staged
+// leaves it) by its tables and store rows m0.. of fn.dst, as gn_silu would,
+// run by finish_staged's kThreads threads on its mapping: thread t keeps
+// columns 4 (t % 48) .. + 3 (one group) down every kThreads / 48-th row.
+// A segment's mean, scales and emb are the thread's constants; its rows go
+// in batches of kRows (loads clamped to the thread's last row, stores
+// predicated), with the next batch's res loaded ahead of this batch's
+// stores (a store may alias a later load for all the compiler knows).
+template <int kThreads>
+__device__ void norm_staged(const float* stage, const float* table, int bm, int mt, int n0, int M, int Cout,
+                            int HW, int G, const FusedNorm& fn, int tid) {
+  constexpr int kQuads = kTileN / 4, kStep = kThreads / kQuads, kRows = 8;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int m0 = mt * bm, b0 = m0 / HW, rows = min(bm, M - m0), c = 4 * (tid % kQuads), par = tid / kQuads;
+  if (c >= min(kTileN, Cout - n0)) return;
+  const int g = c / (Cout / G), nseg = (m0 + rows - 1) / HW - b0 + 1;
+  const float4 ga = load4(fn.gamma, n0 + c, fn.pdt), be = load4(fn.beta, n0 + c, fn.pdt);
+  for (int s = 0; s < nseg; ++s) {
+    const int ra = max(m0, (b0 + s) * HW) - m0, rb = min(m0 + rows, (b0 + s + 1) * HW) - m0;
+    const int first = ra + ((par - ra) % kStep + kStep) % kStep;
+    if (first >= rb) continue;
+    const int last = first + (rb - 1 - first) / kStep * kStep;
+    const float mu = table[(s * kRegGroups + g) * 2], rs = table[(s * kRegGroups + g) * 2 + 1];
+    const float4 sc = make_float4(__fmul_rn(rs, ga.x), __fmul_rn(rs, ga.y), __fmul_rn(rs, ga.z), __fmul_rn(rs, ga.w));
+    const float4 em = fn.emb != nullptr ? load4(fn.emb, static_cast<size_t>(b0 + s) * Cout + n0 + c, fn.pdt) : zero;
+    auto res_at = [&](int r) {
+      return load4(fn.res, static_cast<size_t>(m0 + min(r, last)) * Cout + n0 + c, fn.rdt);
+    };
+    float4 rv[kRows];
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) rv[k] = fn.res != nullptr ? res_at(first + k * kStep) : zero;
+    for (int r = first; r < rb; r += kRows * kStep) {
+      float4 v[kRows], rcur[kRows];
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) {
+        v[k] = *reinterpret_cast<const float4*>(&stage[min(r + k * kStep, last) * kPitch + c]);
+        rcur[k] = rv[k];
+        if (fn.res != nullptr) rv[k] = res_at(r + (kRows + k) * kStep);
+      }
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) {
+        float4 y = make_float4(gn_act(v[k].x, mu, sc.x, be.x, em.x), gn_act(v[k].y, mu, sc.y, be.y, em.y),
+                               gn_act(v[k].z, mu, sc.z, be.z, em.z), gn_act(v[k].w, mu, sc.w, be.w, em.w));
+        if (fn.res != nullptr)
+          y = make_float4(__fadd_rn(y.x, rcur[k].x), __fadd_rn(y.y, rcur[k].y), __fadd_rn(y.z, rcur[k].z),
+                          __fadd_rn(y.w, rcur[k].w));
+        if (r + k * kStep < rb) store4(fn.dst, static_cast<size_t>(m0 + r + k * kStep) * Cout + n0 + c, DT_BF16, y);
+      }
+    }
+  }
 }
 
 // wait until at most N of this warpgroup's wgmma groups are in flight
@@ -831,65 +1050,89 @@ __device__ __forceinline__ void finish_registers(float (&acc)[96], int threads, 
 // Whether finish_registers takes the GroupNorm groups of cg = Cout / G
 // channels: whole 8-column blocks, at most kRegGroups groups in an N tile.
 // Other groups (e.g. 32 groups of 256 channels, 24 in the first N tile)
-// take the staged epilogue, whose finish_tile takes any cg | 192.
+// take the staged epilogue, whose finish_staged takes any cg | 192.  The
+// fused epilogue takes only these groups.
 __host__ __device__ constexpr bool register_groups(int Cout, int G) {
   return Cout % G == 0 && (Cout / G) % 8 == 0 && (Cout < kTileN ? Cout : kTileN) / (Cout / G) <= kRegGroups;
 }
 
 // The A-by-TMA conv's shared memory after its ring, in floats: the staged
-// tile and finish_tile's scratch, or finish_registers' row sums and the
-// means of kRegGroups groups of `segmax` samples
-__host__ __device__ constexpr int after_ring_floats(int bm, bool staged, int segmax) {
-  return staged ? bm * kPitch + 2 * kTileN : bm * (kTileN / 8 + 1) + kRegGroups * segmax;
+// tile and finish_staged's scratch, with the fused epilogue's own partials (3
+// floats a (segment, group)), its two exchange slots (kMaxCluster x
+// kRegGroups entries of 4 floats) and its tables (2 a (segment, group));
+// or finish_registers' row sums and the means of kRegGroups groups of
+// `segmax` samples
+__host__ __device__ constexpr int after_ring_floats(int bm, bool staged, int segmax, bool fused) {
+  return staged ? bm * kPitch + 2 * kTileN + kRegGroups +
+                      (fused ? 5 * kRegGroups * segmax + 8 * kMaxCluster * kRegGroups : 0)
+                : bm * (kTileN / 8 + 1) + kRegGroups * segmax;
 }
 
 // its ring's depth in K-slices: the deepest that fits beside that (segmax
-// up to the tile's rows) and its barriers, at most NOPE_CONV_RING: 5 for
-// 64-row tiles and for 128 from registers, 3 beside a staged 128-row tile
+// up to kFuseSegs staged and fused, the tile's rows from registers) and its
+// barriers, at most NOPE_CONV_RING: 5 for 64-row tiles and for 128 from
+// registers, 3 beside a staged 128-row tile
 template <int CONS, bool STAGED>
 __host__ __device__ constexpr int conv_ring() {
   constexpr int kBM = 64 * CONS, kStageBytes = (kBM + kTileN) * kRowBytes;
-  constexpr int kFits =
-      (kSmemMax - 1024 - 4 * after_ring_floats(kBM, STAGED, kBM) - 8 * (2 * NOPE_CONV_RING + 2)) / kStageBytes;
+  constexpr int kFits = (kSmemMax - 1024 - 4 * after_ring_floats(kBM, STAGED, STAGED ? kFuseSegs : kBM, STAGED) -
+                         8 * (2 * NOPE_CONV_RING + 4)) / kStageBytes;
   return kFits < NOPE_CONV_RING ? kFits : NOPE_CONV_RING;
 }
 
-// The bf16 conv with A by TMA, a persistent grid: block i takes tiles i,
-// i + gridDim.x, ... of (mt, nt, split), mt fastest.  A tile is output
-// pixels [mt * bm, mt * bm + bm), a box of `rows` whole image rows of
-// `samples` samples (bm <= BM = 64 * CONS), by 192 columns, over K-slices
-// [kt0, kt1) of its split.  Warpgroups 0 .. CONS - 1 multiply, one
-// m64n192 product each.  In warpgroup CONS, one thread of warp 0 is the
-// producer: it asks the TMA for each K-slice's A box (x at the slice's tap
-// shift: the image's padding arrives as the box's zero fill) and B tile,
-// into a ring of kRing slots (conv_ring), each with a `full` and an `empty` mbarrier,
-// across tiles.  A consumer waits on `full`, issues the slice's wgmmas,
-// commits, and waits until only that group is in flight (wait_group 1)
-// before it releases the previous slice's slot on `empty`: the tensor
-// cores do not drain between slices, and no block-wide barrier stands in
-// the mainloop.  With CL = 2 the grid is of 2-CTA clusters that take
-// neighbouring M tiles (2 p, 2 p + 1) of the same (nt, split): each CTA
-// asks for half the weight tile and multicasts it to both, so a pair reads
-// each weight slice from L2 once, and a slot is free only when both CTAs'
-// consumers have released it (their arrivals meet on each CTA's `empty`).
-// A pair's second tile past the last M tile is a ghost: it loads zeros and
-// skips its epilogue.  Two epilogues:
+// The bf16 conv with A by TMA, a persistent grid of clusters of `cl` CTAs
+// along M (cl = 1: plain blocks).  A unit is `cl` neighbouring M tiles
+// (cl p .. cl p + cl - 1, CTA rank r taking cl p + r) of one (nt, split);
+// cluster i takes units i, i + gridDim.x / cl, ..., mt fastest.  A tile is
+// output pixels [mt * bm, mt * bm + bm), a box of `rows` whole image rows
+// of `samples` samples (bm <= BM = 64 * CONS), by 192 columns, over
+// K-slices [kt0, kt1) of its split.  Warpgroups 0 .. CONS - 1 multiply,
+// one m64n192 product each.  In warpgroup CONS, one thread of warp 0 is
+// the producer: it asks the TMA for each K-slice's A box (x at the slice's
+// tap shift: the image's padding arrives as the box's zero fill) and B
+// tile, into a ring of kRing slots (conv_ring), each with a `full` and an
+// `empty` mbarrier, across tiles.  A consumer waits on `full`, issues the
+// slice's wgmmas, commits, and waits until only that group is in flight
+// (wait_group 1) before it releases the previous slice's slot on `empty`:
+// the tensor cores do not drain between slices, and no block-wide barrier
+// stands in the mainloop.  With `mcast` the cluster's CTAs pair up (2 p,
+// 2 p + 1): each asks for half the weight tile and multicasts it to both,
+// so a pair reads each weight slice from L2 once, and a slot is free only
+// when both CTAs' consumers have released it (their arrivals meet on each
+// CTA's `empty`).  (Sharing it across a cluster of 8 kept all 8 mainloops
+// in lockstep and was slower: PERF.md.)  A unit's tile past the last M
+// tile is a ghost: it loads zeros and skips its epilogue.  Two epilogues:
 // - STAGED (tiles of few K-slices, whose epilogue would rival their
 //   mainloop): the consumers stage their sums in shared memory
 //   (`staged_full`) and go on to the next tile; warps 1-3 of warpgroup
-//   CONS finish the staged tile meanwhile (finish_tile; or, with more than
-//   one split, the raw sums to ws[split] for splitk_reduce) and free it
+//   CONS finish the staged tile meanwhile (finish_staged, or finish_tile
+//   for groups narrower than its 4-column quads; or, with more than one
+//   split, the raw sums to ws[split] for splitk_reduce) and free it
 //   (`staged_empty`).  The staged tile leaves room for a ring of 3 slots
 //   at 128 rows.  Any groups cg | 192.
 // - otherwise the consumers finish the tile from their registers
 //   (finish_registers, for the groups register_groups takes), which
 //   leaves room for a ring of 5.
-template <int CONS, bool STAGED, int CL>
+// Fused (fn.dst set, one split, STAGED): GroupNorm, SiLU and emb or res in
+// the finishers' epilogue, bf16 out (FusedNorm), beside the next tile's
+// mainloop.  A tile of whole samples normalises alone.  Otherwise the
+// unit's cl tiles are the sample's (cl bm = HW): the finishers push the
+// tile's partials (st.async) into entry `rank` of a slot in every CTA of
+// the cluster, completing bytes of that CTA's `xfull`, which each CTA arms
+// with the bytes it expects; they wait on their own and merge the cl
+// partials, now local, in rank order (merge_tables) before they normalise
+// the tile (norm_staged).  Slots and barriers go by unit parity: a CTA
+// pushes unit i + 2 only after every peer's unit i + 1 has arrived, which
+// each peer pushes after merging unit i, so no slot is overwritten before
+// it is read.  No barrier.cluster stands in the loop: the producer and
+// the finishers walk their own loops.
+template <int CONS, bool STAGED>
 __global__ void __launch_bounds__(128 * (CONS + 1), 1)
 conv_wgmma_tma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
                       const void* __restrict__ bias, int bdt, float* __restrict__ out,
                       float* __restrict__ part, float* __restrict__ ws, int M, int HW, int W, int Cout,
-                      int ks, int per_tap, int G, int bm, int segmax, int splits) {
+                      int ks, int per_tap, int G, int bm, int segmax, int splits, int cl, int mcast,
+                      const FusedNorm fn) {
   constexpr int kSlice = Operand<__nv_bfloat16>::kSlice, kRing = conv_ring<CONS, STAGED>();
   static_assert(kRing >= 2, "the ring is too short");
   constexpr int kBM = 64 * CONS, kConsumers = 128 * CONS, kFinishers = 96;
@@ -900,27 +1143,32 @@ conv_wgmma_tma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_con
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t ring = (raw + 1023u) & ~1023u;
   float* after_ring = reinterpret_cast<float*>(smem_raw + (ring - raw) + kRing * kStageBytes);
-  __shared__ __align__(8) uint64_t full_bars[kRing], empty_bars[kRing], staged_bars[2];
-  const uint32_t full = smem_u32(full_bars), empty = smem_u32(empty_bars);
+  __shared__ __align__(8) uint64_t full_bars[kRing], empty_bars[kRing], staged_bars[2], xfull_bars[2];
+  const uint32_t full = smem_u32(full_bars), empty = smem_u32(empty_bars), xfull = smem_u32(xfull_bars);
   const uint32_t staged_full = smem_u32(staged_bars), staged_empty = staged_full + 8;
+  const bool fuse = fn.dst != nullptr, xchg = fuse && bm < HW;
+  // the CTAs that fill (and free) each ring slot: this CTA, or with mcast
+  // the pair (2 p, 2 p + 1) of the cluster it belongs to
+  const int sharers = mcast ? 2 : 1;
 
   const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
   const int tiles_m = (M + bm - 1) / bm, tiles_n = (Cout + kTileN - 1) / kTileN;
-  // a block walks units (a tile, or with CL = 2 its cluster's pair of tiles)
-  const int units_m = (tiles_m + CL - 1) / CL, rank = CL > 1 ? static_cast<int>(cluster_rank()) : 0;
+  const int units_m = (tiles_m + cl - 1) / cl, rank = cl > 1 ? static_cast<int>(cluster_rank()) : 0;
   const int n_units = units_m * tiles_n * splits, KT = ks * ks * per_tap;
-  const int first = blockIdx.x / CL, stride = gridDim.x / CL;
+  const int first = blockIdx.x / cl, stride = gridDim.x / cl;
   if (tid == 0) {
     for (int s = 0; s < kRing; ++s) {
-      mbar_init(full + 8 * s, 1);               // the producer's expect_tx
-      mbar_init(empty + 8 * s, 4 * CONS * CL);  // one arrive per consumer warp of the cluster
+      mbar_init(full + 8 * s, 1);                    // the producer's expect_tx
+      mbar_init(empty + 8 * s, 4 * CONS * sharers);  // one arrive per consumer warp of the sharers
     }
     mbar_init(staged_full, 4 * CONS);
     mbar_init(staged_empty, 1);
+    mbar_init(xfull, 1);  // the finishers' expect_tx, then the cluster's st.async bytes; by unit parity
+    mbar_init(xfull + 8, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if constexpr (CL > 1)
-    cluster_sync();  // the partner's barriers exist before any multicast or remote arrive
+  if (cl > 1)
+    cluster_sync();  // the peers' barriers exist before any multicast or remote arrive
   else
     __syncthreads();
 
@@ -928,24 +1176,24 @@ conv_wgmma_tma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_con
     const int warp = (tid >> 5) & 3;
     if (warp == 0) {  // the producer
       if (lane != 0) return;
-      const int pad = ks / 2;
+      const int pad = ks / 2, share = kTileN / sharers, peer0 = rank - rank % sharers;
       const uint32_t bytes = bm * kRowBytes + kTileN * kRowBytes;  // out-of-bounds zeros count
       int slot = 0, phase = 0, issued = 0;
       for (int u = first; u < n_units; u += stride) {
-        const int mt = (u % units_m) * CL + rank, nt = (u / units_m) % tiles_n, split = u / (units_m * tiles_n);
+        const int mt = (u % units_m) * cl + rank, nt = (u / units_m) % tiles_n, split = u / (units_m * tiles_n);
         const int m0 = mt * bm, b0 = m0 / HW, y0 = (m0 - b0 * HW) / W;
         const int kt0 = static_cast<int>(static_cast<long long>(split) * KT / splits);
         const int kt1 = static_cast<int>(static_cast<long long>(split + 1) * KT / splits);
         for (int kt = kt0; kt < kt1; ++kt, ++issued) {
-          if (issued >= kRing) mbar_wait(empty + 8 * slot, phase ^ 1);  // its last reader is done
+          if (issued >= kRing) mbar_wait(empty + 8 * slot, phase ^ 1);  // its last readers are done
           const int tap = kt / per_tap, c = (kt - tap * per_tap) * kSlice;
           const int dy = tap / ks - pad, dx = tap % ks - pad;
           const uint32_t sa = ring + slot * kStageBytes, bar = full + 8 * slot;
           mbar_expect_tx(bar, bytes);
           tma_load_4d(sa, &xmap, c, dx, y0 + dy, b0, bar);
-          if constexpr (CL > 1)  // this CTA's half of the weight tile, to both
-            tma_load_2d_multicast(sa + kABytes + rank * (kTileN / 2) * kRowBytes, &wmap, kt * kSlice,
-                                  nt * kTileN + rank * (kTileN / 2), bar, 3);
+          if (mcast)  // this CTA's half of the weight tile, to both CTAs of its pair
+            tma_load_2d_multicast(sa + kABytes + (rank - peer0) * share * kRowBytes, &wmap, kt * kSlice,
+                                  nt * kTileN + (rank - peer0) * share, bar, static_cast<uint16_t>(3 << peer0));
           else
             tma_load_2d(sa + kABytes, &wmap, kt * kSlice, nt * kTileN, bar);  // rows past Cout: zeros
           if (++slot == kRing) {
@@ -954,18 +1202,47 @@ conv_wgmma_tma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_con
           }
         }
       }
-      if constexpr (CL > 1) cluster_sync();  // the partner may still multicast into this CTA
+      if (cl > 1) cluster_sync();  // a peer may still multicast into this CTA
       return;
     }
     if constexpr (STAGED) {  // the finishers: warps 1-3, named barrier 1 among themselves
       const int ftid = tid - kConsumers - 32;
+      // after_ring_floats: the tile's own partials, the exchange slots (two,
+      // by unit parity, of kMaxCluster x kRegGroups entries of 4 floats),
+      // the tables
+      float* own = after_ring + kBM * kPitch + 2 * kTileN + kRegGroups;
+      float* slots = own + kRegGroups * segmax * 3;
+      float* table = slots + 2 * kMaxCluster * kRegGroups * 4;
       int i = 0;
       for (int u = first; u < n_units; u += stride, ++i) {
-        const int mt = (u % units_m) * CL + rank, nt = (u / units_m) % tiles_n, split = u / (units_m * tiles_n);
+        const int mt = (u % units_m) * cl + rank, nt = (u / units_m) % tiles_n, split = u / (units_m * tiles_n);
         const int m0 = mt * bm, n0 = nt * kTileN;
         mbar_wait(staged_full, i & 1);
         if (m0 >= M) {  // a ghost tile
-        } else if (splits == 1) {
+        } else if (fuse) {
+          const int ng = min(kTileN, Cout - n0) / (Cout / G), rows = min(bm, M - m0);
+          finish_staged<kFinishers>(after_ring, bm, mt, n0, M, Cout, HW, G, segmax, bias, bdt, nullptr, nullptr, own,
+                                    ftid);  // ends at a barrier: the tile's partials are in `own`
+          if (xchg) {  // one segment: push its ng partials to slot `rank` of every CTA of the cluster
+            const uint32_t bar = xfull + 8 * (i & 1);
+            float* slot = slots + (i & 1) * kMaxCluster * kRegGroups * 4;
+            if (ftid == 0) mbar_expect_tx(bar, cl * ng * 16);
+            for (int k = ftid; k < cl * ng; k += kFinishers) {
+              const int g = k % ng;
+              st_async_v4(smem_u32(slot + (rank * kRegGroups + g) * 4), k / ng, own[3 * g], own[3 * g + 1],
+                          own[3 * g + 2], 0.f, bar);
+            }
+            mbar_wait(bar, (i >> 1) & 1);  // every tile of the sample has pushed its partials here
+            merge_tables(slot, table, 1, ng, cl, 4, fn.eps, ftid, kFinishers);
+          } else {
+            merge_tables(own, table, (m0 + rows - 1) / HW - m0 / HW + 1, ng, 1, 3, fn.eps, ftid, kFinishers);
+          }
+          sync_threads(kFinishers);
+          norm_staged<kFinishers>(after_ring, table, bm, mt, n0, M, Cout, HW, G, fn, ftid);
+        } else if (splits == 1 && (Cout / G) % 4 == 0) {
+          finish_staged<kFinishers>(after_ring, bm, mt, n0, M, Cout, HW, G, segmax, bias, bdt, out, part, nullptr,
+                                    ftid);
+        } else if (splits == 1) {  // groups narrower than finish_staged's 4-column quads
           finish_tile(after_ring, bm, mt, n0, M, Cout, HW, G, segmax, bias, bdt, out, part, ftid, kFinishers);
         } else {
           float* dst = ws + static_cast<size_t>(split) * M * Cout;
@@ -981,7 +1258,7 @@ conv_wgmma_tma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_con
         if (ftid == 0) mbar_arrive(staged_empty);
       }
     }
-    if constexpr (CL > 1) cluster_sync();
+    if (cl > 1) cluster_sync();
     return;
   }
 
@@ -991,17 +1268,16 @@ conv_wgmma_tma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_con
   const uint32_t a_rows = wg * 64 * kRowBytes;
   int slot = 0, phase = 0, i = 0;
   float acc[96];
-  auto release = [&](int s) {  // in every CTA of the cluster
-#pragma unroll
-    for (int cta = 0; cta < CL; ++cta) {
-      if constexpr (CL > 1)
-        mbar_arrive_cluster(empty + 8 * s, cta);
-      else
-        mbar_arrive(empty + 8 * s);
+  auto release = [&](int s) {  // in every CTA that shares the slot
+    if (mcast) {
+      mbar_arrive_cluster(empty + 8 * s, rank & ~1);
+      mbar_arrive_cluster(empty + 8 * s, rank | 1);
+    } else {
+      mbar_arrive(empty + 8 * s);
     }
   };
   for (int u = first; u < n_units; u += stride, ++i) {
-    const int mt = (u % units_m) * CL + rank, nt = (u / units_m) % tiles_n, split = u / (units_m * tiles_n);
+    const int mt = (u % units_m) * cl + rank, nt = (u / units_m) % tiles_n, split = u / (units_m * tiles_n);
     const int kt0 = static_cast<int>(static_cast<long long>(split) * KT / splits);
     const int kt1 = static_cast<int>(static_cast<long long>(split + 1) * KT / splits);
 #pragma unroll
@@ -1037,12 +1313,12 @@ conv_wgmma_tma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_con
       __syncwarp();
       if (lane == 0) mbar_arrive(staged_full);
     } else if (mt * bm < M) {  // not a ghost tile
-      finish_registers(acc, kConsumers, tid, r0, mt, split, mt * bm, nt * kTileN, M, HW, Cout, G, bm,
-                       segmax, splits, bias, bdt, out, part, ws, after_ring,
+      finish_registers(acc, kConsumers, tid, r0, mt, split, mt * bm, nt * kTileN, M, HW, Cout, G, bm, segmax,
+                       splits, bias, bdt, out, part, ws, after_ring,
                        after_ring + kBM * (kTileN / 8 + 1));  // after_ring_floats
     }
   }
-  if constexpr (CL > 1) cluster_sync();  // the partner's consumers may still arrive on this CTA
+  if (cl > 1) cluster_sync();  // the peers' consumers may still arrive on this CTA
 }
 
 // Sum the splits of one (bm x 192) tile in split order, then finish it.
@@ -1099,14 +1375,10 @@ gn_finalize_kernel(const float* __restrict__ part, const void* __restrict__ gamm
     }
     for (int t = 0; t < min(32, mt1 - base + 1); ++t) {
       const float nb = __shfl_sync(0xffffffffu, pn, t), mb = __shfl_sync(0xffffffffu, pm, t);
-      const float qb = __shfl_sync(0xffffffffu, pq, t);
-      const float nt = n + nb, d = mb - mu;
-      mu += d * (nb / nt);
-      m2 += qb + d * d * (n * nb / nt);
-      n = nt;
+      chan_merge(n, mu, m2, nb, mb, __shfl_sync(0xffffffffu, pq, t));
     }
   }
-  write_norm_tables(mean, scale, gamma, pdt, b, g, C, C / G, mu, m2 / n, eps, lane, 32);
+  write_norm_tables(mean, scale, gamma, pdt, b, g, C, C / G, mu, norm_rstd(m2, n, eps), lane, 32);
 }
 
 template <int BM, int STAGES>
@@ -1230,43 +1502,65 @@ int conv_tf32x3(const void* x, const void* w, const void* bias, int bdt, float* 
                                         Cout, H * W, G, bm, segmax));
 }
 
-template <int CONS, bool STAGED, int CL>
-cudaError_t launch_conv_tma(int units, cudaStream_t stream, const CUtensorMap& xmap, const CUtensorMap& wmap,
-                            const void* bias, int bdt, float* out, float* part, float* ws, int M, int HW,
-                            int W, int Cout, int ks, int per_tap, int G, int bm, int segmax, int splits) {
-  constexpr int kBM = 64 * CONS, kStageBytes = (kBM + kTileN) * kRowBytes;
-  // the ring, then after_ring_floats; one block an SM
-  if (bm > kBM || segmax > bm) return cudaErrorInvalidValue;
-  const int smem = 1024 + conv_ring<CONS, STAGED>() * kStageBytes + 4 * after_ring_floats(kBM, STAGED, segmax);
-  auto kernel = conv_wgmma_tma_kernel<CONS, STAGED, CL>;
+// The launch configuration of conv_wgmma_tma_kernel<CONS, STAGED> in
+// clusters of `cl` CTAs with `smem` bytes of dynamic shared memory (one
+// block an SM), and how many such clusters the card holds at once, per
+// device and cluster size (cudaOccupancyMaxActiveClusters; not every SM
+// takes part in a cluster: an H100's GPCs hold 16-18 SMs).
+template <int CONS, bool STAGED>
+cudaError_t conv_tma_config(int cl, int smem, cudaStream_t stream, cudaLaunchConfig_t* cfg,
+                            cudaLaunchAttribute* cluster, int* resident) {
+  static int cached[16][kMaxCluster + 1] = {};
+  if (cl < 1 || cl > kMaxCluster) return cudaErrorInvalidValue;
+  auto kernel = conv_wgmma_tma_kernel<CONS, STAGED>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.blockDim = dim3(128 * (CONS + 1));
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute cluster[1];
-  cluster[0].id = cudaLaunchAttributeClusterDimension;
-  cluster[0].val.clusterDim.x = CL;
-  cluster[0].val.clusterDim.y = 1;
-  cluster[0].val.clusterDim.z = 1;
-  cfg.attrs = cluster;
-  cfg.numAttrs = 1;
-  // a persistent grid: as many clusters as the card holds at once (not
-  // every SM takes part in a 2-CTA cluster), per device
-  static int resident[16] = {};
+  *cfg = {};
+  cfg->blockDim = dim3(128 * (CONS + 1));
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  cluster->id = cudaLaunchAttributeClusterDimension;
+  cluster->val.clusterDim.x = cl;
+  cluster->val.clusterDim.y = 1;
+  cluster->val.clusterDim.z = 1;
+  cfg->attrs = cluster;
+  cfg->numAttrs = 1;
   int device = 0;
   err = cudaGetDevice(&device);
   if (err != cudaSuccess || device >= 16) return err != cudaSuccess ? err : cudaErrorInvalidValue;
-  if (resident[device] == 0) {
-    cfg.gridDim = dim3(CL);
-    err = cudaOccupancyMaxActiveClusters(&resident[device], kernel, &cfg);
+  if (cached[device][cl] == 0) {
+    cfg->gridDim = dim3(cl);
+    err = cudaOccupancyMaxActiveClusters(&cached[device][cl], kernel, cfg);
     if (err != cudaSuccess) return err;
-    if (resident[device] < 1) return cudaErrorInvalidConfiguration;
+    if (cached[device][cl] < 1) return cudaErrorInvalidConfiguration;
   }
-  cfg.gridDim = dim3(CL * min(units, resident[device]));
-  err = cudaLaunchKernelEx(&cfg, kernel, xmap, wmap, bias, bdt, out, part, ws, M, HW, W, Cout, ks, per_tap, G,
-                           bm, segmax, splits);
+  *resident = cached[device][cl];
+  return cudaSuccess;
+}
+
+// the kernel's dynamic shared memory: the ring, then after_ring_floats
+template <int CONS, bool STAGED>
+constexpr int conv_tma_smem(int segmax, bool fused) {
+  return 1024 + conv_ring<CONS, STAGED>() * (64 * CONS + kTileN) * kRowBytes +
+         4 * after_ring_floats(64 * CONS, STAGED, segmax, fused);
+}
+
+template <int CONS, bool STAGED>
+cudaError_t launch_conv_tma(int units, int cl, int mcast, cudaStream_t stream, const CUtensorMap& xmap,
+                            const CUtensorMap& wmap, const void* bias, int bdt, float* out, float* part,
+                            float* ws, int M, int HW, int W, int Cout, int ks, int per_tap, int G, int bm,
+                            int segmax, int splits, const FusedNorm& fn) {
+  const bool fused = fn.dst != nullptr;
+  if (bm > 64 * CONS || segmax > bm || (fused && (!STAGED || segmax > kFuseSegs))) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute cluster[1];
+  int resident = 0;
+  cudaError_t err = conv_tma_config<CONS, STAGED>(cl, conv_tma_smem<CONS, STAGED>(segmax, fused), stream, &cfg,
+                                                  cluster, &resident);
+  if (err != cudaSuccess) return err;
+  cfg.gridDim = dim3(cl * min(units, resident));  // a persistent grid
+  err = cudaLaunchKernelEx(&cfg, conv_wgmma_tma_kernel<CONS, STAGED>, xmap, wmap, bias, bdt, out, part, ws, M, HW,
+                           W, Cout, ks, per_tap, G, bm, segmax, splits, cl, mcast, fn);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -1276,11 +1570,17 @@ cudaError_t launch_conv_tma(int units, cudaStream_t stream, const CUtensorMap& x
 // rows * samples hold output pixels (rows whole image rows of one sample,
 // H % rows == 0, or samples whole samples); the staged epilogue (finisher
 // warps) or the register one, which takes the GroupNorm partials only of
-// the groups register_groups takes.  ws and part as conv_tf32x3.
+// the groups register_groups takes.  ws and part as conv_tf32x3.  The grid
+// is of clusters of `cluster` CTAs along M (at most 8), whose pairs with
+// `multicast` share each weight tile.  With fn.dst set the conv is fused
+// (FusedNorm; out and part unused): one split, the staged epilogue, groups
+// that register_groups takes, and tiles of whole samples, or `cluster`
+// tiles that make one sample.
 int conv_bf16(const void* x, const void* w, const void* bias, int bdt, float* out, float* part,
               float* ws, int B, int H, int W, int Cin, int Cout, int ks, int G, int tile, int bm, int rows,
-              int samples, int staged, int splits, int segmax, cudaStream_t s) {
-  const int M = B * H * W, K = ks * ks * Cin;
+              int samples, int staged, int splits, int segmax, int cluster, int multicast, const FusedNorm& fn,
+              cudaStream_t s) {
+  const int M = B * H * W, K = ks * ks * Cin, HW = H * W;
   if (Cin % Operand<__nv_bfloat16>::kSlice || Cout % 8 || (part != nullptr && kTileN % (Cout / G)) ||
       splits < 1 || (splits > 1 && ws == nullptr) ||
       (!staged && splits == 1 && part != nullptr && !register_groups(Cout, G)))
@@ -1289,27 +1589,21 @@ int conv_bf16(const void* x, const void* w, const void* bias, int bdt, float* ou
   if (rows < 1 || samples < 1 || rows > H || H % rows || (samples > 1 && rows != H) || W > 256 ||
       rows > 256 || samples > 256 || bm != W * rows * samples || bm > tile)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((M + bm - 1) / bm, (Cout + kTileN - 1) / kTileN, splits);
-  // 2-CTA clusters share the weight tile where the tiles fill the card
-  // twice over (with fewer, the pairs' lockstep costs more than it saves)
-  static int sms[16] = {};
-  int device = 0;
-  if (cudaGetDevice(&device) != cudaSuccess || device >= 16) return static_cast<int>(cudaErrorInvalidValue);
-  if (sms[device] == 0 &&
-      cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+  if (cluster < 1 || cluster > kMaxCluster || (multicast && cluster % 2))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int pair = grid.x > 1 && static_cast<long long>(grid.x) * grid.y * grid.z >= 2 * sms[device];
-  const int units = (pair ? (grid.x + 1) / 2 : grid.x) * grid.y * grid.z;
+  if (fn.dst != nullptr && (splits > 1 || !staged || !register_groups(Cout, G) ||
+                            (bm < HW ? cluster * bm != HW : bm % HW != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((M + bm - 1) / bm, (Cout + kTileN - 1) / kTileN, splits);
+  const int units = ((grid.x + cluster - 1) / cluster) * grid.y * grid.z;
   CUtensorMap xmap, wmap;
-  cudaError_t err = weight_map<__nv_bfloat16>(&wmap, w, K, Cout, pair ? kTileN / 2 : kTileN);
+  cudaError_t err = weight_map<__nv_bfloat16>(&wmap, w, K, Cout, multicast ? kTileN / 2 : kTileN);
   if (err == cudaSuccess) err = activation_map(&xmap, x, B, H, W, Cin, rows, samples);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int per_tap = Cin / Operand<__nv_bfloat16>::kSlice;
-#define NOPE_CONV_TMA(CONS, STAGED)                                                                       \
-  (pair ? launch_conv_tma<CONS, STAGED, 2>(units, s, xmap, wmap, bias, bdt, out, part, ws, M, H * W, W,    \
-                                           Cout, ks, per_tap, G, bm, segmax, splits)                      \
-        : launch_conv_tma<CONS, STAGED, 1>(units, s, xmap, wmap, bias, bdt, out, part, ws, M, H * W, W,    \
-                                           Cout, ks, per_tap, G, bm, segmax, splits))
+#define NOPE_CONV_TMA(CONS, STAGED)                                                                              \
+  launch_conv_tma<CONS, STAGED>(units, cluster, multicast, s, xmap, wmap, bias, bdt, out, part, ws, M, HW, W, Cout, \
+                                ks, per_tap, G, bm, segmax, splits, fn)
   if (tile == 128)
     err = staged ? NOPE_CONV_TMA(2, true) : NOPE_CONV_TMA(2, false);
   else if (tile == 64)
@@ -1319,7 +1613,25 @@ int conv_bf16(const void* x, const void* w, const void* bias, int bdt, float* ou
 #undef NOPE_CONV_TMA
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   return static_cast<int>(reduce_splits(dim3(grid.x, grid.y), s, ws, splits, bias, bdt, out, part, M,
-                                        Cout, H * W, G, bm, segmax));
+                                        Cout, HW, G, bm, segmax));
+}
+
+// How many clusters of `cluster` CTAs of the bf16 conv (tile rows,
+// staged) the card holds at once, at its largest shared memory
+int conv_bf16_clusters(int tile, int staged, int cluster, int* count) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  if (tile == 128)
+    return static_cast<int>(staged ? conv_tma_config<2, true>(cluster, conv_tma_smem<2, true>(kFuseSegs, true), 0,
+                                                              &cfg, attr, count)
+                                   : conv_tma_config<2, false>(cluster, conv_tma_smem<2, false>(128, false), 0,
+                                                               &cfg, attr, count));
+  if (tile == 64)
+    return static_cast<int>(staged ? conv_tma_config<1, true>(cluster, conv_tma_smem<1, true>(kFuseSegs, true), 0,
+                                                              &cfg, attr, count)
+                                   : conv_tma_config<1, false>(cluster, conv_tma_smem<1, false>(64, false), 0,
+                                                               &cfg, attr, count));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -1361,12 +1673,23 @@ NOPE_API int nope_gn_silu(const float* h, const float* mean, const float* scale,
 }
 
 // bf16 conv on the tensor cores, A by TMA: conv_bf16.
+// With dst set, fused: GroupNorm (gamma, beta: bf16, eps) + SiLU + emb (bf16
+// (B, Cout), or null) + res ((M, Cout) of dtype rdt, or null) into bf16 dst.
 NOPE_API int nope_conv_wgmma(const void* x, const void* w, const void* bias, int bdt, float* out,
                              float* part, float* ws, int B, int H, int W, int Cin, int Cout,
                              int ks, int G, int tile, int bm, int rows, int samples, int staged,
-                             int splits, int segmax, void* stream) {
+                             int splits, int segmax, int cluster, int multicast, const void* gamma,
+                             const void* beta, const void* emb, const void* res, int rdt, void* dst, float eps,
+                             void* stream) {
+  const FusedNorm fn = {gamma, beta, emb, res, DT_BF16, rdt, static_cast<__nv_bfloat16*>(dst), eps};
   return conv_bf16(x, w, bias, bdt, out, part, ws, B, H, W, Cin, Cout, ks, G, tile, bm, rows, samples,
-                   staged, splits, segmax, static_cast<cudaStream_t>(stream));
+                   staged, splits, segmax, cluster, multicast, fn, static_cast<cudaStream_t>(stream));
+}
+
+// *count = the clusters of `cluster` CTAs of the bf16 conv that the current
+// device holds at once (tile rows, staged epilogue or not)
+NOPE_API int nope_conv_clusters(int tile, int staged, int cluster, int* count) {
+  return conv_bf16_clusters(tile, staged, cluster, count);
 }
 
 // float32 conv on the tensor cores in 3xTF32 (Cin % 32 == 0): w is the

@@ -19,7 +19,12 @@ products summed (:func:`conv_tf32x3_plain` is that arithmetic in plain
 PyTorch);
 the GroupNorm statistics come from the convs' epilogue as per-tile
 partials (:func:`gn_partials_plain` and :func:`gn_merge_plain` are their
-plain versions).  Other widths run on the CUDA cores.  Conv weights are
+plain versions).  In bf16, where a conv's plan is fused
+(:func:`conv_plan`), its epilogue also merges the partials of a sample's
+tiles -- one tile, or a thread-block cluster of them over distributed
+shared memory -- and applies GroupNorm and SiLU, storing bf16; other
+convs keep the chain of a float32 pre-norm output, ``gn_finalize`` and
+``gn_silu``.  Other widths run on the CUDA cores.  Conv weights are
 laid out for the kernels once per parameter (:func:`packed_weight`).
 :func:`fused_resnet_block` adds the gradient: its backward recomputes
 through the plain version, as the JAX op's custom VJP does.
@@ -27,6 +32,7 @@ through the plain version, as the JAX op's custom VJP does.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -57,18 +63,19 @@ class TensorCoreRoute(NamedTuple):
 
 
 #: bf16: 64-channel slices, A by TMA, one block an SM: a ring of 5 slots
-#: of 32 or 40 KB, or, where an unsplit tile takes fewer than 96 K-slices
+#: of 32 or 40 KB, or, where an unsplit tile takes fewer than 128 K-slices
 #: and its epilogue would rival its mainloop (or its groups do not suit the
 #: register epilogue: :func:`register_groups`), a staged tile (51 or 102
-#: KB) that finisher warps complete during the next tile, beside a ring of
-#: 5 or 3 (the kernel sizes its ring; scripts/k3_tiles.py); float32
+#: KB) that finisher warps complete -- and, fused, normalise -- during the
+#: next tile, beside a ring of 5 or 3 (the kernel sizes its ring;
+#: scripts/k3_tiles.py); float32
 #: (3xTF32): a tf32 step reads 8 channels, so a slice is 32, and hi and lo
 #: planes of A and B make a 64-row stage 64 KB (a ring of 3 fills an SM);
 #: its tall tile is 128 rows, since each thread also keeps running totals.  3xTF32 is bound by its products, so
 #: a tile costs its rows; bf16 by the bytes L2 feeds it, so a tile costs
 #: its rows and the weight tile's 192
 TENSOR_CORE_ROUTES = {
-    torch.bfloat16: TensorCoreRoute("nope_conv_wgmma", "co_k", 64, (64, 128), 96, TILE_N, True,
+    torch.bfloat16: TensorCoreRoute("nope_conv_wgmma", "co_k", 64, (64, 128), 128, TILE_N, True,
                                     "tensor_core_launches"),
     torch.float32: TensorCoreRoute("nope_conv_tf32x3", "co_k_tf32x3", 32, (64, 128), 0, 0, False, "tf32x3_launches"),
 }
@@ -174,6 +181,16 @@ class ConvPlan(NamedTuple):
     rows: int  # boxed routes: image rows of one sample a tile holds (or all H) ...
     samples: int  # ... of this many samples; unboxed: 0, 0
     staged: int  # 1: the tile is staged and finished during the next one (boxed routes)
+    cluster: int  # CTAs of a thread-block cluster along M: a fused sample's tiles, or a multicast pair
+    fused: int  # 1: GroupNorm + SiLU (+ emb or res) in the conv's epilogue, bf16 out; 0: the chain
+    multicast: int  # 1: the cluster's pairs of CTAs share each weight tile by TMA multicast
+
+
+#: the most samples a fused tile normalises (``kFuseSegs`` in
+#: csrc/fused_resnet.cu): a 128-row tile of 4x4 images touches 9
+FUSE_SEGS = 9
+#: the largest thread-block cluster (the portable size)
+MAX_CLUSTER = 8
 
 
 def tile_box(tile: int, h: int, w: int) -> Optional[Tuple[int, int]]:
@@ -199,7 +216,7 @@ def register_groups(c_out: int, groups: int) -> bool:
 
 
 def conv_plan(m: int, hw: int, c_out: int, k_slices: int, sms: int, route: TensorCoreRoute,
-              width: Optional[int] = None, groups: Optional[int] = None) -> ConvPlan:
+              width: Optional[int] = None, groups: Optional[int] = None, fuse: bool = True) -> ConvPlan:
     """Tiling of the tensor-core conv of an (m, c_out) output with
     ``k_slices`` K-slices of ``route.slice_k`` channels, on a card with
     ``sms`` SMs.  A boxed route (bf16) needs the image ``width``: a tile
@@ -214,7 +231,21 @@ def conv_plan(m: int, hw: int, c_out: int, k_slices: int, sms: int, route: Tenso
     of one layout.  An unsplit boxed tile is staged when it takes fewer
     than ``route.staged_below`` K-slices, or when the conv writes
     GroupNorm partials of ``groups`` groups that :func:`register_groups`
-    refuses; a split tile stores its raw sums from registers."""
+    refuses; a split tile stores its raw sums from registers.
+
+    A bf16 conv with ``groups`` (and ``fuse``) normalises in its epilogue
+    (``fused``) where the finisher warps can, beside the next tile's
+    mainloop, with no other tile's sums but its cluster's: one split, a
+    staged tile, groups that :func:`register_groups` takes, and a tile of
+    whole samples (touching at most :data:`FUSE_SEGS`), or a tile of whole
+    rows whose sample is ``cluster`` = hw / bm <= 8 tiles, which merge
+    their partials over distributed shared memory.  Other convs keep the
+    chain (float32 pre-norm output, ``gn_finalize``, ``gn_silu``): a
+    register epilogue runs between mainloops, where normalising cost more
+    than the chain's separate pass (scripts/k3_tiles.py).  ``fuse=False``
+    asks for the chain with the same tiles.  Where the tiles fill the card
+    twice over, pairs of CTAs (the cluster's, or 2-CTA clusters) multicast
+    the weight tile; with fewer, their lockstep costs more than it saves."""
     n_tiles = -(-c_out // TILE_N)
     best = None
     for tile in route.tiles:
@@ -230,13 +261,23 @@ def conv_plan(m: int, hw: int, c_out: int, k_slices: int, sms: int, route: Tenso
         fill = max(1, sms // t) if tile == route.tiles[0] else 1
         cost = -(-t * fill // sms) * (tile + route.b_rows) / fill
         if best is None or cost <= best[0]:
-            splits = min(fill, max(1, k_slices // 4))
-            staged = int(route.boxed and splits == 1 and (k_slices < route.staged_below or (
-                groups is not None and not register_groups(c_out, groups))))
-            best = (cost, ConvPlan(bm, splits, min(bm, (bm - 2) // hw + 2), tile, rows, samples, staged))
+            best = (cost, tile, bm, rows, samples, min(fill, max(1, k_slices // 4)))
     if best is None:
         raise ValueError(f"no tile of {route.tiles} holds a whole image row of width {width}")
-    return best[1]
+    _, tile, bm, rows, samples, splits = best
+    segmax = min(bm, (bm - 2) // hw + 2)
+    staged = int(route.boxed and splits == 1 and (k_slices < route.staged_below or (
+        groups is not None and not register_groups(c_out, groups))))
+    tiles_m = -(-m // bm)
+    wide = route.boxed and tiles_m > 1 and tiles_m * n_tiles * splits >= 2 * sms
+    fused = fuse and staged and groups is not None and register_groups(c_out, groups)
+    whole = bm % hw == 0  # whole samples a tile
+    if fused and whole and segmax <= FUSE_SEGS:
+        return ConvPlan(bm, splits, segmax, tile, rows, samples, staged, 2 if wide else 1, 1, int(wide))
+    cluster = hw // bm if hw % bm == 0 else 0
+    if fused and not whole and 2 <= cluster <= MAX_CLUSTER:
+        return ConvPlan(bm, splits, segmax, tile, rows, samples, staged, cluster, 1, int(wide and cluster % 2 == 0))
+    return ConvPlan(bm, splits, segmax, tile, rows, samples, staged, 2 if wide else 1, 0, int(wide))
 
 
 def gn_partials_plain(h: torch.Tensor, hw: int, groups: int, bm: int) -> torch.Tensor:
@@ -303,9 +344,10 @@ def _check(x: torch.Tensor, emb: Optional[torch.Tensor], params: Params, groups:
 
 def _check_aligned(x: torch.Tensor, emb: Optional[torch.Tensor], params: Params) -> None:
     """The kernels read x (also the identity residual), emb and the
-    GroupNorm shifts 4 channels at a time, x by 16-byte ``cp.async`` or
-    TMA boxes."""
-    for name, t in (("x", x), ("emb", emb), ("be1", params["be1"]), ("be2", params["be2"])):
+    GroupNorm scales and shifts 4 channels at a time, x by 16-byte
+    ``cp.async`` or TMA boxes."""
+    for name, t in (("x", x), ("emb", emb), ("g1", params.get("g1")), ("be1", params["be1"]),
+                    ("g2", params.get("g2")), ("be2", params["be2"])):
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned, got address {t.data_ptr():#x}")
 
@@ -336,21 +378,33 @@ class _Scratch:
 
 
 def _conv_tensor_cores(call, route, x_ptr, w, bias, out_ptr, part_ptr, ws_ptr, shape, ks, groups,
-                       plan) -> None:
+                       plan, norm=(None, None, None, None, 0, None, 0.0)) -> None:
     """One tensor-core conv (``ks`` = 3 with zero padding, or 1): x (B, H,
     W, Cin) of the route's dtype, ``w`` = ``packed_weight(·, route.layout)``
     → out (B·H·W, Co) float32 + bias, and the tiles' GroupNorm partials
     ((ceil(M / plan.bm), G, plan.segmax, 3) float32) unless part_ptr is
-    None; ws_ptr holds plan.splits·M·Co floats when K is split."""
+    None; ws_ptr holds plan.splits·M·Co floats when K is split.  A fused
+    plan (bf16) takes ``norm`` = (gamma, beta, emb, res pointers, res
+    dtype code, bf16 destination pointer, eps) and writes neither out nor
+    the partials."""
     b, h, wd, c_in = shape
-    tiling = (plan.tile, plan.bm, plan.rows, plan.samples, plan.staged) if route.boxed else (plan.bm,)
+    if route.boxed:
+        tiling = (plan.tile, plan.bm, plan.rows, plan.samples, plan.staged)
+        fused = (plan.cluster, plan.multicast, *norm)
+    else:
+        tiling, fused = (plan.bm,), ()
     call(route.entry, x_ptr, w.data_ptr(), bias.data_ptr(), _build.DTYPE_CODES[bias.dtype],
-         out_ptr, part_ptr, ws_ptr, b, h, wd, c_in, w.shape[-2], ks, groups, *tiling, plan.splits, plan.segmax)
+         out_ptr, part_ptr, ws_ptr, b, h, wd, c_in, w.shape[-2], ks, groups, *tiling, plan.splits, plan.segmax,
+         *fused)
 
 
 def _block_tensor_cores(x, emb, params, groups, eps, out):
-    """Three tensor-core convs (bf16, or float32 in 3xTF32), the GroupNorm
-    statistics from their epilogues, ``act`` kept in x's dtype."""
+    """Three tensor-core convs (bf16, or float32 in 3xTF32) and two
+    GroupNorms, ``act`` kept in x's dtype.  A conv whose plan is fused
+    normalises in its epilogue into ``act`` or ``out``; the others keep
+    the chain: the float32 pre-norm output and its tiles' partials, then
+    ``gn_finalize`` and ``gn_silu``.  The 1x1 residual runs before the
+    second conv, whose GroupNorm adds it."""
     route = TENSOR_CORE_ROUTES[x.dtype]
     b, h, w, c_in = x.shape
     c_out, m, hw, dev = out.shape[-1], b * h * w, h * w, x.device
@@ -359,36 +413,54 @@ def _block_tensor_cores(x, emb, params, groups, eps, out):
     plan2 = conv_plan(m, hw, c_out, 9 * c_out // route.slice_k, sms, route, w, groups)
     plan_r = conv_plan(m, hw, c_out, c_in // route.slice_k, sms, route, w) if "res_w" in params else None
     splits = max(p.splits for p in (plan1, plan2, plan_r) if p is not None)
-    mc = m * c_out
+    chained = [p for p in (plan1, plan2) if not p.fused]
+    mc, nb = m * c_out, b * c_out if chained else 0
     scratch = _Scratch(
-        dev, conv=mc, res=mc if plan_r else 0, ws=splits * mc if splits > 1 else 0,
-        part=-(-m // plan1.bm) * groups * plan1.segmax * 3, mean=b * c_out, scale=b * c_out)
+        dev, conv=mc if chained else 0, res=mc if plan_r else 0, ws=splits * mc if splits > 1 else 0,
+        part=-(-m // chained[0].bm) * groups * chained[0].segmax * 3 if chained else 0, mean=nb, scale=nb)
     ptr = scratch.ptr
     act = torch.empty(b, h, w, c_out, dtype=x.dtype, device=dev)
     dt = _build.DTYPE_CODES[x.dtype]
-    w1, w2 = packed_weight(params["w1"], route.layout), packed_weight(params["w2"], route.layout)
 
     with _build.launcher(dev) as call:
 
-        def normalise(gamma, beta, emb_ptr, res_ptr, res_dt, dst):
+        def conv_norm(plan, src, weight, bias, gamma, beta, emb_ptr, res_ptr, res_dt, dst):
+            w_packed = packed_weight(weight, route.layout)
+            if plan.fused:
+                _conv_tensor_cores(call, route, src.data_ptr(), w_packed, bias, None, None, ptr["ws"], src.shape, 3,
+                                   groups, plan, (gamma.data_ptr(), beta.data_ptr(), emb_ptr, res_ptr, res_dt,
+                                                  dst.data_ptr(), eps))
+                return
+            _conv_tensor_cores(call, route, src.data_ptr(), w_packed, bias, ptr["conv"], ptr["part"], ptr["ws"],
+                               src.shape, 3, groups, plan)
             call("nope_gn_finalize", ptr["part"], gamma.data_ptr(), dt, ptr["mean"], ptr["scale"],
-                 b, hw, c_out, groups, plan1.bm, plan1.segmax, eps)
+                 b, hw, c_out, groups, plan.bm, plan.segmax, eps)
             call("nope_gn_silu", ptr["conv"], ptr["mean"], ptr["scale"], beta.data_ptr(), dt,
                  emb_ptr, dt, res_ptr, res_dt, dst.data_ptr(), dt, b, hw, c_out, _build.grid_y(b))
 
-        _conv_tensor_cores(call, route, x.data_ptr(), w1, params["b1"], ptr["conv"], ptr["part"],
-                           ptr["ws"], x.shape, 3, groups, plan1)
-        normalise(params["g1"], params["be1"], None if emb is None else emb.data_ptr(), None, 0, act)
-        _conv_tensor_cores(call, route, act.data_ptr(), w2, params["b2"], ptr["conv"], ptr["part"],
-                           ptr["ws"], act.shape, 3, groups, plan2)
+        conv_norm(plan1, x, params["w1"], params["b1"], params["g1"], params["be1"],
+                  None if emb is None else emb.data_ptr(), None, 0, act)
         if plan_r is not None:
             _conv_tensor_cores(call, route, x.data_ptr(), packed_weight(params["res_w"], route.layout),
                                params["res_b"], ptr["res"], None, ptr["ws"], x.shape, 1, groups, plan_r)
             res_ptr, res_dt = ptr["res"], 0
         else:
             res_ptr, res_dt = x.data_ptr(), dt
-        normalise(params["g2"], params["be2"], None, res_ptr, res_dt, out)
+        conv_norm(plan2, act, params["w2"], params["b2"], params["g2"], params["be2"], None, res_ptr, res_dt, out)
     setattr(resnet_block, route.counter, getattr(resnet_block, route.counter) + 1)
+    resnet_block.fused_norms += 2 - len(chained)
+
+
+def resident_clusters(device: torch.device, tile: int, staged: bool, cluster: int) -> int:
+    """How many clusters of ``cluster`` CTAs of the bf16 conv kernel
+    (``tile`` rows, staged epilogue or not) ``device`` holds at once
+    (``cudaOccupancyMaxActiveClusters``): its persistent grid."""
+    count = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        status = _build.library().nope_conv_clusters(tile, int(staged), cluster, ctypes.byref(count))
+    if status:
+        raise RuntimeError(f"nope_conv_clusters: CUDA error {status}")
+    return count.value
 
 
 def _block_cuda_cores(x, emb, params, groups, eps, out):
@@ -463,6 +535,9 @@ resnet_block.launches = 0
 resnet_block.tensor_core_launches = 0
 #: blocks of those that ran the float32 tensor-core route (3xTF32)
 resnet_block.tf32x3_launches = 0
+#: GroupNorms of those blocks applied in a conv's epilogue (a fused plan):
+#: the others launched gn_finalize and gn_silu
+resnet_block.fused_norms = 0
 
 
 def conv_tf32x3(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:

@@ -238,43 +238,101 @@ def test_merge_keeps_the_digits_that_e_x2_loses():
     assert np.abs(naive.double().numpy() - want).max() > 10 * want.max()
 
 
-# (m, hw, W, co, k_slices) → (bm, splits, segmax, tile, rows, samples, staged); split tiles leave
-# their raw sums from registers
+# (m, hw, W, co, k_slices) → (bm, splits, segmax, tile, rows, samples, staged, cluster, fused, multicast);
+# split tiles leave their raw sums from registers; no groups: no fused epilogue; tiles that fill the card
+# twice over run in 2-CTA pairs that multicast the weight tile
 @pytest.mark.parametrize("m,hw,width,co,k_slices,want", [
-    (26 * 1024, 1024, 32, 192, 27, (128, 1, 2, 128, 4, 1, 1)),    # 32x32 at B=26: 4 whole rows, staged
-    (3328 * 1024, 1024, 32, 192, 27, (128, 1, 2, 128, 4, 1, 1)),  # the eval call: as many waves as 64 rows
-    (3 * 1024, 1024, 32, 192, 27, (64, 2, 2, 64, 2, 1, 0)),       # 32x32 at B=3: 2 rows, K split in 2
-    (26 * 256, 256, 16, 192, 27, (64, 1, 2, 64, 4, 1, 1)),        # 16x16 at B=26: 104 tiles fill the card
-    (26 * 256, 256, 16, 384, 81, (128, 1, 2, 128, 8, 1, 1)),      # 16x16, Co=384: 8 whole rows
-    (26 * 64, 64, 8, 768, 162, (64, 1, 2, 64, 8, 1, 0)),          # 8x8 at B=26: one sample; 162 slices
-    (3328 * 64, 64, 8, 768, 162, (128, 1, 3, 128, 8, 2, 0)),      # 8x8 at 3,328: two samples a tile
-    (3 * 16, 16, 4, 1536, 216, (64, 16, 5, 64, 4, 4, 0)),         # 4x4 at B=3: the tile past B; 16 splits
-    (26 * 16, 16, 4, 1536, 216, (64, 2, 5, 64, 4, 4, 0)),         # 4x4 at B=26: 56 tiles, K split in 2
-    (341 * 16, 16, 4, 768, 108, (128, 1, 9, 128, 4, 8, 0)),       # 4x4 at B=341: 8 samples, the last past B
-    (3 * 16, 16, 4, 768, 6, (64, 1, 5, 64, 4, 4, 1)),             # too few K-slices to split
-    (2 * 784, 784, 28, 192, 27, (56, 4, 2, 64, 2, 1, 0)),         # 28x28: 2 rows of 28 fill 56 of 64 rows
+    (26 * 1024, 1024, 32, 192, 27, (128, 1, 2, 128, 4, 1, 1, 1, 0, 0)),    # 32x32 at B=26: 4 whole rows, staged
+    (3328 * 1024, 1024, 32, 192, 27, (128, 1, 2, 128, 4, 1, 1, 2, 0, 1)),  # the eval call: as many waves as 64 rows
+    (3 * 1024, 1024, 32, 192, 27, (64, 2, 2, 64, 2, 1, 0, 1, 0, 0)),       # 32x32 at B=3: 2 rows, K split in 2
+    (26 * 256, 256, 16, 192, 27, (64, 1, 2, 64, 4, 1, 1, 1, 0, 0)),        # 16x16 at B=26: 104 tiles fill the card
+    (26 * 256, 256, 16, 384, 81, (128, 1, 2, 128, 8, 1, 1, 1, 0, 0)),      # 16x16, Co=384: 8 whole rows
+    (26 * 64, 64, 8, 768, 162, (64, 1, 2, 64, 8, 1, 0, 1, 0, 0)),          # 8x8 at B=26: one sample; 162 slices
+    (3328 * 64, 64, 8, 768, 162, (128, 1, 3, 128, 8, 2, 0, 2, 0, 1)),      # 8x8 at 3,328: two samples a tile
+    (3 * 16, 16, 4, 1536, 216, (64, 16, 5, 64, 4, 4, 0, 1, 0, 0)),         # 4x4 at B=3: the tile past B; 16 splits
+    (26 * 16, 16, 4, 1536, 216, (64, 2, 5, 64, 4, 4, 0, 1, 0, 0)),         # 4x4 at B=26: 56 tiles, K split in 2
+    (341 * 16, 16, 4, 768, 108, (128, 1, 9, 128, 4, 8, 1, 1, 0, 0)),       # 4x4 at B=341: 8 samples, the last past B
+    (3 * 16, 16, 4, 768, 6, (64, 1, 5, 64, 4, 4, 1, 1, 0, 0)),             # too few K-slices to split
+    (2 * 784, 784, 28, 192, 27, (56, 4, 2, 64, 2, 1, 0, 1, 0, 0)),         # 28x28: 2 rows of 28 fill 56 of 64 rows
 ])
 def test_conv_plan(m, hw, width, co, k_slices, want):
     assert tuple(fr.conv_plan(m, hw, co, k_slices, 132, fr.TENSOR_CORE_ROUTES[torch.bfloat16], width)) == want
 
 
-# (m, hw, W, co, k_slices, groups) → staged: the register epilogue takes
+# (B, (H, W, Cin, Co) of a flagship block) → (cluster, fused, multicast) of its two convs, with the
+# flagship's 8 groups on 132 SMs: a 32x32 sample is 8 staged tiles of 4 rows, a 16x16 one 2 of 8 rows (4 of
+# 4 at B=26), which merge their partials in a cluster; 8x8 and 4x4 tiles hold whole samples; split K (all
+# of B=3, the 8x8 384 and 4x4 stages at B=26) and a register epilogue (128+ K-slices: 4x4 1536 and 2304,
+# the 8x8 1152's first conv) keep the chain; pairs of CTAs multicast the weight tile where the tiles fill
+# the card twice over
+FLAGSHIP_BLOCKS = {"32x32 192": (32, 32, 192, 192), "32x32 384": (32, 32, 384, 192), "16x16 192": (16, 16, 192, 192),
+                   "16x16 576": (16, 16, 576, 384), "8x8 384": (8, 8, 384, 384), "8x8 1152": (8, 8, 1152, 768),
+                   "4x4 768": (4, 4, 768, 768), "4x4 1536": (4, 4, 1536, 1536), "4x4 2304": (4, 4, 2304, 1536)}
+CHAIN, PAIR_CHAIN = (1, 0, 0), (2, 0, 1)
+CLUSTERS = {
+    3: {k: (CHAIN, CHAIN) for k in FLAGSHIP_BLOCKS},
+    26: {"32x32 192": ((8, 1, 0),) * 2, "32x32 384": ((8, 1, 0),) * 2, "16x16 192": ((4, 1, 0),) * 2,
+         "16x16 576": ((2, 1, 0),) * 2, "8x8 384": (CHAIN, CHAIN), "8x8 1152": (CHAIN, (1, 1, 0)),
+         "4x4 768": (CHAIN, CHAIN), "4x4 1536": (CHAIN, CHAIN), "4x4 2304": (CHAIN, CHAIN)},
+    341: {"32x32 192": ((8, 1, 1),) * 2, "32x32 384": ((8, 1, 1),) * 2, "16x16 192": ((2, 1, 1),) * 2,
+          "16x16 576": ((2, 1, 1),) * 2, "8x8 384": ((2, 1, 1),) * 2, "8x8 1152": (PAIR_CHAIN, (2, 1, 1)),
+          "4x4 768": ((1, 1, 0),) * 2, "4x4 1536": (PAIR_CHAIN,) * 2, "4x4 2304": (PAIR_CHAIN,) * 2},
+    3328: {"32x32 192": ((8, 1, 1),) * 2, "32x32 384": ((8, 1, 1),) * 2, "16x16 192": ((2, 1, 1),) * 2,
+           "16x16 576": ((2, 1, 1),) * 2, "8x8 384": ((2, 1, 1),) * 2, "8x8 1152": (PAIR_CHAIN, (2, 1, 1)),
+           "4x4 768": ((2, 1, 1),) * 2, "4x4 1536": (PAIR_CHAIN,) * 2, "4x4 2304": (PAIR_CHAIN,) * 2},
+}
+
+
+@pytest.mark.parametrize("batch,block", [(b, k) for b in CLUSTERS for k in FLAGSHIP_BLOCKS])
+def test_conv_plan_clusters_of_the_flagship_blocks(batch, block):
+    h, w, cin, co = FLAGSHIP_BLOCKS[block]
+    r = fr.TENSOR_CORE_ROUTES[torch.bfloat16]
+    for k_slices, want in zip((9 * cin // 64, 9 * co // 64), CLUSTERS[batch][block]):
+        plan = fr.conv_plan(batch * h * w, h * w, co, k_slices, 132, r, w, 8)
+        assert (plan.cluster, plan.fused, plan.multicast) == want, plan
+        assert plan.staged or not plan.fused
+        if plan.fused and plan.bm < h * w:  # a cluster of tiles that make one sample
+            assert plan.cluster * plan.bm == h * w
+        chain = fr.conv_plan(batch * h * w, h * w, co, k_slices, 132, r, w, 8, fuse=False)
+        assert chain._replace(cluster=0, fused=0, multicast=0) == plan._replace(cluster=0, fused=0, multicast=0)
+        assert not chain.fused and chain.cluster <= 2
+
+
+# (m, hw, W, co, k_slices, groups): convs that keep the chain although they write GroupNorm partials
+@pytest.mark.parametrize("m,hw,width,co,k_slices,groups", [
+    (26 * 16, 16, 4, 1536, 216, 8),    # K split in 2
+    (3 * 1024, 1024, 32, 192, 27, 8),  # K split in 2
+    (341 * 64, 64, 8, 256, 108, 32),   # cg = 8: 24 groups in the first N tile
+    (341 * 16, 16, 4, 768, 108, 64),   # cg = 12: groups straddle 8-column blocks
+    (3 * 16, 4, 2, 192, 6, 8),         # 2x2 images: a staged tile touches 33 samples (FUSE_SEGS = 9)
+    (26 * 1024, 1024, 32, 192, 216, 8),  # a register epilogue (216 K-slices) runs between mainloops
+    (2 * 4096, 4096, 64, 192, 27, 8),  # a 64x64 sample is 32 tiles: more than a cluster holds
+])
+def test_conv_plan_keeps_the_chain(m, hw, width, co, k_slices, groups):
+    r = fr.TENSOR_CORE_ROUTES[torch.bfloat16]
+    plan = fr.conv_plan(m, hw, co, k_slices, 132, r, width, groups)
+    assert not plan.fused and plan.cluster == 1 + plan.multicast  # at most a multicast pair
+    assert plan == fr.conv_plan(m, hw, co, k_slices, 132, r, width, groups, fuse=False)
+    assert not fr.conv_plan(m, hw, co, k_slices, 132, fr.TENSOR_CORE_ROUTES[torch.float32], width, groups).fused
+
+
+# (m, hw, W, co, k_slices, groups) → staged: at 216 K-slices, the register epilogue takes
 # groups of whole 8-column blocks, at most 8 of them in the N tile
 @pytest.mark.parametrize("m,hw,width,co,k_slices,groups,staged", [
-    (341 * 16, 16, 4, 768, 108, 8, 0),     # the flagship's 8 groups: cg = 96, 2 in an N tile
-    (341 * 16, 16, 4, 768, 108, 32, 0),    # cg = 24: 8 in an N tile
-    (341 * 16, 16, 4, 768, 108, 64, 1),    # cg = 12: groups straddle 8-column blocks
-    (341 * 64, 64, 8, 256, 108, 32, 1),    # cg = 8: 24 groups in the first N tile
-    (341 * 64, 64, 8, 256, 108, 8, 0),     # cg = 32: 6 groups, then 2 in the last 64 columns
-    (341 * 64, 64, 8, 128, 108, 8, 0),     # cg = 16: 8 groups in the one 128-column tile
-    (341 * 64, 64, 8, 256, 108, None, 0),  # no partials (the 1x1 residual): any groups
+    (341 * 16, 16, 4, 768, 216, 8, 0),     # the flagship's 8 groups: cg = 96, 2 in an N tile
+    (341 * 16, 16, 4, 768, 216, 32, 0),    # cg = 24: 8 in an N tile
+    (341 * 16, 16, 4, 768, 216, 64, 1),    # cg = 12: groups straddle 8-column blocks
+    (341 * 64, 64, 8, 256, 216, 32, 1),    # cg = 8: 24 groups in the first N tile
+    (341 * 64, 64, 8, 256, 216, 8, 0),     # cg = 32: 6 groups, then 2 in the last 64 columns
+    (341 * 64, 64, 8, 128, 216, 8, 0),     # cg = 16: 8 groups in the one 128-column tile
+    (341 * 64, 64, 8, 256, 216, None, 0),  # no partials (the 1x1 residual): any groups
 ])
 def test_conv_plan_stages_the_groups_the_registers_cannot_take(m, hw, width, co, k_slices, groups, staged):
     r = fr.TENSOR_CORE_ROUTES[torch.bfloat16]
     plan = fr.conv_plan(m, hw, co, k_slices, 132, r, width, groups)
     assert plan.splits == 1 and plan.staged == staged
     without = fr.conv_plan(m, hw, co, k_slices, 132, r, width)
-    assert plan._replace(staged=0) == without._replace(staged=0)  # the same tile either way
+    assert plan._replace(staged=0, fused=0) == without._replace(staged=0)  # the same tile either way
 
 
 def test_conv_plan_takes_the_tile_and_not_k():
@@ -349,6 +407,31 @@ def register_partials(h: torch.Tensor, hw: int, groups: int, bm: int, segmax: in
     return out.float()
 
 
+def merge_in_order(parts, eps):
+    """Chan's merge from zero of ``parts`` (count, mean, M2) rows of
+    (G,) float32 values, in order (gn_merge_plain's arithmetic); (mean,
+    rstd)."""
+    n = mu = m2 = torch.zeros(parts[0].shape[0])
+    for nb, mb, m2b in (p.unbind(-1) for p in parts):
+        nt = n + nb
+        d = mb - mu
+        mu = mu + d * (nb / nt)
+        m2 = m2 + m2b + d * d * (n * nb / nt)
+        n = nt
+    return mu, 1.0 / torch.sqrt(m2 / n + eps)
+
+
+def apply_norm(h, mean, scale, beta, emb, res):
+    """gn_silu's output in float64: SiLU((h − mean) · scale + beta) (+ emb)
+    (+ res), h (B, HW, C), mean and scale (B, C) float32 tables."""
+    y = F.silu((h.double() - mean[:, None].double()) * scale[:, None].double() + beta.double())
+    if emb is not None:
+        y = y + emb[:, None].double()
+    if res is not None:
+        y = y + res.double()
+    return y
+
+
 class _EmulatedKernels:
     """The C entry points of csrc/fused_resnet.cu on host memory, by what
     each kernel computes (in float64), with the kernels' own tiling."""
@@ -356,7 +439,8 @@ class _EmulatedKernels:
     def __init__(self):
         self.calls = []
         self.tiles = set()  # the bm of every tensor-core conv
-        self.epilogues = []  # bf16 convs with partials: (staged, splits)
+        self.epilogues = []  # bf16 convs with GroupNorm (partials or fused): (staged, splits)
+        self.fused = []  # fused bf16 convs: (cluster, multicast, staged)
         self.grid_y = []  # the y extent of every gn_silu launch
 
     def __call__(self, name, *args):
@@ -368,15 +452,18 @@ class _EmulatedKernels:
         return im2col(x.double(), ks) @ w_kco.double()
 
     def nope_conv_wgmma(self, x, w, bias, bdt, out, part, ws, b, h, wd, cin, co, ks, groups, tile, bm, rows,
-                        samples, staged, splits, segmax):
+                        samples, staged, splits, segmax, cluster, multicast, gamma, beta, emb, res, rdt, dst, eps):
         """A by the kernel's TMA boxes (box_cols), B by its weight tiles;
         the partials of a tile finished from registers as finish_registers
-        indexes them."""
-        m, k = b * h * wd, ks * ks * cin
+        indexes them.  Fused (dst given): each unit's tiles (its cluster's,
+        in rank order, when a tile holds part of a sample) merge their
+        partials, and the tile is normalised into bf16 dst."""
+        m, k, hw = b * h * wd, ks * ks * cin, h * wd
         assert cin % 64 == 0 and co % 8 == 0  # what the C entry point takes
         assert tile in fr.TENSOR_CORE_ROUTES[torch.bfloat16].tiles and staged in (0, 1)
         assert 1 <= rows <= h and h % rows == 0 and samples >= 1 and (samples == 1 or rows == h)
         assert bm == wd * rows * samples <= tile and max(wd, rows, samples) <= 256
+        assert 1 <= cluster <= fr.MAX_CLUSTER and (not multicast or cluster % 2 == 0)  # multicast pairs
         self.tiles.add(bm)
         xs = _view(x, m * cin, 1).reshape(b, h, wd, cin)
         wt = _view(w, co * k, 1).reshape(co, k)
@@ -388,18 +475,43 @@ class _EmulatedKernels:
             if splits > 1:
                 _store(ws + 4 * s * m * co, m * co, 0, cols[:, lo:hi] @ wt[:, lo:hi].double().t())
             acc += cols[:, lo:hi] @ wt[:, lo:hi].double().t()
-        res = (acc + _view(bias, co, bdt).double()).float()
-        _store(out, m * co, 0, res)
-        if part is not None:
-            self.epilogues.append((staged, splits))
-            registers = not staged and splits == 1
-            if registers:  # what the C entry point refuses: register_groups
-                cg = co // groups
-                assert cg % 8 == 0 and min(co, 192) // cg <= 8, f"{groups} groups of {co} from registers"
-            p = register_partials(res, h * wd, groups, bm, segmax) if registers else fr.gn_partials_plain(
-                res, h * wd, groups, bm)
-            assert p.shape[2] == segmax
+        res_h = (acc + _view(bias, co, bdt).double()).float()
+        fused = dst is not None
+        if fused:  # what the C entry point takes
+            assert out is None and part is None and splits == 1 and staged and fr.register_groups(co, groups)
+            assert cluster * bm == hw if bm < hw else bm % hw == 0 and segmax <= fr.FUSE_SEGS
+            self.fused.append((cluster, multicast, staged))
+        else:
+            _store(out, m * co, 0, res_h)
+        if part is None and not fused:
+            return
+        self.epilogues.append((staged, splits))
+        registers = not staged and splits == 1
+        if registers:  # what the C entry point refuses: register_groups
+            cg = co // groups
+            assert cg % 8 == 0 and min(co, 192) // cg <= 8, f"{groups} groups of {co} from registers"
+        p = register_partials(res_h, hw, groups, bm, segmax) if registers else fr.gn_partials_plain(res_h, hw, groups,
+                                                                                                    bm)
+        assert p.shape[2] == segmax
+        if not fused:
             _store(part, p.numel(), 0, p)
+            return
+        # the kernel's units: `parts` tiles of one sample in rank order, or one tile of whole samples
+        parts = cluster if bm < hw else 1
+        mean, scale = torch.empty(b, co), torch.empty(b, co)
+        gam = _view(gamma, co, 1).float()
+        for mt0 in range(0, p.shape[0], parts):
+            for seg in range(segmax):
+                sample = mt0 * bm // hw + seg
+                if sample >= b or sample * hw >= mt0 * bm + parts * bm:
+                    continue
+                mu, rstd = merge_in_order([p[mt0 + r, :, seg] for r in range(parts)], eps)
+                mean[sample] = mu.repeat_interleave(co // groups)
+                scale[sample] = rstd.repeat_interleave(co // groups) * gam
+        y = apply_norm(res_h.reshape(b, hw, co), mean, scale, _view(beta, co, 1),
+                       None if emb is None else _view(emb, b * co, 1).reshape(b, co),
+                       None if res is None else _view(res, m * co, rdt).reshape(b, hw, co))
+        _store(dst, m * co, 1, y)
 
     def nope_conv_tf32x3(self, x, w, bias, bdt, out, part, ws, b, h, wd, cin, co, ks, groups, bm, splits,
                          segmax):
@@ -431,10 +543,12 @@ class _EmulatedKernels:
     def nope_gn_finalize(self, part, gamma, pdt, mean, scale, b, hw, c, groups, bm, segmax, eps):
         n = -(-b * hw // bm) * groups * segmax * 3
         p = _view(part, n, 0).reshape(-1, groups, segmax, 3).clone()
-        mu, rstd = fr.gn_merge_plain(p, b, hw, bm, eps)
         cg = c // groups
-        _store(mean, b * c, 0, mu.reshape(b, groups).repeat_interleave(cg, 1))
-        _store(scale, b * c, 0, rstd.reshape(b, groups).repeat_interleave(cg, 1) * _view(gamma, c, pdt).float())
+        for sample in range(b):  # gn_finalize: per (sample, group), its tiles' partials in tile order
+            mu, rstd = merge_in_order([p[mt, :, sample - mt * bm // hw]
+                                       for mt in range(sample * hw // bm, ((sample + 1) * hw - 1) // bm + 1)], eps)
+            _view(mean, b * c, 0)[sample * c:(sample + 1) * c] = mu.repeat_interleave(cg)
+            _view(scale, b * c, 0)[sample * c:(sample + 1) * c] = rstd.repeat_interleave(cg) * _view(gamma, c, pdt).float()
 
     def nope_group_stats(self, hp, gamma, pdt, mean, scale, b, hw, c, groups, eps):
         hg = _view(hp, b * hw * c, 0).reshape(b, hw, groups, c // groups).double()
@@ -446,13 +560,10 @@ class _EmulatedKernels:
     def nope_gn_silu(self, hp, mean, scale, beta, pdt, emb, edt, res, rdt, out, odt, b, hw, c, grid_y):
         assert grid_y == _build.grid_y(b)
         self.grid_y.append(grid_y)
-        hh = _view(hp, b * hw * c, 0).reshape(b, hw, c).double()
-        y = (hh - _view(mean, b * c, 0).reshape(b, 1, c)) * _view(scale, b * c, 0).reshape(b, 1, c)
-        y = F.silu(y + _view(beta, c, pdt).double())
-        if emb is not None:
-            y = y + _view(emb, b * c, edt).reshape(b, 1, c).double()
-        if res is not None:
-            y = y + _view(res, b * hw * c, rdt).reshape(b, hw, c).double()
+        y = apply_norm(_view(hp, b * hw * c, 0).reshape(b, hw, c), _view(mean, b * c, 0).reshape(b, c),
+                       _view(scale, b * c, 0).reshape(b, c), _view(beta, c, pdt),
+                       None if emb is None else _view(emb, b * c, edt).reshape(b, c),
+                       None if res is None else _view(res, b * hw * c, rdt).reshape(b, hw, c))
         dst = _view(out, b * hw * c, odt).reshape(b, hw, c)
         for block_y in range(grid_y):  # each block of the y axis strides over the samples
             for sample in range(block_y, b, grid_y):
@@ -488,14 +599,14 @@ def test_block_launches_match_the_plain_block(monkeypatch, route, batch, hw_side
     _check_block_launches(monkeypatch, route, batch, hw_side, cin, co, with_res, with_emb, sms)
 
 
-# (B, side, Cin, Co, groups, staged): the first conv's 108 K-slices in one
+# (B, side, Cin, Co, groups, staged): the first conv's 216 K-slices in one
 # split (1 SM) take the register epilogue unless the groups need the staged
-# one (the second conv's 36 at Co = 256 stage by K)
+# one (the second conv's 36 or 108 at Co = 256 or 768 stage by K)
 @pytest.mark.parametrize("batch,hw_side,cin,co,groups,staged", [
-    (3, 8, 768, 256, 8, 0),    # cg = 32: 6 groups, then 2 in the last 64 columns
-    (3, 8, 768, 256, 32, 1),   # cg = 8: 24 groups in the first N tile
-    (3, 4, 768, 768, 64, 1),   # cg = 12: groups straddle 8-column blocks
-    (5, 4, 768, 768, 32, 0),   # cg = 24: 8 groups an N tile, 8 samples a tile, the last past B
+    (3, 8, 1536, 256, 8, 0),    # cg = 32: 6 groups, then 2 in the last 64 columns
+    (3, 8, 1536, 256, 32, 1),   # cg = 8: 24 groups in the first N tile
+    (3, 4, 1536, 768, 64, 1),   # cg = 12: groups straddle 8-column blocks
+    (5, 4, 1536, 768, 32, 0),   # cg = 24: 8 groups an N tile, 8 samples a tile, the last past B
 ])
 def test_block_launches_take_any_groups(monkeypatch, batch, hw_side, cin, co, groups, staged):
     """Every GroupNorm width the route takes (cg | 192) gives the plain
@@ -555,13 +666,64 @@ def _check_block_launches(monkeypatch, route, batch, hw_side, cin, co, with_res,
     tol = 1e-2 if dtype == torch.bfloat16 else 1e-4 if route == "tf32x3" else 1e-5
     err = (out.float() - want).abs().max() / want.abs().max()
     assert err <= tol, err
+    emulated.out = out
     assert emulated.calls.count(conv) == 2 + with_res
     assert {"nope_conv_wgmma", "nope_conv_tf32x3", "nope_conv_nhwc"} & set(emulated.calls) == {conv}
     if block == "_block_tensor_cores":
         r = fr.TENSOR_CORE_ROUTES[dtype]
         plan = fr.conv_plan(batch * hw_side ** 2, hw_side ** 2, co, 9 * cin // r.slice_k, sms, r, hw_side)
         assert emulated.tiles == {plan.bm}
+        fused = [p.fused for p in (fr.conv_plan(batch * hw_side ** 2, hw_side ** 2, co, 9 * c // r.slice_k, sms, r,
+                                                hw_side, groups) for c in (cin, co))]
+        assert len(emulated.fused) == sum(fused) and emulated.calls.count("nope_gn_silu") == 2 - sum(fused)
     bf16_tc, tf32x3 = route == "tensor_cores", route == "tf32x3"
     assert (fr.resnet_block.tensor_core_launches, fr.resnet_block.tf32x3_launches) == (before[0] + bf16_tc,
                                                                                      before[1] + tf32x3)
     return emulated
+
+
+# (B, side, Cin, Co, res, emb, SMs): bf16 blocks whose convs fuse, and what their plans give:
+# a sample in a cluster of 8, 4 or 2 staged tiles (no multicast, then multicast pairs), a tile of 8,
+# 4 or 2 whole samples, a multicast pair with a ghost tile
+FUSED_BLOCKS = [
+    (2, 32, 192, 192, False, True, 16),  # 32x32: 8 tiles of 4 rows a sample
+    (2, 32, 64, 192, True, False, 1),    # the same, multicasting the weight tile across the 8
+    (2, 16, 64, 192, True, True, 8),     # 16x16: 4 tiles of 4 rows
+    (2, 16, 192, 192, False, False, 4),  # 16x16: 2 tiles of 8 rows
+    (3, 16, 64, 192, True, True, 1),     # 16x16: 2 tiles, multicast
+    (5, 4, 768, 192, True, True, 2),     # 4x4: 4 samples a tile, conv 1's 108 K-slices staged too
+    (5, 4, 192, 192, False, True, 1),    # 4x4: 8 samples a tile, the last past B, staged
+    (13, 8, 64, 192, True, False, 1),    # 8x8: 2 samples a tile, a pair with a ghost tile
+]
+
+
+@pytest.mark.parametrize("batch,hw_side,cin,co,with_res,with_emb,sms", FUSED_BLOCKS)
+def test_fused_block_launches_equal_the_chain(monkeypatch, batch, hw_side, cin, co, with_res, with_emb, sms):
+    """A fused block gives the chain's bits (the same partials, merged in
+    the same order with the same arithmetic), launches no gn_finalize or
+    gn_silu and holds no float32 conv scratch; both match the plain
+    block."""
+    sizes = []
+    scratch = fr._Scratch
+
+    def spy(device, **kw):
+        sizes.append(kw)
+        return scratch(device, **kw)
+
+    monkeypatch.setattr(fr, "_Scratch", spy)
+    before = fr.resnet_block.fused_norms
+    fused = _check_block_launches(monkeypatch, "tensor_cores", batch, hw_side, cin, co, with_res, with_emb, sms)
+    got = fused.out
+    assert fr.resnet_block.fused_norms == before + 2
+    assert len(fused.fused) == 2 and not {"nope_gn_finalize", "nope_gn_silu"} & set(fused.calls)
+    assert sizes[-1]["conv"] == 0 and sizes[-1]["part"] == 0 and sizes[-1]["mean"] == 0
+    r = fr.TENSOR_CORE_ROUTES[torch.bfloat16]
+    plan = fr.conv_plan(batch * hw_side ** 2, hw_side ** 2, co, 9 * cin // 64, sms, r, hw_side, 8)
+    assert fused.fused[0] == (plan.cluster, plan.multicast, plan.staged)
+
+    chain_plan = fr.conv_plan
+    monkeypatch.setattr(fr, "conv_plan", lambda *a, **k: chain_plan(*a, **{**k, "fuse": False}))
+    chain = _check_block_launches(monkeypatch, "tensor_cores", batch, hw_side, cin, co, with_res, with_emb, sms)
+    assert not chain.fused and chain.calls.count("nope_gn_silu") == 2 and sizes[-1]["conv"] > 0
+    assert fr.resnet_block.fused_norms == before + 2
+    torch.testing.assert_close(got, chain.out, rtol=0, atol=0)

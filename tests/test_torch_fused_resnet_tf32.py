@@ -158,8 +158,9 @@ def test_conv_tf32x3_takes_the_plain_version_on_the_cpu(ks):
 ])
 def test_conv_plan_tf32x3(m, hw, co, k_slices, want):
     """The 3xTF32 route's plan: 32-deep K-slices, tiles of 64 or 128 rows,
-    one block to an SM either way; A is gathered (no TMA box, no staging)."""
-    assert tuple(fr.conv_plan(m, hw, co, k_slices, 132, TF32X3)) == (*want, want[0], 0, 0, 0)
+    one block to an SM either way; A is gathered (no TMA box, no staging),
+    and it keeps the GroupNorm chain (no cluster, no fused epilogue)."""
+    assert tuple(fr.conv_plan(m, hw, co, k_slices, 132, TF32X3, groups=8)) == (*want, want[0], 0, 0, 0, 1, 0, 0)
 
 
 @pytest.mark.parametrize("dtype,c_in,c_out,fits", [

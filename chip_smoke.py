@@ -381,6 +381,21 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def counted(name: str, since=None) -> int:
+    """The port's counter ``name`` (``utils.profiling.counters``: the K3
+    routes, fused GroupNorms and recomputes), less its value in ``since``,
+    an earlier ``counters()``."""
+    from nope_tpu_torch.utils import profiling
+
+    return profiling.counters().get(name, 0) - (since or {}).get(name, 0)
+
+
+def counters_now() -> dict:
+    from nope_tpu_torch.utils import profiling
+
+    return profiling.counters()
+
+
 def rel_err(got, want):
     err = (got.float() - want.float()).abs().max().item()
     return err, err / max(want.float().abs().max().item(), 1e-30)
@@ -681,7 +696,7 @@ def evaluation_phase(torch, dev, task32, variant, grids, counters, unet_cpu, vae
     # (a) both protocols through evaluate_geodesic, every kernel counted over them
     for fn in counters:
         fn.launches = 0
-    fr.resnet_block.tensor_core_launches = fr.resnet_block.tf32x3_launches = 0
+    counts0 = counters_now()
     chunks = {}
     for name, (b, n, chunk) in EVAL.items():
 
@@ -721,7 +736,7 @@ def evaluation_phase(torch, dev, task32, variant, grids, counters, unet_cpu, vae
         if not ok:
             raise RuntimeError(f"the {name} protocol's outputs are malformed: {scores}")
     launches = {fn.__name__: fn.launches for fn in counters}
-    tc, t3 = fr.resnet_block.tensor_core_launches, fr.resnet_block.tf32x3_launches
+    tc, t3 = counted("k3.tensor_core_launches", counts0), counted("k3.tf32x3_launches", counts0)
     print(f"  launches over both protocols {launches}; K3 on the tensor cores: bf16 {tc}, float32 in 3xTF32 (the "
           f"fp32 loss) {t3}, elsewhere {launches['resnet_block'] - tc - t3}")
     if not all(launches.values()) or not tc or not t3:
@@ -1051,13 +1066,13 @@ def refinement_phase(torch, dev, task32, half, estimators, cpu_est, gallery, gri
     plain = est.estimate("object", q8)
     for fn in counters:
         fn.launches = 0
-    fr._ResnetBlockFn.recomputes = la._LinearAttentionFn.recomputes = 0
+    counts0 = counters_now()
     t0 = time.perf_counter()
     r1 = est.estimate("object", q8, refine_steps=REFINE_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     out["launches"] = {fn.__name__: fn.launches for fn in counters}
-    out["recomputes"] = {"K3": fr._ResnetBlockFn.recomputes, "K2": la._LinearAttentionFn.recomputes}
+    out["recomputes"] = {"K3": counted("k3.recomputes", counts0), "K2": counted("k2.recomputes", counts0)}
     print(f"  estimate bf16 B={QUERIES} N={FAST_N} refine_steps={REFINE_STEPS} refine_topk=1: {wall:.2f} s; launches "
           f"{out['launches']}, recompute backwards {out['recomputes']}")
     if not all(out["launches"].values()) or not all(out["recomputes"].values()):
@@ -1423,14 +1438,14 @@ def cli_phase(torch, dev, smi, counters, task32, half, native_build):
             save = tmp / label
             for fn in counters:
                 fn.launches = 0
-            fr.resnet_block.tensor_core_launches = 0
+            counts0 = counters_now()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(io.StringIO()):
                 results = test_shapenet.main([*flags, *data, *overrides, f"save_dir={save}"])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = {fn.__name__: fn.launches for fn in counters}
-            launches["resnet_block tensor cores"] = fr.resnet_block.tensor_core_launches
+            launches["resnet_block tensor cores"] = counted("k3.tensor_core_launches", counts0)
             cats = [c for c in results if c != "mean"]
             written = json.loads((save / "train" / "scores.json").read_text())
             dumps = sorted(p.name for p in (save / "train" / "predictions").glob("*.npz"))
@@ -1770,7 +1785,7 @@ def training_phase(torch, dev, smi, counters, task32, unet_cpu, vae_cpu, per_for
         try:
             for fn in counters:
                 fn.launches = 0
-            fr._ResnetBlockFn.recomputes = la._LinearAttentionFn.recomputes = 0
+            counts0 = counters_now()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             state_a, trainer_a = train_cli.main(["--max-steps", str(TRAIN_STEPS), *common, f"save_dir={tmp / 'a'}",
@@ -1778,7 +1793,8 @@ def training_phase(torch, dev, smi, counters, task32, unet_cpu, vae_cpu, per_for
             torch.cuda.synchronize()
             wall_a = time.perf_counter() - t0
             out["launches"] = {fn.__name__: fn.launches for fn in counters}
-            out["recomputes"] = {"K3": fr._ResnetBlockFn.recomputes, "K2": la._LinearAttentionFn.recomputes, "K1": 0}
+            out["recomputes"] = {"K3": counted("k3.recomputes", counts0), "K2": counted("k2.recomputes", counts0),
+                                 "K1": 0}
             peak = torch.cuda.max_memory_allocated() / 2**30
             log_a, fetched[:] = list(fetched), []
             # the resumed run saves no checkpoint of its own (its interval is past its steps)
@@ -2623,9 +2639,9 @@ def bop_kernel_times(torch, smi, dev, k3_calls, k2_calls, check):
                     "plain": lambda: fr.resnet_block_plain(x, emb, params, shape[6]),
                     "conv2d": k3_library(torch, F, x, params)}
             want = runs["plain"]()
-            before = fr.resnet_block.tf32x3_launches
+            before = counters_now()
             got = runs["tf32x3"]()
-            if fr.resnet_block.tf32x3_launches != before + 1:
+            if counted("k3.tf32x3_launches", before) != 1:
                 raise RuntimeError(f"K3 fp32 {label} did not run the 3xTF32 route")
             check("K3", f"{label} 3xTF32", got, want, "float32")
             if not torch.equal(got, runs["tf32x3"]()):
@@ -2755,7 +2771,7 @@ def bop_phase(torch, dev, smi, counters, k3_calls, k2_calls, check, overrides=()
             record = {"card_ms": [], "vsd_ms": [], "sim": [], "idx": []}
             for fn in counters:
                 fn.launches = 0
-            fr.resnet_block.tf32x3_launches = 0
+            counts0 = counters_now()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -2767,7 +2783,7 @@ def bop_phase(torch, dev, smi, counters, k3_calls, k2_calls, check, overrides=()
             launches = {fn.__name__: fn.launches for fn in counters}
             for k, v in launches.items():
                 total[k] += v
-            t3 = fr.resnet_block.tf32x3_launches
+            t3 = counted("k3.tf32x3_launches", counts0)
             tf32x3 += t3
             if t3 != launches["resnet_block"]:
                 raise RuntimeError(f"phase 12 (c): {launches['resnet_block'] - t3} of {launches['resnet_block']} fp32 K3 "
@@ -3057,13 +3073,14 @@ def tools_phase(torch, dev, smi, counters, phase9_step_ms):
         return est.estimate("object", queries)
 
     calls()  # warm-up: K3's weight packs, cuDNN's plans
-    blocks0, fused0 = fr.resnet_block.tensor_core_launches, fr.resnet_block.fused_norms
+    counts0 = counters_now()
     with tempfile.TemporaryDirectory(prefix="nope_trace_") as log_dir:
         with profiling.trace(log_dir):
             _, traced = run("a", calls)
         kernels = trace_kernels(log_dir)
     # every bf16 block runs two GroupNorms: each either fused in a conv's epilogue or chained
-    chained = 2 * (fr.resnet_block.tensor_core_launches - blocks0) - (fr.resnet_block.fused_norms - fused0)
+    fused = counted("k3.fused_norms", counts0)
+    chained = 2 * counted("k3.tensor_core_launches", counts0) - fused
     norms = {k: sum(n for name, (n, _) in kernels.items() if k in name) for k in ("gn_silu", "gn_finalize")}
     result, untraced = run("a untraced", calls)
     del out["a untraced"]
@@ -3071,14 +3088,14 @@ def tools_phase(torch, dev, smi, counters, phase9_step_ms):
              for k, names in (("K1", K1_KERNELS), ("K2", K2_KERNELS), ("K3", K3_KERNELS))}
     ok = (all(named.values()) and traced == untraced and all(traced.values())
           and result.nearest_idx.shape == (QUERIES, 5) and np.isfinite(result.similarity).all()
-          and norms == {"gn_silu": chained, "gn_finalize": chained} and fr.resnet_block.fused_norms > fused0)
+          and norms == {"gn_silu": chained, "gn_finalize": chained} and fused > 0)
     print(f"  (a) profiling.trace of register_object + estimate (bf16, N={FAST_N}, B={QUERIES}): one .pt.trace.json, "
           f"{len(kernels)} kernel names, {sum(n for n, _ in kernels.values())} launches, "
           + ", ".join(f"{k} {sum(n for n, _ in v.values())} launches {sum(ms for _, ms in v.values()):.3f} ms "
                       f"({', '.join(s for s in names if any(s in n for n in v))})"
                       for (k, v), names in zip(named.items(), (K1_KERNELS, K2_KERNELS, K3_KERNELS)))
           + f"; gn_silu x{norms['gn_silu']} and gn_finalize x{norms['gn_finalize']} for the {chained} chained "
-          f"GroupNorms ({fr.resnet_block.fused_norms - fused0} fused in a conv's epilogue)"
+          f"GroupNorms ({fused} fused in a conv's epilogue)"
           + f"; op counters traced {traced} vs untraced {untraced} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise RuntimeError("phase 13 (a): the trace misses a kernel, or the traced run launched other counts")
@@ -3333,10 +3350,10 @@ def main() -> int:
                 f32 = {k: v.float() for k, v in params.items()}
                 label = (f"B={batch} {shape[0]}x{shape[1]} {shape[2]}->{shape[3]} res={int(shape[4])} "
                          f"emb={int(shape[5])}" + (f" G={shape[6]}" if shape in K3_GROUP_SHAPES else ""))
-                before, fused_before = fr.resnet_block.tf32x3_launches, fr.resnet_block.fused_norms
+                before = counters_now()
                 got = fr.resnet_block(x, emb, params, shape[6])
-                fused = fr.resnet_block.fused_norms - fused_before
-                if dtype == torch.float32 and fr.resnet_block.tf32x3_launches != before + 1:
+                fused = counted("k3.fused_norms", before)
+                if dtype == torch.float32 and counted("k3.tf32x3_launches", before) != 1:
                     raise RuntimeError(f"K3 {label} float32 did not run the 3xTF32 route")
                 check("K3", label, got,
                       fr.resnet_block_plain(x.float(), None if emb is None else emb.float(), f32, shape[6]), dn)
@@ -3451,7 +3468,7 @@ def main() -> int:
     counters = (sim.reference_similarity, la.linear_attention_inner, fr.resnet_block)
     for fn in counters:
         fn.launches = 0
-    fr.resnet_block.tensor_core_launches = fr.resnet_block.tf32x3_launches = 0
+    counts0 = counters_now()
     answers = {}
     t0 = time.perf_counter()
     for (dt, n), est in estimators.items():
@@ -3459,7 +3476,7 @@ def main() -> int:
         answers[(dt, n)] = [est.estimate("object", q) for q in requests]
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counters}
-    tc, serve_tf32x3 = fr.resnet_block.tensor_core_launches, fr.resnet_block.tf32x3_launches
+    tc, serve_tf32x3 = counted("k3.tensor_core_launches", counts0), counted("k3.tf32x3_launches", counts0)
     print(f"  4 registrations + {4 * REQUESTS} requests: {time.perf_counter() - t0:.1f} s; launches {launches}; "
           f"K3 on the tensor cores: bf16 {tc}, float32 in 3xTF32 {serve_tf32x3}")
     if not all(launches.values()) or not tc or not serve_tf32x3:

@@ -16,10 +16,11 @@ the rows gathered back onto every rank.
 
 from __future__ import annotations
 
+import itertools
 import logging
 import os
 import time
-from typing import Any, Dict, Iterable, Optional
+from typing import Any, Dict, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -34,6 +35,7 @@ from nope_tpu_torch.parallel.mesh import (
     process_index,
     shard_eval_batch,
 )
+from nope_tpu_torch.utils import profiling
 
 
 def _merge_across_processes(errors: np.ndarray, loss_sum: float, loss_count: int, k: int):
@@ -88,6 +90,18 @@ def _to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.T
             arr = v.astype(np.float32) if v.dtype.kind == "f" else v
             out[k] = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
     return out
+
+
+def _pulled(loader: Iterable[Dict[str, np.ndarray]]) -> Iterator[Dict[str, np.ndarray]]:
+    """The loader's batches, each pull inside an ``eval.load`` span."""
+    batches = iter(loader)
+    end = object()
+    for i in itertools.count():
+        with profiling.span("eval.load", request=i):
+            batch = next(batches, end)
+        if batch is end:
+            return
+        yield batch
 
 
 def _pad_to(batch: Dict[str, np.ndarray], valid: int, steady: int) -> Dict[str, np.ndarray]:
@@ -157,6 +171,15 @@ def evaluate_geodesic(
     scores are the all-gathered global ones, the same on every rank
     (``num_images`` and ``images_per_sec`` too).  Dumps and panels are
     rank-suffixed.
+
+    Spans (``utils.profiling``), each with the batch index as its
+    request, and none around the loop, so that a pause between steps
+    takes the name of its phase: ``eval.load`` (the loader's pull),
+    ``eval.to_device`` (padding and, without ``mesh``, the host→device
+    copy), ``eval.step`` (the step's host side) and ``eval.fetch`` (the
+    read-back, the loss, dumps and bookkeeping), whose child
+    ``eval.wait`` is the first read, which waits for the step's device
+    work.
     """
     rank, world = process_index(), process_count()
     device = task.device
@@ -164,39 +187,47 @@ def evaluate_geodesic(
     all_errors, all_refined, losses = [], [], []
     steady_batch = None
     t0 = time.perf_counter()
-    for i, batch in enumerate(loader):
+    for i, batch in enumerate(_pulled(loader)):
         if max_batches is not None and i >= max_batches:
             break
         valid = len(batch["query"])
         if steady_batch is None:
             steady_batch = valid
-        host = _pad_to(batch, valid, steady_batch) if valid < steady_batch else batch
-        if mesh is None:
-            step = task.eval_geodesic_step(_to_device(host, device), chunk_size=chunk_size,
-                                           refine_steps=refine_steps, refine_lr=refine_lr, infer_task=infer_task)
-        else:
-            step = _sharded_step(task, host, mesh, chunk_size, refine_steps, refine_lr, infer_task)
-        keys = ("similarity", "nearest_idx", "error_deg", "errors_topk", "refined_R", "refined_error_deg")
-        out = {k: step[k].cpu().numpy() for k in keys if k in step}
-        all_errors.append(out["errors_topk"][:valid])
-        if refine_steps:
-            all_refined.append(out["refined_error_deg"][:valid])
-        if valid == steady_batch:
-            losses.append(float(step["loss"]))
-        if save_dir is not None:
-            os.makedirs(save_dir, exist_ok=True)
-            dump = {k: out[k][:valid] for k in ("similarity", "nearest_idx", "error_deg")}
-            dump["query_pose"] = np.asarray(batch["query_pose"])
+        with profiling.span("eval.to_device", request=i):
+            host = _pad_to(batch, valid, steady_batch) if valid < steady_batch else batch
+            on_device = _to_device(host, device) if mesh is None else None
+        with profiling.span("eval.step", request=i):
+            if mesh is None:
+                step = task.eval_geodesic_step(on_device, chunk_size=chunk_size, refine_steps=refine_steps,
+                                               refine_lr=refine_lr, infer_task=infer_task)
+            else:
+                step = _sharded_step(task, host, mesh, chunk_size, refine_steps, refine_lr, infer_task)
+        keys = [k for k in ("similarity", "nearest_idx", "error_deg", "errors_topk", "refined_R",
+                            "refined_error_deg") if k in step]
+        with profiling.span("eval.fetch", request=i):
+            with profiling.span("eval.wait", request=i):
+                out = {keys[0]: step[keys[0]].cpu().numpy()}
+            out.update((k, step[k].cpu().numpy()) for k in keys[1:])
+            all_errors.append(out["errors_topk"][:valid])
             if refine_steps:
-                dump.update(refined_R=out["refined_R"][:valid], refined_error_deg=out["refined_error_deg"][:valid])
-            np.savez(os.path.join(save_dir, f"pred_{tag}_batch{i}_rank{rank}.npz"), **dump)
-            if i == 0 and "gt_templates" in batch:
-                try:
-                    _save_panel(batch, out, valid, save_dir, tag, rank)
-                except Exception as e:  # the panel is a side product: report it, go on scoring
-                    logging.warning("retrieval panel failed: %s", e)
-        if i % 10 == 0 and losses:
-            logging.info("eval %s batch %d: loss=%.4f", tag, i, losses[-1])
+                all_refined.append(out["refined_error_deg"][:valid])
+            if valid == steady_batch:
+                losses.append(float(step["loss"]))
+            if save_dir is not None:
+                os.makedirs(save_dir, exist_ok=True)
+                dump = {k: out[k][:valid] for k in ("similarity", "nearest_idx", "error_deg")}
+                dump["query_pose"] = np.asarray(batch["query_pose"])
+                if refine_steps:
+                    dump.update(refined_R=out["refined_R"][:valid],
+                                refined_error_deg=out["refined_error_deg"][:valid])
+                np.savez(os.path.join(save_dir, f"pred_{tag}_batch{i}_rank{rank}.npz"), **dump)
+                if i == 0 and "gt_templates" in batch:
+                    try:
+                        _save_panel(batch, out, valid, save_dir, tag, rank)
+                    except Exception as e:  # the panel is a side product: report it, go on scoring
+                        logging.warning("retrieval panel failed: %s", e)
+            if i % 10 == 0 and losses:
+                logging.info("eval %s batch %d: loss=%.4f", tag, i, losses[-1])
 
     k = int(task.config.retrieval_k)
     errors = np.concatenate(all_errors, axis=0) if all_errors else np.zeros((0, k))

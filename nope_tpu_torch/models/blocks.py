@@ -30,6 +30,7 @@ from torch import nn
 
 from nope_tpu_torch.ops.fused_resnet import fused_resnet_block
 from nope_tpu_torch.ops.linear_attention import linear_attention
+from nope_tpu_torch.utils import profiling
 
 
 def zero_module(module: nn.Module) -> nn.Module:
@@ -83,17 +84,25 @@ class ResnetBlock(nn.Module):
         self.res_conv = nn.Conv2d(dim, dim_out, 1) if dim != dim_out else None
 
     def forward(self, x: torch.Tensor, cond: Optional[torch.Tensor] = None) -> torch.Tensor:
-        emb = self.mlp(cond) if self.mlp is not None and cond is not None else None
-        params = {
-            "w1": self.block1.proj.weight, "b1": self.block1.proj.bias,
-            "g1": self.block1.norm.weight, "be1": self.block1.norm.bias,
-            "w2": self.block2.proj.weight, "b2": self.block2.proj.bias,
-            "g2": self.block2.norm.weight, "be2": self.block2.norm.bias,
-        }
-        if self.res_conv is not None:
-            params["res_w"], params["res_b"] = self.res_conv.weight, self.res_conv.bias
-        out = fused_resnet_block(nhwc(x), emb, params, self.groups, self.block1.norm.eps)
-        return nchw(out)
+        with profiling.span("k3", facts=lambda: self._facts(x)):
+            emb = self.mlp(cond) if self.mlp is not None and cond is not None else None
+            params = {
+                "w1": self.block1.proj.weight, "b1": self.block1.proj.bias,
+                "g1": self.block1.norm.weight, "be1": self.block1.norm.bias,
+                "w2": self.block2.proj.weight, "b2": self.block2.proj.bias,
+                "g2": self.block2.norm.weight, "be2": self.block2.norm.bias,
+            }
+            if self.res_conv is not None:
+                params["res_w"], params["res_b"] = self.res_conv.weight, self.res_conv.bias
+            out = fused_resnet_block(nhwc(x), emb, params, self.groups, self.block1.norm.eps)
+            return nchw(out)
+
+    def _facts(self, x: torch.Tensor) -> dict:
+        """The ``k3`` span's attributes: items, dtype and ``shape`` (h, w,
+        cin, co, res, emb) of NCHW ``x``."""
+        return dict(profiling.batch_facts(x), shape=(
+            int(x.shape[2]), int(x.shape[3]), self.block1.proj.in_channels, self.block1.proj.out_channels,
+            self.res_conv is not None, self.mlp is not None))
 
 
 class ConditionalResnetBlock(nn.Module):
@@ -158,9 +167,11 @@ class LinearAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, _, hh, ww = x.shape
-        qkv = nhwc(self.to_qkv(x)).reshape(b, hh * ww, -1)
-        out = linear_attention(qkv, self.heads, self.dim_head)
-        return self.to_out(nchw(out.reshape(b, hh, ww, -1)))
+        # the k2 span's shape: (dim, tokens)
+        with profiling.span("k2", facts=lambda: dict(profiling.batch_facts(x), shape=(int(x.shape[1]), hh * ww))):
+            qkv = nhwc(self.to_qkv(x)).reshape(b, hh * ww, -1)
+            out = linear_attention(qkv, self.heads, self.dim_head)
+            return self.to_out(nchw(out.reshape(b, hh, ww, -1)))
 
 
 class Attention(nn.Module):

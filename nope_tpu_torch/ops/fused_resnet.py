@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from torch.utils.weak import WeakIdKeyDictionary
 
 from nope_tpu_torch.ops import _build
+from nope_tpu_torch.utils import profiling
 
 Params = Dict[str, torch.Tensor]
 _KEYS = ("w1", "b1", "g1", "be1", "w2", "b2", "g2", "be2", "res_w", "res_b")
@@ -59,7 +60,7 @@ class TensorCoreRoute(NamedTuple):
     staged_below: int  # K-slices a block below which its tile is staged (0: never)
     b_rows: int  # weight rows a tile's cost counts beside its own: bf16 waits on what L2 feeds it, A and B
     boxed: bool  # A arrives by TMA in boxes of whole image rows (tiles of whole rows or samples)
-    counter: str  # resnet_block's count of the blocks that ran the route
+    counter: str  # the counter (utils.profiling) of the blocks that ran the route
 
 
 #: bf16: 64-channel slices, A by TMA, one block an SM: a ring of 5 slots
@@ -76,8 +77,9 @@ class TensorCoreRoute(NamedTuple):
 #: its rows and the weight tile's 192
 TENSOR_CORE_ROUTES = {
     torch.bfloat16: TensorCoreRoute("nope_conv_wgmma", "co_k", 64, (64, 128), 128, TILE_N, True,
-                                    "tensor_core_launches"),
-    torch.float32: TensorCoreRoute("nope_conv_tf32x3", "co_k_tf32x3", 32, (64, 128), 0, 0, False, "tf32x3_launches"),
+                                    "k3.tensor_core_launches"),
+    torch.float32: TensorCoreRoute("nope_conv_tf32x3", "co_k_tf32x3", 32, (64, 128), 0, 0, False,
+                                   "k3.tf32x3_launches"),
 }
 #: per parameter: (its storage key, {layout: pack}) -- see packed_weight
 _PACKS = WeakIdKeyDictionary()
@@ -447,8 +449,8 @@ def _block_tensor_cores(x, emb, params, groups, eps, out):
         else:
             res_ptr, res_dt = x.data_ptr(), dt
         conv_norm(plan2, act, params["w2"], params["b2"], params["g2"], params["be2"], None, res_ptr, res_dt, out)
-    setattr(resnet_block, route.counter, getattr(resnet_block, route.counter) + 1)
-    resnet_block.fused_norms += 2 - len(chained)
+    profiling.count(route.counter)
+    profiling.count("k3.fused_norms", 2 - len(chained))
 
 
 def resident_clusters(device: torch.device, tile: int, staged: bool, cluster: int) -> int:
@@ -531,13 +533,11 @@ def resnet_block(
 
 
 resnet_block.launches = 0
-#: blocks of those that ran the bf16 tensor-core route
-resnet_block.tensor_core_launches = 0
-#: blocks of those that ran the float32 tensor-core route (3xTF32)
-resnet_block.tf32x3_launches = 0
-#: GroupNorms of those blocks applied in a conv's epilogue (a fused plan):
-#: the others launched gn_finalize and gn_silu
-resnet_block.fused_norms = 0
+# Counters (utils.profiling.counters): k3.tensor_core_launches, the blocks
+# that ran the bf16 tensor-core route; k3.tf32x3_launches, the float32 one
+# (3xTF32); k3.fused_norms, their GroupNorms applied in a conv's epilogue
+# (a fused plan; the others launched gn_finalize and gn_silu);
+# k3.recomputes, the backward passes of _ResnetBlockFn.
 
 
 def conv_tf32x3(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -576,9 +576,6 @@ class _ResnetBlockFn(torch.autograd.Function):
     the gradient of only the inputs that ask for one: with frozen
     parameters, no weight gradient is computed."""
 
-    #: backward passes taken (each recomputes one plain forward)
-    recomputes = 0
-
     @staticmethod
     def forward(ctx, groups, eps, x, emb, *ps):
         ctx.groups, ctx.eps = groups, eps
@@ -588,7 +585,7 @@ class _ResnetBlockFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         inputs = ctx.saved_tensors
-        _ResnetBlockFn.recomputes += 1
+        profiling.count("k3.recomputes")  # each recomputes one plain forward
         with torch.enable_grad():
             leaves = [
                 None if t is None else t.detach().requires_grad_(need)

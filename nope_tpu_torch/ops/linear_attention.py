@@ -27,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from nope_tpu_torch.ops import _build
+from nope_tpu_torch.utils import profiling
 
 #: the kernels' geometry: 4 heads of 32 channels, 32 tokens staged a step
 HEADS, DIM_HEAD, TOKEN_STEP = 4, 32, 32
@@ -164,10 +165,8 @@ linear_attention_inner.launches = 0
 
 
 class _LinearAttentionFn(torch.autograd.Function):
-    """K2 forward; backward by recomputing the plain version."""
-
-    #: backward passes taken (each recomputes one plain forward)
-    recomputes = 0
+    """K2 forward; backward by recomputing the plain version (counted as
+    ``k2.recomputes``, ``utils.profiling.counters``)."""
 
     @staticmethod
     def forward(ctx, qkv, heads, dim_head):
@@ -178,7 +177,7 @@ class _LinearAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         (qkv,) = ctx.saved_tensors
-        _LinearAttentionFn.recomputes += 1
+        profiling.count("k2.recomputes")
         with torch.enable_grad():
             leaf = qkv.detach().requires_grad_(True)
             out = linear_attention_inner_plain(leaf, ctx.heads, ctx.dim_head)

@@ -16,6 +16,15 @@ batch and one scoring pass (K1) against the bank::
     est.estimate("mug0", query_images, refine_steps=24)  # + continuous ΔR
     est.save_registry("gallery.npz")  # the JAX package's .npz format
 
+Under a ``torch.profiler`` profile (``utils.profiling.trace``) each call
+records spans, with the call's index as their request:
+``engine.register`` (items: objects), and ``engine.estimate`` (items:
+queries) over ``engine.queries`` (the images' upload and
+normalisation), ``engine.stack`` (the stacked banks and the gather),
+``vae.encode``, ``engine.score`` (K1 and top-k), ``engine.wait`` (the
+first read of the answer, which waits for the device) and
+``engine.assemble`` (the answer on the host).
+
 With ``refine_steps`` > 0 the retrieved top-1 (or top-K) pose is refined
 by gradient descent through the U-Net (``tasks.refinement``) into a
 continuous ΔR.  The task's modules fix the device.  With
@@ -25,6 +34,7 @@ continuous ΔR.  The task's modules fix the device.  With
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 from typing import Dict, Optional, Sequence, Tuple, Union
 
@@ -40,6 +50,7 @@ from nope_tpu_torch.geometry.rotations import (
 )
 from nope_tpu_torch.geometry.transforms import relative_rotation
 from nope_tpu_torch.tasks.refinement import make_multistart_refiner, make_pose_refiner
+from nope_tpu_torch.utils import profiling
 
 #: a stored bank: (M, N, h, w, C) in the serving dtype, or for int8
 #: ((M, N, h, w, C) int8, (M, N, 1, 1, C) float32 scale)
@@ -139,6 +150,7 @@ class PoseEstimator:
         #: (unique-id tuple, banks stacked over them) of the last
         #: estimate_many; dropped on register, deregister and load
         self._stacked_cache: tuple = (None, None)
+        self._calls = itertools.count()  # the request id of the spans
 
     @property
     def num_templates(self) -> int:
@@ -211,29 +223,30 @@ class PoseEstimator:
                          reference_poses: Optional[np.ndarray] = None) -> None:
         """Batch registration: one bank sweep over an (M, H, W, 3) gallery."""
         m = len(object_ids)
-        reference_images = np.asarray(reference_images)
-        if len(reference_images) != m:
-            raise ValueError(f"{m} object ids but {len(reference_images)} reference images")
-        if reference_poses is None:
-            reference_poses = np.broadcast_to(self.template_poses[0], (m, 3, 3))
-        reference_poses = np.array(reference_poses, np.float32)  # a writable copy
-        if len(reference_poses) != m:
-            raise ValueError(f"{m} object ids but {len(reference_poses)} reference poses")
-        ref_R = torch.as_tensor(reference_poses, device=self.device)
-        rel = relative_rotation(self._templates[None], ref_R[:, None])  # (M, N, 3, 3)
-        rel_rep = self._pose_representation(rel)  # (M, N, dim) float32
-        refs = self._device_images(reference_images)
-        self._pin_latent_hwc(reference_images.shape[1:3])
-        ref_lat = self.task.encode(refs)
-        banks = self.task.generate_template_bank(
-            None, rel_rep.to(self.dtype), chunk_size=self.chunk_size, reference_latent=ref_lat)
-        stored = self._store(banks)
-        for i, object_id in enumerate(object_ids):
-            self._banks[object_id] = _slice(stored, i)
-            self._ref_poses[object_id] = reference_poses[i]
-            self._ref_latents[object_id] = ref_lat[i:i + 1]
-            self._bank_reps[object_id] = rel_rep[i]
-        self._forget_stacks()
+        with profiling.span("engine.register", request=next(self._calls), items=m):
+            reference_images = np.asarray(reference_images)
+            if len(reference_images) != m:
+                raise ValueError(f"{m} object ids but {len(reference_images)} reference images")
+            if reference_poses is None:
+                reference_poses = np.broadcast_to(self.template_poses[0], (m, 3, 3))
+            reference_poses = np.array(reference_poses, np.float32)  # a writable copy
+            if len(reference_poses) != m:
+                raise ValueError(f"{m} object ids but {len(reference_poses)} reference poses")
+            ref_R = torch.as_tensor(reference_poses, device=self.device)
+            rel = relative_rotation(self._templates[None], ref_R[:, None])  # (M, N, 3, 3)
+            rel_rep = self._pose_representation(rel)  # (M, N, dim) float32
+            refs = self._device_images(reference_images)
+            self._pin_latent_hwc(reference_images.shape[1:3])
+            ref_lat = self.task.encode(refs)
+            banks = self.task.generate_template_bank(
+                None, rel_rep.to(self.dtype), chunk_size=self.chunk_size, reference_latent=ref_lat)
+            stored = self._store(banks)
+            for i, object_id in enumerate(object_ids):
+                self._banks[object_id] = _slice(stored, i)
+                self._ref_poses[object_id] = reference_poses[i]
+                self._ref_latents[object_id] = ref_lat[i:i + 1]
+                self._bank_reps[object_id] = rel_rep[i]
+            self._forget_stacks()
 
     def deregister_object(self, object_id: str) -> None:
         for table in (self._banks, self._ref_poses, self._ref_latents, self._bank_reps):
@@ -338,24 +351,31 @@ class PoseEstimator:
         or, with ``refine_topk`` > 1, from each of its top-K and keeps
         the start with the lowest final objective; the estimate then
         carries ``refined_relative_rotation`` and ``refined_rotation``."""
-        if object_id not in self._banks:
-            raise KeyError(f"object {object_id!r} is not registered")
-        if refine_steps:
-            if self._ref_latents.get(object_id) is None:
-                raise ValueError(
-                    f"object {object_id!r} was loaded from a registry without "
-                    "reference latents; re-register it to enable refinement")
-            self._check_topk(refine_topk)
-        q_lat = self.task.encode(self._queries(query_images))
-        sim, idx = self.task.retrieval(None, self._dense(self._banks[object_id]), query_latent=q_lat)
-        b = q_lat.shape[0]
-        ref_pose = np.broadcast_to(self._ref_poses[object_id], (b, 3, 3))
-        if not refine_steps:
-            return self._assemble(sim, idx, ref_pose)
-        rel, dist = self._refine(q_lat, self._ref_latents[object_id].expand(b, -1, -1, -1),
-                                 self._bank_reps[object_id].expand(b, -1, -1), idx,
-                                 refine_steps, refine_lr, refine_objective, refine_topk)
-        return self._assemble(sim, idx, ref_pose, rel, dist)
+        with profiling.span("engine.estimate", request=next(self._calls),
+                            facts=lambda: {"items": len(query_images) if np.ndim(query_images) == 4 else 1}):
+            if object_id not in self._banks:
+                raise KeyError(f"object {object_id!r} is not registered")
+            if refine_steps:
+                if self._ref_latents.get(object_id) is None:
+                    raise ValueError(
+                        f"object {object_id!r} was loaded from a registry without "
+                        "reference latents; re-register it to enable refinement")
+                self._check_topk(refine_topk)
+            with profiling.span("engine.queries"):
+                queries = self._queries(query_images)
+            with profiling.span("engine.stack"):
+                bank = self._dense(self._banks[object_id])
+            q_lat = self.task.encode(queries)
+            with profiling.span("engine.score"):
+                sim, idx = self.task.retrieval(None, bank, query_latent=q_lat)
+            b = q_lat.shape[0]
+            ref_pose = np.broadcast_to(self._ref_poses[object_id], (b, 3, 3))
+            if not refine_steps:
+                return self._assemble(sim, idx, ref_pose)
+            rel, dist = self._refine(q_lat, self._ref_latents[object_id].expand(b, -1, -1, -1),
+                                     self._bank_reps[object_id].expand(b, -1, -1), idx,
+                                     refine_steps, refine_lr, refine_objective, refine_topk)
+            return self._assemble(sim, idx, ref_pose, rel, dist)
 
     @torch.no_grad()
     def estimate_many(self, object_ids: Sequence[str], query_images: np.ndarray, refine_steps: int = 0,
@@ -368,54 +388,61 @@ class PoseEstimator:
         scores all queries in one launch.  ``refine_steps`` > 0 refines
         as :meth:`estimate` does, each query against its own object's
         reference latent."""
-        queries = self._queries(query_images)
-        if len(object_ids) != queries.shape[0]:
-            raise ValueError(f"{len(object_ids)} object ids for {queries.shape[0]} queries")
-        missing = [oid for oid in object_ids if oid not in self._banks]
-        if missing:
-            raise KeyError(f"objects not registered: {missing!r}")
-        uniq = list(dict.fromkeys(object_ids))  # order-preserving
-        pos = {oid: i for i, oid in enumerate(uniq)}
-        inv = torch.tensor([pos[oid] for oid in object_ids], device=self.device)
-        key = tuple(uniq)
-        if self._stacked_cache[0] == key:
-            stacked = self._stacked_cache[1]
-        else:
-            parts = [self._banks[oid] for oid in uniq]
-            stacked = (tuple(torch.cat(p) for p in zip(*parts)) if self.bank_dtype == "int8"
-                       else torch.cat(parts))
-            self._stacked_cache = (key, stacked)
-        if refine_steps:
-            bare = [oid for oid in uniq if self._ref_latents.get(oid) is None]
-            if bare:
-                raise ValueError(
-                    f"objects {bare!r} were loaded from a registry without "
-                    "reference latents; re-register them to enable refinement")
-            self._check_topk(refine_topk)
-        q_lat = self.task.encode(queries)
-        sim, idx = self.task.retrieval(None, self._dense(_gather(stacked, inv)), query_latent=q_lat)
-        ref_poses = np.stack([self._ref_poses[oid] for oid in object_ids])
-        if not refine_steps:
-            return self._assemble(sim, idx, ref_poses)
-        ref_lats = torch.cat([self._ref_latents[oid] for oid in uniq]).index_select(0, inv)
-        reps = torch.stack([self._bank_reps[oid] for oid in uniq]).index_select(0, inv)
-        rel, dist = self._refine(q_lat, ref_lats, reps, idx, refine_steps, refine_lr, refine_objective,
-                                 refine_topk)
-        return self._assemble(sim, idx, ref_poses, rel, dist)
+        with profiling.span("engine.estimate", request=next(self._calls), items=len(object_ids)):
+            with profiling.span("engine.queries"):
+                queries = self._queries(query_images)
+            if len(object_ids) != queries.shape[0]:
+                raise ValueError(f"{len(object_ids)} object ids for {queries.shape[0]} queries")
+            missing = [oid for oid in object_ids if oid not in self._banks]
+            if missing:
+                raise KeyError(f"objects not registered: {missing!r}")
+            uniq = list(dict.fromkeys(object_ids))  # order-preserving
+            with profiling.span("engine.stack"):
+                pos = {oid: i for i, oid in enumerate(uniq)}
+                inv = torch.tensor([pos[oid] for oid in object_ids], device=self.device)
+                key = tuple(uniq)
+                if self._stacked_cache[0] == key:
+                    stacked = self._stacked_cache[1]
+                else:
+                    parts = [self._banks[oid] for oid in uniq]
+                    stacked = (tuple(torch.cat(p) for p in zip(*parts)) if self.bank_dtype == "int8"
+                               else torch.cat(parts))
+                    self._stacked_cache = (key, stacked)
+                bank = self._dense(_gather(stacked, inv))
+            if refine_steps:
+                bare = [oid for oid in uniq if self._ref_latents.get(oid) is None]
+                if bare:
+                    raise ValueError(
+                        f"objects {bare!r} were loaded from a registry without "
+                        "reference latents; re-register them to enable refinement")
+                self._check_topk(refine_topk)
+            q_lat = self.task.encode(queries)
+            with profiling.span("engine.score"):
+                sim, idx = self.task.retrieval(None, bank, query_latent=q_lat)
+            ref_poses = np.stack([self._ref_poses[oid] for oid in object_ids])
+            if not refine_steps:
+                return self._assemble(sim, idx, ref_poses)
+            ref_lats = torch.cat([self._ref_latents[oid] for oid in uniq]).index_select(0, inv)
+            reps = torch.stack([self._bank_reps[oid] for oid in uniq]).index_select(0, inv)
+            rel, dist = self._refine(q_lat, ref_lats, reps, idx, refine_steps, refine_lr, refine_objective,
+                                     refine_topk)
+            return self._assemble(sim, idx, ref_poses, rel, dist)
 
     def _assemble(self, sim: torch.Tensor, idx: torch.Tensor, ref_poses: np.ndarray,
                   refined_rel: Optional[np.ndarray] = None,
                   refined_distance: Optional[np.ndarray] = None) -> PoseEstimate:
-        idx_np = idx.cpu().numpy()
-        retrieved = self.template_poses[idx_np]  # (B, k, 3, 3)
-        rel = retrieved @ np.swapaxes(ref_poses, -1, -2)[:, None]  # ΔR_i = T_i · R_ref,iᵀ
-        return PoseEstimate(
-            nearest_idx=idx_np,
-            relative_rotations=rel,
-            rotations=retrieved,
-            similarity=sim.float().cpu().numpy(),
-            template_poses=self.template_poses,
-            refined_relative_rotation=refined_rel,
-            refined_rotation=None if refined_rel is None else refined_rel @ ref_poses,
-            refined_distance=refined_distance,
-        )
+        with profiling.span("engine.wait"):
+            idx_np = idx.cpu().numpy()
+        with profiling.span("engine.assemble"):
+            retrieved = self.template_poses[idx_np]  # (B, k, 3, 3)
+            rel = retrieved @ np.swapaxes(ref_poses, -1, -2)[:, None]  # ΔR_i = T_i · R_ref,iᵀ
+            return PoseEstimate(
+                nearest_idx=idx_np,
+                relative_rotations=rel,
+                rotations=retrieved,
+                similarity=sim.float().cpu().numpy(),
+                template_poses=self.template_poses,
+                refined_relative_rotation=refined_rel,
+                refined_rotation=None if refined_rel is None else refined_rel @ ref_poses,
+                refined_distance=refined_distance,
+            )

@@ -31,6 +31,7 @@ from nope_tpu_torch.models.distributions import DiagonalGaussian
 from nope_tpu_torch.ops.similarity import retrieve, similarity_metric, top_k
 from nope_tpu_torch.tasks.metrics import GeodesicError
 from nope_tpu_torch.tasks.refinement import make_pose_refiner
+from nope_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,7 +83,8 @@ class PoseConditionalTask:
     def encode(self, images: torch.Tensor, mode: Optional[str] = "mode"):
         """Frozen VAE encode: (B, H, W, 3) → (B, h, w, C) scaled latent
         mean, or with ``mode=None`` the distribution (mean scaled)."""
-        return self.vae.encode_image(images, mode)
+        with profiling.span("vae.encode", facts=lambda: profiling.batch_facts(images)):
+            return self.vae.encode_image(images, mode)
 
     @property
     def can_decode(self) -> bool:
@@ -99,8 +101,9 @@ class PoseConditionalTask:
 
     def predict_latent(self, ref_latent: torch.Tensor, relativeR: torch.Tensor) -> torch.Tensor:
         """U-Net: (reference latent (B,h,w,C), ΔR (B, pose_dim)) → (B,h,w,C')."""
-        out = self.unet(ref_latent.permute(0, 3, 1, 2), relativeR)
-        return out.permute(0, 2, 3, 1).contiguous()
+        with profiling.span("unet", facts=lambda: profiling.batch_facts(ref_latent)):
+            out = self.unet(ref_latent.permute(0, 3, 1, 2), relativeR)
+            return out.permute(0, 2, 3, 1).contiguous()
 
     def _latent_loss(self, pred: torch.Tensor, target) -> torch.Tensor:
         """L1/L2 mean, or the Gaussian KL when the target is a distribution
@@ -274,34 +277,41 @@ class PoseConditionalTask:
         ``similarity_fn(infer_task, query_latent, reference_latent,
         all_relativeR)`` → (B, N), when given, scores the grid in place of
         the bank (the template-parallel sweep of ``parallel.eval``).
+
+        Spans (``utils.profiling``): ``task.loss``, ``task.sweep`` (the
+        encodes at the inference dtype, the bank and retrieval) and
+        ``task.metric``.
         """
-        loss = self.forward_loss(batch["query"], batch["reference"], batch["gt_relativeR"])
+        with profiling.span("task.loss"):
+            loss = self.forward_loss(batch["query"], batch["reference"], batch["gt_relativeR"])
         half = self.config.half_precision_eval
         if infer_task is None:
             infer_task = self.half() if half else self
         cast = cast_half if half else (lambda t: t)
-        r_lat, q_lat = infer_task.encode(cast(batch["reference"])), infer_task.encode(cast(batch["query"]))
-        all_rel = cast(batch["all_relativeR"])
-        if similarity_fn is not None:
-            similarity = similarity_fn(infer_task, q_lat, r_lat, all_rel)
-            nearest = top_k(similarity, self.config.retrieval_k)
-        elif chunk_size is not None and chunk_size < all_rel.shape[1]:
-            similarity, nearest = infer_task.retrieve_streaming(None, None, all_rel, chunk_size, r_lat, q_lat)
-        else:
-            bank = infer_task.generate_template_bank(None, all_rel, chunk_size, r_lat)
-            similarity, nearest = infer_task.retrieval(None, bank, q_lat)
-            del bank
-        pred_R = batch["template_poses"][0][nearest]  # (B, k, 3, 3), the grid is shared
-        symmetry = batch["symmetry"].reshape(-1)
-        error, acc = self.metric(pred_R, batch["query_pose"], symmetry)
-        out = {
-            "loss": loss,
-            "similarity": similarity.float(),
-            "nearest_idx": nearest,
-            "error_deg": error,
-            "errors_topk": self.metric.topk_errors(pred_R, batch["query_pose"], symmetry),
-            **acc,
-        }
+        with profiling.span("task.sweep"):
+            r_lat, q_lat = infer_task.encode(cast(batch["reference"])), infer_task.encode(cast(batch["query"]))
+            all_rel = cast(batch["all_relativeR"])
+            if similarity_fn is not None:
+                similarity = similarity_fn(infer_task, q_lat, r_lat, all_rel)
+                nearest = top_k(similarity, self.config.retrieval_k)
+            elif chunk_size is not None and chunk_size < all_rel.shape[1]:
+                similarity, nearest = infer_task.retrieve_streaming(None, None, all_rel, chunk_size, r_lat, q_lat)
+            else:
+                bank = infer_task.generate_template_bank(None, all_rel, chunk_size, r_lat)
+                similarity, nearest = infer_task.retrieval(None, bank, q_lat)
+                del bank
+        with profiling.span("task.metric"):
+            pred_R = batch["template_poses"][0][nearest]  # (B, k, 3, 3), the grid is shared
+            symmetry = batch["symmetry"].reshape(-1)
+            error, acc = self.metric(pred_R, batch["query_pose"], symmetry)
+            out = {
+                "loss": loss,
+                "similarity": similarity.float(),
+                "nearest_idx": nearest,
+                "error_deg": error,
+                "errors_topk": self.metric.topk_errors(pred_R, batch["query_pose"], symmetry),
+                **acc,
+            }
         if refine_steps:
             all_rel = batch["all_relativeR"].float()
             init_rel = rotation_6d_to_matrix(all_rel[torch.arange(len(nearest)), nearest[:, 0]])

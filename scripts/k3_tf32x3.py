@@ -88,9 +88,9 @@ def main() -> int:
     for batch in cs.K3_BATCHES:
         for shape in shapes:
             x, emb, params = cs.k3_inputs(torch, shape, batch, dev, torch.float32, gen)
-            before = fr.resnet_block.tf32x3_launches
+            before = cs.counters_now()
             got = fr.resnet_block(x, emb, params, shape[6])
-            ran = fr.resnet_block.tf32x3_launches - before
+            ran = cs.counted("k3.tf32x3_launches", before)
             _, rel = cs.rel_err(got, fr.resnet_block_plain(x, emb, params, shape[6]))
             again = torch.equal(got, fr.resnet_block(x, emb, params, shape[6]))
             ok = rel <= tol and again and ran == 1

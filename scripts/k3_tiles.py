@@ -150,9 +150,9 @@ def fused_sweep(shapes, k3_calls, batches, dev, gen):
                 chosen = forced(*conv1)
                 fr.conv_plan = forced
                 try:
-                    before = fr.resnet_block.fused_norms
+                    before = chip_smoke.counters_now()
                     got = outs[label] = fr.resnet_block(x, emb, params, groups)
-                    fused = fr.resnet_block.fused_norms - before
+                    fused = chip_smoke.counted("k3.fused_norms", before)
                     _, rel = chip_smoke.rel_err(got, want)
                     if not rel <= chip_smoke.TOL["bfloat16"]["K3"]:
                         raise RuntimeError(f"{label} B={batch} {shape}: rel err {rel:.3e}")

@@ -243,8 +243,10 @@ def install() -> None:
         bindings = _module("moviepy.video.io.bindings")
         bindings.mplfig_to_npimage = lambda *a, **k: None
 
-    _import_reference_modules()
-    _purge_leaky_stubs()
+    try:
+        _import_reference_modules()
+    finally:  # also when the reference is missing: a leaked stub breaks later tests' import probes
+        _purge_leaky_stubs()
 
 
 # every reference module the parity tests touch, imported eagerly while

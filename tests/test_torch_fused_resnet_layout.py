@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from nope_tpu.ops.experimental.fused_resnet import _group_norm
 from nope_tpu_torch.ops import _build
 from nope_tpu_torch.ops import fused_resnet as fr
+from nope_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -656,7 +657,7 @@ def _check_block_launches(monkeypatch, route, batch, hw_side, cin, co, with_res,
         p["res_b"] = 0.1 * torch.randn(co, generator=gen)
     p = {k: v.to(dtype) for k, v in p.items()}
     out = torch.empty(batch, hw_side, hw_side, co, dtype=dtype)
-    before = fr.resnet_block.tensor_core_launches, fr.resnet_block.tf32x3_launches
+    before = profiling.counters()
     getattr(fr, block)(x, emb, p, groups, 1e-5, out)
     want = fr.resnet_block_plain(x.float(), None if emb is None else emb.float(),
                                  {k: v.float() for k, v in p.items()}, groups)
@@ -677,8 +678,8 @@ def _check_block_launches(monkeypatch, route, batch, hw_side, cin, co, with_res,
                                                 hw_side, groups) for c in (cin, co))]
         assert len(emulated.fused) == sum(fused) and emulated.calls.count("nope_gn_silu") == 2 - sum(fused)
     bf16_tc, tf32x3 = route == "tensor_cores", route == "tf32x3"
-    assert (fr.resnet_block.tensor_core_launches, fr.resnet_block.tf32x3_launches) == (before[0] + bf16_tc,
-                                                                                     before[1] + tf32x3)
+    assert [profiling.counters().get(k, 0) - before.get(k, 0)
+            for k in ("k3.tensor_core_launches", "k3.tf32x3_launches")] == [bf16_tc, tf32x3]
     return emulated
 
 
@@ -711,10 +712,10 @@ def test_fused_block_launches_equal_the_chain(monkeypatch, batch, hw_side, cin, 
         return scratch(device, **kw)
 
     monkeypatch.setattr(fr, "_Scratch", spy)
-    before = fr.resnet_block.fused_norms
+    before = profiling.counters().get("k3.fused_norms", 0)
     fused = _check_block_launches(monkeypatch, "tensor_cores", batch, hw_side, cin, co, with_res, with_emb, sms)
     got = fused.out
-    assert fr.resnet_block.fused_norms == before + 2
+    assert profiling.counters()["k3.fused_norms"] == before + 2
     assert len(fused.fused) == 2 and not {"nope_gn_finalize", "nope_gn_silu"} & set(fused.calls)
     assert sizes[-1]["conv"] == 0 and sizes[-1]["part"] == 0 and sizes[-1]["mean"] == 0
     r = fr.TENSOR_CORE_ROUTES[torch.bfloat16]
@@ -725,5 +726,5 @@ def test_fused_block_launches_equal_the_chain(monkeypatch, batch, hw_side, cin, 
     monkeypatch.setattr(fr, "conv_plan", lambda *a, **k: chain_plan(*a, **{**k, "fuse": False}))
     chain = _check_block_launches(monkeypatch, "tensor_cores", batch, hw_side, cin, co, with_res, with_emb, sms)
     assert not chain.fused and chain.calls.count("nope_gn_silu") == 2 and sizes[-1]["conv"] > 0
-    assert fr.resnet_block.fused_norms == before + 2
+    assert profiling.counters()["k3.fused_norms"] == before + 2
     torch.testing.assert_close(got, chain.out, rtol=0, atol=0)

@@ -175,7 +175,9 @@ def test_select_cad_with_texture_matches_under_a_stub_trimesh(tmp_path, monkeypa
     (stub_dir / "trimesh.py").write_text(_STUB_TRIMESH)
     monkeypatch.syspath_prepend(str(stub_dir))
     for name in ("trimesh", "nope_tpu.utils.mesh", "nope_tpu_torch.utils.mesh"):
-        monkeypatch.delitem(sys.modules, name, raising=False)
+        # recorded first, so teardown also drops what the test imports under the stub
+        monkeypatch.setitem(sys.modules, name, None)
+        monkeypatch.delitem(sys.modules, name)
     cads = _shapenet_cads(tmp_path / "ShapeNetCore")
     for synset, ids in cads.items():
         for cad in ids:

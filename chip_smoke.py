@@ -15,7 +15,13 @@ it fails at once.
    and bfloat16; K3 in both dtypes (bf16 and 3xTF32 on the tensor cores)
    at B = 3 (a ragged M), 26 and 341 (the registration batch), every
    float32 block on the 3xTF32 route, and each distinct 3xTF32 conv alone
-   at B=26 against its plain split arithmetic; its bf16 32x32 blocks
+   at B=26 against its plain split arithmetic; the float32 SD-VAE's
+   route: a 256-px encode's counters (22 convs routed, 6 on cuDNN; none
+   in bf16), each distinct routed conv at B=64 (128-column N tiles)
+   against its plain split arithmetic, and each NHWC GroupNorm + SiLU
+   before one against ``nn.GroupNorm``'s, both bitwise repeatable (phase
+   6 (a) reads the counters over the eval step's float32 loss too);
+   its bf16 32x32 blocks
    at the evaluation program's 1,984 and 3,328 U-Net items (64 x 31 and
    128 x 26) and phase 11's 1,664 (64 x 26); K2 at 3, 26 and 341 items
    times each of the U-Net's token counts, and in bfloat16 at 1,984, 3,328
@@ -312,6 +318,16 @@ BF16_SIM_RTOL = 1e-2
 HBM_BPS, BF16_TC_OPS, F32_OPS, TF32_TC_OPS = 3.35e12, 989e12, 67e12, 495e12
 IMAGE = 256
 LATENT = IMAGE // 8
+# the float32 SD-VAE's convs on the card (models/vae.py): of a 256-px
+# encode's 28, the 20 stride-1 3x3 convs of the resnets and the mid block
+# and the 2 1x1 shortcuts take the 3xTF32 conv; conv_in, the three
+# downsamplers, conv_out and quant_conv keep cuDNN.  Phase 2 holds each
+# distinct routed conv, and the NHWC GroupNorm + SiLU before it, at the
+# eval step's encode of 64 images
+VAE_ROUTED, VAE_CUDNN, VAE_BATCH = 22, 6, 64
+# the NHWC GroupNorm + SiLU against nn.GroupNorm's: float32 statistics
+# reduced in another order
+VAE_GN_RTOL = 1e-5
 # past the 65,535 a grid's y extent holds: K3's gn_silu and K1 with a bank
 # per query put samples (queries) on that axis and stride beyond it
 BIG_B = 65_600
@@ -679,6 +695,80 @@ GALLERY = ("mug", "cup", "can", "box")
 MIXED = ("cup", "mug", "can", "cup", "can", "mug", "mug", "cup")
 
 
+def vae_route_checks(torch, F, fr, dev, vae, check):
+    """Phase 2, the float32 SD-VAE's route: one 256-px encode on the card
+    records the shapes its routed convs and NHWC GroupNorms take and the
+    two counters (22 and 6 in float32, 0 and 0 for a bf16 copy); then each
+    distinct routed conv at B=64 (the 128-column N tile) against its plain
+    split arithmetic (in slices of 8 images) and twice for bitwise repeats,
+    and each distinct GroupNorm + SiLU against nn.GroupNorm's on the same
+    channels-last tensor."""
+    convs, norms = set(), set()
+    conv, norm = fr.conv_tf32x3, fr.group_norm_silu_nhwc
+
+    def conv_spy(x, w, b):
+        convs.add((x.shape[1], w.shape[1], w.shape[0], w.shape[-1]))
+        return conv(x, w, b)
+
+    def norm_spy(x, gamma, beta, groups, eps):
+        norms.add((x.shape[1], x.shape[-1], groups, eps))
+        return norm(x, gamma, beta, groups, eps)
+
+    image = torch.rand(1, IMAGE, IMAGE, 3, generator=torch.Generator(device=dev).manual_seed(5), device=dev) * 2 - 1
+    half = copy.deepcopy(vae).to(torch.bfloat16)
+    conv_spy.launches = conv.launches  # conv_tf32x3 counts its launches on the module's name, the spy's meanwhile
+    fr.conv_tf32x3, fr.group_norm_silu_nhwc = conv_spy, norm_spy
+    try:
+        with torch.no_grad():
+            per_encode = []
+            for v, img in ((vae, image), (half, image.to(torch.bfloat16))):
+                before = counters_now()
+                v.encode(img)
+                per_encode.append((counted("vae.tf32x3_convs", before), counted("vae.cudnn_convs", before)))
+    finally:
+        fr.conv_tf32x3, fr.group_norm_silu_nhwc = conv, norm
+        conv.launches = conv_spy.launches
+    del half
+    print(f"  VAE encode ({IMAGE} px): float32 {per_encode[0][0]} convs on the 3xTF32 conv, {per_encode[0][1]} on "
+          f"cuDNN; bf16 {per_encode[1][0]} and {per_encode[1][1]}; {len(convs)} distinct routed convs, "
+          f"{len(norms)} distinct NHWC GroupNorms")
+    if per_encode != [(VAE_ROUTED, VAE_CUDNN), (0, 0)]:
+        raise RuntimeError(f"the VAE encode's convs took other routes: {per_encode}")
+    dgen = torch.Generator(device=dev).manual_seed(3)
+    route = fr.TENSOR_CORE_ROUTES[torch.float32]
+    for side, cin, co, ks in sorted(convs, reverse=True):
+        x = torch.randn(VAE_BATCH, side, side, cin, generator=dgen, device=dev)
+        w = torch.randn(co, cin, ks, ks, generator=dgen, device=dev) * (ks * ks * cin) ** -0.5
+        b = 0.1 * torch.randn(co, generator=dgen, device=dev)
+        got = fr.conv_tf32x3(x, w, b)
+        want = torch.cat([fr.conv_tf32x3_plain(x[i:i + 8], w, b) for i in range(0, VAE_BATCH, 8)])
+        check("K3", f"VAE conv B={VAE_BATCH} {side}x{side} {cin}->{co} {ks}x{ks} N tile "
+              f"{fr.n_tile(route, co, False)}", got, want, "float32")
+        del want
+        if not torch.equal(got, fr.conv_tf32x3(x, w, b)):
+            raise RuntimeError(f"the VAE's 3xTF32 conv {side}x{side} {cin}->{co} {ks}x{ks}: two launches differ")
+        del x, got
+    for side, c, groups, eps in sorted(norms, reverse=True):
+        x = 2 * torch.randn(VAE_BATCH, side, side, c, generator=dgen, device=dev) + 0.5
+        gamma = 0.5 + torch.rand(c, generator=dgen, device=dev)
+        beta = 0.1 * torch.randn(c, generator=dgen, device=dev)
+        got = fr.group_norm_silu_nhwc(x, gamma, beta, groups, eps)
+        want = F.silu(F.group_norm(x.permute(0, 3, 1, 2), groups, gamma, beta, eps)).permute(0, 2, 3, 1)
+        err, rel = rel_err(got, want)
+        ok = rel <= VAE_GN_RTOL and torch.isfinite(got).all().item()
+        print(f"  VAE GroupNorm+SiLU NHWC B={VAE_BATCH} {side}x{side} C={c} G={groups} vs nn.GroupNorm: max_abs "
+              f"{err:.3e} rel {rel:.3e} tol {VAE_GN_RTOL:.0e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"the VAE's NHWC GroupNorm {side}x{side} C={c} disagrees with nn.GroupNorm")
+        del want
+        if not torch.equal(got, fr.group_norm_silu_nhwc(x, gamma, beta, groups, eps)):
+            raise RuntimeError(f"the VAE's NHWC GroupNorm {side}x{side} C={c}: two launches differ")
+        del x, got
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return len(convs), len(norms)
+
+
 def evaluation_phase(torch, dev, task32, variant, grids, counters, unet_cpu, vae_cpu, rng):
     """Phase 6: the evaluation program and the gallery side of serving.
     Returns what phases 4 and 5 time: the launch counts of (a), the bf16
@@ -745,6 +835,14 @@ def evaluation_phase(torch, dev, task32, variant, grids, counters, unet_cpu, vae
     if tc + t3 != launches["resnet_block"]:
         raise RuntimeError(f"{launches['resnet_block'] - tc - t3} K3 blocks of the evaluation program ran off the "
                            f"tensor cores (bf16 {tc}, 3xTF32 {t3})")
+    # the fp32 loss's VAE encodes: each routes VAE_ROUTED convs and leaves VAE_CUDNN on cuDNN; the bf16
+    # sweep's encodes count neither
+    v3, vc = counted("vae.tf32x3_convs", counts0), counted("vae.cudnn_convs", counts0)
+    encodes = v3 // VAE_ROUTED
+    print(f"  the float32 VAE over both protocols: {v3} convs on the 3xTF32 conv, {vc} on cuDNN ({encodes} encodes "
+          f"of {VAE_ROUTED} and {VAE_CUDNN})")
+    if encodes < 2 * len(EVAL) or (v3, vc) != (encodes * VAE_ROUTED, encodes * VAE_CUDNN):
+        raise RuntimeError(f"the evaluation program's float32 VAE convs took other routes: {v3} routed, {vc} on cuDNN")
 
     # the streamed peak does not grow with N: the (B, N, h, w, C) bank never exists
     half = task32.half()
@@ -3379,6 +3477,7 @@ def main() -> int:
         if not torch.equal(got, fr.conv_tf32x3(x, w, b)):
             raise RuntimeError(f"the 3xTF32 conv {side}x{side} {cin}->{co} {ks}x{ks}: two launches differ")
     torch.cuda.synchronize()
+    vae_convs, vae_norms = vae_route_checks(torch, F, fr, dev, task32.vae, check)
     # the evaluation program's U-Net batches, bf16: inputs up to 2.6 GB,
     # drawn on the card; K3 at every block shape (its tiles hold whole image
     # rows or whole samples, and a multi-sample tile may end past B)
@@ -3447,7 +3546,8 @@ def main() -> int:
     print(f"  K3 bf16: two launches bitwise equal at all {len(k3_shapes) * (len(K3_BATCHES) + len(CHECK_ITEMS))}"
           f" (shape, batch) and {len(K3_GROUP_SHAPES) * len(K3_BATCHES)} at other GroupNorm widths; K3 fp32: every "
           f"block ran the 3xTF32 route, two launches bitwise equal at all "
-          f"{(len(k3_shapes) + len(K3_GROUP_SHAPES)) * len(K3_BATCHES)}, and the conv alone at {len(convs)} shapes")
+          f"{(len(k3_shapes) + len(K3_GROUP_SHAPES)) * len(K3_BATCHES)}, and the conv alone at {len(convs)} shapes "
+          f"and at the float32 VAE's {vae_convs} (B={VAE_BATCH}, with its {vae_norms} NHWC GroupNorms)")
     print(f"  K1 and K2, both dtypes: two launches bitwise equal at all {len(K1_SHAPES) + len(K1_CHANNELS)} and "
           f"{len(K2_ITEMS) * len(k2_tokens)} shapes; K2 bf16 also at {len(CHECK_ITEMS) * len(k2_tokens)}")
 

@@ -80,7 +80,8 @@
 //                  gathers A rows by 16-byte cp.async, zero-filled for the
 //                  halo, then splits them; the block meets at a barrier
 //                  every K-slice and drains its wgmmas, as its running
-//                  totals need (tiles of 64 or 128 rows);
+//                  totals need (tiles of 64 or 128 rows by 192 columns,
+//                  or by 128 for a conv without partials);
 //   gn_finalize    (chained convs) merges a (sample, group)'s partials in
 //                  tile order with Chan's formula (no E[x^2] - mean^2
 //                  cancellation) into per-channel tables;
@@ -115,7 +116,15 @@
 // and B twice: 64 KB at 64 rows (a ring of 3) and 80 KB at 128 rows (a
 // ring of 2; 192-row tiles leave no registers for the totals).  The
 // GroupNorm statistics come from the epilogue as in bf16: the conv
-// output is written once and read once more, by gn_silu.
+// output is written once and read once more, by gn_silu.  A launch
+// without partials (conv_tf32x3 alone: the float32 SD-VAE's convs) takes
+// an N tile of 128 where Cout fills it better (128, 256, 512 leave 1/3,
+// 1/3 and 1/9 of 192-column tiles idle), in 48 KB stages at 64 rows (a
+// ring of 4) and 64 KB at 128 (a ring of 3).  There the loads, not the
+// drained tensor cores, set the pace: a second set of accumulators, to keep
+// one slice in flight while the last is summed, left the ring one slice
+// less ahead and ran 10% slower; 128-row tiles, which share each B tile
+// over twice the rows, ran 20% faster than 64 (PERF.md).
 //
 // float32 (exact, no TF32) and bf16 at widths neither tensor-core conv
 // takes -- on the CUDA cores:
@@ -433,6 +442,49 @@ __device__ __forceinline__ void wgmma_m64n192k8_tf32(float (&d)[96], uint64_t da
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// the 64 float32 accumulators of an m64n128 tile, as asm operands %0-%63
+#define NOPE_ACC64_REGS                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7,"                                         \
+  " %8, %9, %10, %11, %12, %13, %14, %15,"                                   \
+  " %16, %17, %18, %19, %20, %21, %22, %23,"                                 \
+  " %24, %25, %26, %27, %28, %29, %30, %31,"                                 \
+  " %32, %33, %34, %35, %36, %37, %38, %39,"                                 \
+  " %40, %41, %42, %43, %44, %45, %46, %47,"                                 \
+  " %48, %49, %50, %51, %52, %53, %54, %55,"                                 \
+  " %56, %57, %58, %59, %60, %61, %62, %63}"
+#define NOPE_ACC64_OPERANDS(d)                                                                       \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),     \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),            \
+  "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),          \
+  "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),          \
+  "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),          \
+  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),          \
+  "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),          \
+  "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),          \
+  "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// D(64x128, f32) = A(64x8, tf32) * B(128x8, tf32)^T (+ D if accumulate): the
+// N tile of a conv that writes no GroupNorm partials, where Cout fills it
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], uint64_t da, uint64_t db,
+                                                     int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " NOPE_ACC64_REGS
+      ", %64, %65, p, 1, 1;\n}\n"
+      : NOPE_ACC64_OPERANDS(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// the tf32 wgmma of an N tile of BN columns (BN / 2 accumulators a thread)
+template <int BN>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[BN / 2], uint64_t da, uint64_t db, int accumulate) {
+  static_assert(BN == 192 || BN == 128, "the tf32 conv's N tile is 192 or 128 columns");
+  if constexpr (BN == 192)
+    wgmma_m64n192k8_tf32(d, da, db, accumulate);
+  else
+    wgmma_m64n128k8_tf32(d, da, db, accumulate);
+}
+
 // x rounded to tf32: to nearest, ties away from zero, low 13 bits 0
 __device__ __forceinline__ float tf32_hi(float x) {
   uint32_t r;
@@ -448,12 +500,19 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
+// wait until at most N of this warpgroup's wgmma groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait_group() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
 // wait for this warpgroup's wgmma groups
-__device__ __forceinline__ void wgmma_wait(float (&d)[96]) {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+template <int N>
+__device__ __forceinline__ void wgmma_wait(float (&d)[N]) {
+  wgmma_wait_group<0>();
   // the accumulators are read only after the wait
 #pragma unroll
-  for (int i = 0; i < 96; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // `threads` threads of the block (a multiple of 32, from thread 0) meet at
@@ -463,34 +522,36 @@ __device__ __forceinline__ void sync_threads(int threads) {
   asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
 }
 
-// The epilogue of one (bm x 192) tile staged as float32 in shared memory
-// (row pitch kPitch, then 2 x 192 floats of scratch), run by threads
+// The epilogue of one (bm x BN) tile staged as float32 in shared memory
+// (row pitch BN + 8, then 2 x BN floats of scratch), run by threads
 // 0 .. threads - 1: add the bias, store rows m0.. of `out` (M, Cout), and,
 // when `part` is given, write the tile's partial GroupNorm statistics: for
 // every (sample, group) it touches, (count, mean, M2) at
 // part[((mt * G + g) * segmax + s) * 3], s = sample - first sample of the tile.
+template <int BN = kTileN>
 __device__ void finish_tile(float* stage, int bm, int mt, int n0, int M, int Cout, int HW,
                             int G, int segmax, const void* bias, int bdt,
                             float* __restrict__ out, float* __restrict__ part, int tid,
                             int threads) {
+  constexpr int kP = BN + 8;
   const int m0 = mt * bm;
-  const int rows = min(bm, M - m0), cols = min(kTileN, Cout - n0);
-  for (int i = tid; i < rows * (kTileN / 4); i += threads) {
-    const int r = i / (kTileN / 4), c = 4 * (i % (kTileN / 4));
+  const int rows = min(bm, M - m0), cols = min(BN, Cout - n0);
+  for (int i = tid; i < rows * (BN / 4); i += threads) {
+    const int r = i / (BN / 4), c = 4 * (i % (BN / 4));
     if (c >= cols) continue;
-    float4 v = *reinterpret_cast<float4*>(&stage[r * kPitch + c]);
+    float4 v = *reinterpret_cast<float4*>(&stage[r * kP + c]);
     v.x += load_f(bias, n0 + c, bdt);
     v.y += load_f(bias, n0 + c + 1, bdt);
     v.z += load_f(bias, n0 + c + 2, bdt);
     v.w += load_f(bias, n0 + c + 3, bdt);
-    *reinterpret_cast<float4*>(&stage[r * kPitch + c]) = v;
+    *reinterpret_cast<float4*>(&stage[r * kP + c]) = v;
     *reinterpret_cast<float4*>(&out[static_cast<size_t>(m0 + r) * Cout + n0 + c]) = v;
   }
   if (part == nullptr) return;
   // per sample segment: column sums, each thread down its own column
   // (conflict-free), then per group; the mean, then the same for M2
-  float* colsum = stage + bm * kPitch;
-  float* gmean = colsum + kTileN;
+  float* colsum = stage + bm * kP;
+  float* gmean = colsum + BN;
   const int cg = Cout / G, ng = cols / cg;
   const int b0 = m0 / HW, nseg = (m0 + rows - 1) / HW - b0 + 1;
   for (int s = 0; s < nseg; ++s) {
@@ -499,7 +560,7 @@ __device__ void finish_tile(float* stage, int bm, int mt, int n0, int M, int Cou
     sync_threads(threads);
     for (int c = tid; c < cols; c += threads) {
       float a = 0.f;
-      for (int r = ra; r < rb; ++r) a += stage[r * kPitch + c];
+      for (int r = ra; r < rb; ++r) a += stage[r * kP + c];
       colsum[c] = a;
     }
     sync_threads(threads);
@@ -513,7 +574,7 @@ __device__ void finish_tile(float* stage, int bm, int mt, int n0, int M, int Cou
       const float mu = gmean[c / cg];
       float a = 0.f;
       for (int r = ra; r < rb; ++r) {
-        const float d = stage[r * kPitch + c] - mu;
+        const float d = stage[r * kP + c] - mu;
         a += d * d;
       }
       colsum[c] = a;
@@ -790,24 +851,20 @@ __device__ void norm_staged(const float* stage, const float* table, int bm, int 
   }
 }
 
-// wait until at most N of this warpgroup's wgmma groups are in flight
-template <int N>
-__device__ __forceinline__ void wgmma_wait_group() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
 // The float32 conv in 3xTF32:
 // out[m, co] = bias[co] + sum_{tap, ci} x[pixel(m) + shift(tap), ci] * w[co, tap, ci]
 // x: (B, H, W, Cin) NHWC float32, Cin % 32 == 0; w: (2, Cout, ks*ks*Cin),
 // the hi plane, then the lo plane, read through the TMA maps `wmap` and
-// `wmap_lo`, boxes of 192 rows x one K-slice, swizzled.  Block (mt, nt,
+// `wmap_lo`, boxes of BN rows x one K-slice, swizzled.  Block (mt, nt,
 // split) takes K-slices [kt0, kt1) of tile (mt, nt) with BM/64
 // warpgroups, which all multiply and all gather the A tiles (cp.async);
 // one thread asks the TMA for each B tile.  A ring of STAGES slots runs
 // ahead of the tensor cores.  With one split the block finishes the tile;
-// with more it stores its raw sums to ws[split] for splitk_reduce.  (bf16
+// with more it stores its raw sums to ws[split] for splitk_reduce.  The N
+// tile is 192 columns (whole GroupNorm groups: every launch that writes
+// partials) or 128 (a launch without partials whose Cout fills it).  (bf16
 // runs conv_wgmma_tma_kernel, below.)
-template <int BM, int STAGES>
+template <int BM, int BN, int STAGES>
 __global__ void __launch_bounds__(BM * 2, 1)
 conv_wgmma_kernel(const float* __restrict__ x, const __grid_constant__ CUtensorMap wmap,
                   const __grid_constant__ CUtensorMap wmap_lo, const void* __restrict__ bias,
@@ -815,9 +872,9 @@ conv_wgmma_kernel(const float* __restrict__ x, const __grid_constant__ CUtensorM
                   float* __restrict__ ws, int B, int H, int W, int Cin, int Cout, int ks, int G,
                   int segmax, int splits) {
   constexpr int kSlice = Operand<float>::kSlice, kChunk = 4;  // floats per 16-byte chunk
-  constexpr int kThreads = BM * 2, kRowStep = kThreads / 8;
+  constexpr int kThreads = BM * 2, kRowStep = kThreads / 8, kAcc = BN / 2, kP = BN + 8;
   // a stage: A hi, A lo, B hi, B lo
-  constexpr int kABytes = BM * kRowBytes, kBBytes = kTileN * kRowBytes;
+  constexpr int kABytes = BM * kRowBytes, kBBytes = BN * kRowBytes;
   constexpr int kStageBytes = 2 * (kABytes + kBBytes);
   extern __shared__ uint8_t smem_raw[];
   // swizzled tiles sit on 1024-byte boundaries (the swizzle's period)
@@ -829,7 +886,7 @@ conv_wgmma_kernel(const float* __restrict__ x, const __grid_constant__ CUtensorM
 
   const int tid = threadIdx.x, wg = tid >> 7, chunk = tid & 7;
   const int M = B * H * W, pad = ks / 2;
-  const int mt = blockIdx.x, m0 = mt * BM, n0 = blockIdx.y * kTileN, split = blockIdx.z;
+  const int mt = blockIdx.x, m0 = mt * BM, n0 = blockIdx.y * BN, split = blockIdx.z;
   const int per_tap = Cin / kSlice, KT = ks * ks * per_tap;
   const int kt0 = static_cast<int>(static_cast<long long>(split) * KT / splits);
   const int kt1 = static_cast<int>(static_cast<long long>(split + 1) * KT / splits);
@@ -887,9 +944,9 @@ conv_wgmma_kernel(const float* __restrict__ x, const __grid_constant__ CUtensorM
   // each K-slice's products go into acc from zero, and acc into `total`
   // with round-to-nearest adds.  The tensor cores' accumulation truncates:
   // across a 20,736-deep K it drifted ~1e-4 of the output.
-  float acc[96], total[96];
+  float acc[kAcc], total[kAcc];
 #pragma unroll
-  for (int i = 0; i < 96; ++i) acc[i] = total[i] = 0.f;
+  for (int i = 0; i < kAcc; ++i) acc[i] = total[i] = 0.f;
 
   // loads run kAhead K-slices ahead of the tensor cores
   constexpr int kAhead = STAGES - 1;
@@ -913,9 +970,9 @@ conv_wgmma_kernel(const float* __restrict__ x, const __grid_constant__ CUtensorM
     wgmma_fence();
 #pragma unroll
     for (int k = 0; k < 4; ++k) {  // 32 bytes of every row a step; small terms first: lo*hi, hi*lo, hi*hi
-      wgmma_m64n192k8_tf32(acc, smem_desc(sa + kABytes + 32 * k), smem_desc(sb + 32 * k), k > 0);
-      wgmma_m64n192k8_tf32(acc, smem_desc(sa + 32 * k), smem_desc(sb + kBBytes + 32 * k), 1);
-      wgmma_m64n192k8_tf32(acc, smem_desc(sa + 32 * k), smem_desc(sb + 32 * k), 1);
+      wgmma_tf32<BN>(acc, smem_desc(sa + kABytes + 32 * k), smem_desc(sb + 32 * k), k > 0);
+      wgmma_tf32<BN>(acc, smem_desc(sa + 32 * k), smem_desc(sb + kBBytes + 32 * k), 1);
+      wgmma_tf32<BN>(acc, smem_desc(sa + 32 * k), smem_desc(sb + 32 * k), 1);
     }
     wgmma_commit();
     // refill the slot of K-slice i - 1: every warpgroup waited for that
@@ -924,10 +981,8 @@ conv_wgmma_kernel(const float* __restrict__ x, const __grid_constant__ CUtensorM
     cp_async_commit();
     wgmma_wait(acc);
 #pragma unroll
-    for (int j = 0; j < 96; ++j) total[j] += acc[j];
+    for (int j = 0; j < kAcc; ++j) total[j] += acc[j];
   }
-#pragma unroll
-  for (int j = 0; j < 96; ++j) acc[j] = total[j];
   cp_async_wait<0>();
   __syncthreads();  // the ring is free: it becomes the staged tile
 
@@ -936,24 +991,23 @@ conv_wgmma_kernel(const float* __restrict__ x, const __grid_constant__ CUtensorM
   float* stage = reinterpret_cast<float*>(smem);
   const int lane = tid & 31, r0 = wg * 64 + ((tid & 127) >> 5) * 16 + (lane >> 2);
 #pragma unroll
-  for (int j = 0; j < kTileN / 8; ++j) {
+  for (int j = 0; j < BN / 8; ++j) {
     const int c = 8 * j + 2 * (lane & 3);
-    *reinterpret_cast<float2*>(&stage[r0 * kPitch + c]) = make_float2(acc[4 * j], acc[4 * j + 1]);
-    *reinterpret_cast<float2*>(&stage[(r0 + 8) * kPitch + c]) =
-        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    *reinterpret_cast<float2*>(&stage[r0 * kP + c]) = make_float2(total[4 * j], total[4 * j + 1]);
+    *reinterpret_cast<float2*>(&stage[(r0 + 8) * kP + c]) = make_float2(total[4 * j + 2], total[4 * j + 3]);
   }
   __syncthreads();
   if (splits == 1) {
-    finish_tile(stage, BM, mt, n0, M, Cout, H * W, G, segmax, bias, bdt, out, part, tid, kThreads);
+    finish_tile<BN>(stage, BM, mt, n0, M, Cout, H * W, G, segmax, bias, bdt, out, part, tid, kThreads);
     return;
   }
   float* dst = ws + static_cast<size_t>(split) * M * Cout;
-  const int rows = min(BM, M - m0), cols = min(kTileN, Cout - n0);
-  for (int i = tid; i < rows * (kTileN / 4); i += kThreads) {
-    const int r = i / (kTileN / 4), c = 4 * (i % (kTileN / 4));
+  const int rows = min(BM, M - m0), cols = min(BN, Cout - n0);
+  for (int i = tid; i < rows * (BN / 4); i += kThreads) {
+    const int r = i / (BN / 4), c = 4 * (i % (BN / 4));
     if (c < cols)
       *reinterpret_cast<float4*>(&dst[static_cast<size_t>(m0 + r) * Cout + n0 + c]) =
-          *reinterpret_cast<const float4*>(&stage[r * kPitch + c]);
+          *reinterpret_cast<const float4*>(&stage[r * kP + c]);
   }
 }
 
@@ -1321,16 +1375,17 @@ conv_wgmma_tma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_con
   if (cl > 1) cluster_sync();  // the peers' consumers may still arrive on this CTA
 }
 
-// Sum the splits of one (bm x 192) tile in split order, then finish it.
+// Sum the splits of one (bm x BN) tile in split order, then finish it.
+template <int BN>
 __global__ void __launch_bounds__(kEpiThreads)
 splitk_reduce_kernel(const float* __restrict__ ws, int splits, const void* __restrict__ bias,
                      int bdt, float* __restrict__ out, float* __restrict__ part, int M,
                      int Cout, int HW, int G, int bm, int segmax) {
   extern __shared__ float stage_f[];
-  const int mt = blockIdx.x, m0 = mt * bm, n0 = blockIdx.y * kTileN;
-  const int rows = min(bm, M - m0), cols = min(kTileN, Cout - n0);
-  for (int i = threadIdx.x; i < rows * (kTileN / 4); i += kEpiThreads) {
-    const int r = i / (kTileN / 4), c = 4 * (i % (kTileN / 4));
+  const int mt = blockIdx.x, m0 = mt * bm, n0 = blockIdx.y * BN;
+  const int rows = min(bm, M - m0), cols = min(BN, Cout - n0);
+  for (int i = threadIdx.x; i < rows * (BN / 4); i += kEpiThreads) {
+    const int r = i / (BN / 4), c = 4 * (i % (BN / 4));
     if (c >= cols) continue;
     const float* src = ws + static_cast<size_t>(m0 + r) * Cout + n0 + c;
     const size_t stride = static_cast<size_t>(M) * Cout;
@@ -1344,10 +1399,10 @@ splitk_reduce_kernel(const float* __restrict__ ws, int splits, const void* __res
       for (int k = 0; k < 4; ++k)
         if (s0 + k < splits) a = make_float4(a.x + v[k].x, a.y + v[k].y, a.z + v[k].z, a.w + v[k].w);
     }
-    *reinterpret_cast<float4*>(&stage_f[r * kPitch + c]) = a;
+    *reinterpret_cast<float4*>(&stage_f[r * (BN + 8) + c]) = a;
   }
   __syncthreads();
-  finish_tile(stage_f, bm, mt, n0, M, Cout, HW, G, segmax, bias, bdt, out, part, threadIdx.x,
+  finish_tile<BN>(stage_f, bm, mt, n0, M, Cout, HW, G, segmax, bias, bdt, out, part, threadIdx.x,
               kEpiThreads);
 }
 
@@ -1381,16 +1436,16 @@ gn_finalize_kernel(const float* __restrict__ part, const void* __restrict__ gamm
   write_norm_tables(mean, scale, gamma, pdt, b, g, C, C / G, mu, norm_rstd(m2, n, eps), lane, 32);
 }
 
-template <int BM, int STAGES>
+template <int BM, int BN, int STAGES>
 cudaError_t launch_conv_wgmma(dim3 grid, cudaStream_t stream, const float* x, const CUtensorMap& w,
                               const CUtensorMap& w_lo, const void* bias, int bdt, float* out,
                               float* part, float* ws, int B, int H, int W, int Cin, int Cout,
                               int ks, int G, int segmax, int splits) {
-  constexpr int kRing = STAGES * 2 * (BM + kTileN) * kRowBytes;
+  constexpr int kRing = STAGES * 2 * (BM + BN) * kRowBytes;
   constexpr int kSmem = kRing + 1024;
-  static_assert((BM * kPitch + 2 * kTileN) * 4 <= kRing, "the staged tile exceeds the ring");
+  static_assert((BM * (BN + 8) + 2 * BN) * 4 <= kRing, "the staged tile exceeds the ring");
   static_assert(kSmem + 8 * STAGES <= kSmemMax, "the ring exceeds a block's shared memory");
-  auto kernel = conv_wgmma_kernel<BM, STAGES>;
+  auto kernel = conv_wgmma_kernel<BM, BN, STAGES>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, BM * 2, kSmem, stream>>>(x, w, w_lo, bias, bdt, out, part, ws, B, H, W, Cin, Cout, ks, G,
@@ -1455,51 +1510,65 @@ cudaError_t activation_map(CUtensorMap* map, const void* x, int B, int H, int W,
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, x, dims, strides, box);
 }
 
-// Sum a split conv's ws into out (and its tiles' partials) in split order.
+// Sum a split conv's ws into out (and its tiles' partials) in split order,
+// tiles of BN columns.
+template <int BN = kTileN>
 cudaError_t reduce_splits(dim3 tiles, cudaStream_t s, const float* ws, int splits, const void* bias,
                           int bdt, float* out, float* part, int M, int Cout, int HW, int G, int bm,
                           int segmax) {
-  const int smem = (bm * kPitch + 2 * kTileN) * 4;
+  const int smem = (bm * (BN + 8) + 2 * BN) * 4;
   cudaError_t err =
-      cudaFuncSetAttribute(splitk_reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(splitk_reduce_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  splitk_reduce_kernel<<<tiles, kEpiThreads, smem, s>>>(ws, splits, bias, bdt, out, part, M, Cout, HW,
+  splitk_reduce_kernel<BN><<<tiles, kEpiThreads, smem, s>>>(ws, splits, bias, bdt, out, part, M, Cout, HW,
                                                         G, bm, segmax);
   return cudaGetLastError();
 }
 
 // The float32 tensor-core conv in 3xTF32 (Cin % 32 == 0, Cout % 8 == 0,
-// cg | 192): bm in {64, 128} rows per tile; with splits > 1, ws holds
-// splits * M * Cout floats.  part (may be null) receives the tiles'
-// GroupNorm partials, (ceil(M / bm), G, segmax, 3) floats.  Tiles and
-// rings: 128 rows (2 x 80 KB) or 64 (3 x 64 KB), one block an SM either
-// way: a thread holds 96 accumulators and their 96 running totals, which
-// 192-row blocks' 384 threads have no registers for.
+// cg | 192): bm in {64, 128} rows by bn in {192, 128} columns a tile (128
+// only without partials); with splits > 1, ws holds splits * M * Cout
+// floats.  part (may be null) receives the tiles' GroupNorm partials,
+// (ceil(M / bm), G, segmax, 3) floats.  Tiles and rings, one block an SM
+// either way: 192 columns by 128 rows (2 x 80 KB) or 64 (3 x 64 KB), a
+// thread holding 96 accumulators and their 96 running totals, which
+// 192-row blocks' 384 threads have no registers for; 128 columns by 128
+// rows (3 x 64 KB) or 64 (4 x 48 KB), a thread holding 64 accumulators
+// and their 64 running totals.
 int conv_tf32x3(const void* x, const void* w, const void* bias, int bdt, float* out, float* part,
-                float* ws, int B, int H, int W, int Cin, int Cout, int ks, int G, int bm, int splits,
-                int segmax, cudaStream_t s) {
+                float* ws, int B, int H, int W, int Cin, int Cout, int ks, int G, int bm, int bn,
+                int splits, int segmax, cudaStream_t s) {
   const int M = B * H * W, K = ks * ks * Cin;
-  if (Cin % Operand<float>::kSlice || Cout % 8 || (part != nullptr && kTileN % (Cout / G)) ||
-      splits < 1 || (splits > 1 && ws == nullptr))
+  if (Cin % Operand<float>::kSlice || Cout % 8 || (part != nullptr && (bn != kTileN || kTileN % (Cout / G))) ||
+      (bn != kTileN && bn != 128) || splits < 1 || (splits > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((M + bm - 1) / bm, (Cout + kTileN - 1) / kTileN, splits);
+  const dim3 grid((M + bm - 1) / bm, (Cout + bn - 1) / bn, splits);
   CUtensorMap wmap, wmap_lo;  // the lo plane follows the hi plane
-  cudaError_t err = weight_map<float>(&wmap, w, K, Cout);
+  cudaError_t err = weight_map<float>(&wmap, w, K, Cout, bn);
   if (err == cudaSuccess)
-    err = weight_map<float>(&wmap_lo, static_cast<const float*>(w) + static_cast<size_t>(Cout) * K, K, Cout);
+    err = weight_map<float>(&wmap_lo, static_cast<const float*>(w) + static_cast<size_t>(Cout) * K, K, Cout, bn);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float* xf = static_cast<const float*>(x);
-  if (bm == 128)
-    err = launch_conv_wgmma<128, 2>(grid, s, xf, wmap, wmap_lo, bias, bdt, out, part, ws, B, H, W, Cin, Cout,
-                                    ks, G, segmax, splits);
+  if (bn == kTileN && bm == 128)
+    err = launch_conv_wgmma<128, kTileN, 2>(grid, s, xf, wmap, wmap_lo, bias, bdt, out, part, ws, B, H, W, Cin,
+                                            Cout, ks, G, segmax, splits);
+  else if (bn == kTileN && bm == 64)
+    err = launch_conv_wgmma<64, kTileN, 3>(grid, s, xf, wmap, wmap_lo, bias, bdt, out, part, ws, B, H, W, Cin,
+                                           Cout, ks, G, segmax, splits);
+  else if (bm == 128)
+    err = launch_conv_wgmma<128, 128, 3>(grid, s, xf, wmap, wmap_lo, bias, bdt, out, part, ws, B, H, W, Cin, Cout,
+                                         ks, G, segmax, splits);
   else if (bm == 64)
-    err = launch_conv_wgmma<64, 3>(grid, s, xf, wmap, wmap_lo, bias, bdt, out, part, ws, B, H, W, Cin, Cout,
-                                   ks, G, segmax, splits);
+    err = launch_conv_wgmma<64, 128, 4>(grid, s, xf, wmap, wmap_lo, bias, bdt, out, part, ws, B, H, W, Cin, Cout,
+                                        ks, G, segmax, splits);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  return static_cast<int>(reduce_splits(dim3(grid.x, grid.y), s, ws, splits, bias, bdt, out, part, M,
-                                        Cout, H * W, G, bm, segmax));
+  const dim3 tiles(grid.x, grid.y);
+  return static_cast<int>(bn == kTileN ? reduce_splits(tiles, s, ws, splits, bias, bdt, out, part, M, Cout, H * W,
+                                                       G, bm, segmax)
+                                       : reduce_splits<128>(tiles, s, ws, splits, bias, bdt, out, part, M, Cout,
+                                                            H * W, G, bm, segmax));
 }
 
 // The launch configuration of conv_wgmma_tma_kernel<CONS, STAGED> in
@@ -1693,11 +1762,12 @@ NOPE_API int nope_conv_clusters(int tile, int staged, int cluster, int* count) {
 }
 
 // float32 conv on the tensor cores in 3xTF32 (Cin % 32 == 0): w is the
-// (2, Cout, K) float32 pack of hi = tf32(w) and lo = w - hi.
+// (2, Cout, K) float32 pack of hi = tf32(w) and lo = w - hi; bn, the N
+// tile, 192 or (part null) 128.
 NOPE_API int nope_conv_tf32x3(const void* x, const void* w, const void* bias, int bdt, float* out,
                               float* part, float* ws, int B, int H, int W, int Cin, int Cout,
-                              int ks, int G, int bm, int splits, int segmax, void* stream) {
-  return conv_tf32x3(x, w, bias, bdt, out, part, ws, B, H, W, Cin, Cout, ks, G, bm, splits, segmax,
+                              int ks, int G, int bm, int bn, int splits, int segmax, void* stream) {
+  return conv_tf32x3(x, w, bias, bdt, out, part, ws, B, H, W, Cin, Cout, ks, G, bm, bn, splits, segmax,
                      static_cast<cudaStream_t>(stream));
 }
 

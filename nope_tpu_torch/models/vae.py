@@ -2,8 +2,22 @@
 
 diffusers ``AutoencoderKL`` state-dict names (``encoder.*``,
 ``quant_conv``, ``decoder.*``, ``post_quant_conv``), so the JAX
-package's ``port_sd_vae`` maps them.  These are plain PyTorch ops, as
-they were XLA ops in JAX.  :meth:`StableDiffusionVAE.encode_image` and
+package's ``port_sd_vae`` maps them.  Plain PyTorch ops, as they were
+XLA ops in JAX, but for the float32 convs on the card where no gradient
+is asked (the eval step's loss, the trainer's ``train_loss``, the BOP
+and ShapeNet CLIs): cuDNN runs them on the CUDA cores, so those that
+:func:`~nope_tpu_torch.ops.fused_resnet.tf32x3_routes` takes -- the
+resnets' stride-1 3x3 convs and 1x1 shortcuts at 128-512 channels --
+run on the tensor cores through the hand-written 3xTF32 conv
+(``fused_resnet.conv_tf32x3``, float32's accuracy), over the NHWC view
+of the channels-last activations, and the GroupNorm + SiLU before such
+a conv stays NHWC too (``fused_resnet.group_norm_silu_nhwc``), so the
+route makes no layout copies.  ``conv_in`` (3 channels), the stride-2
+downsamplers, ``conv_out`` (8) and ``quant_conv`` keep cuDNN; bf16,
+the CPU and training keep every op plain.  The counters
+``vae.tf32x3_convs`` and ``vae.cudnn_convs`` (``utils.profiling``)
+count a float32 VAE's convs on the card by route.
+:meth:`StableDiffusionVAE.encode_image` and
 :meth:`StableDiffusionVAE.decode_latent` keep the JAX package's NHWC
 boundary and the SD latent scale 0.18215.
 """
@@ -16,9 +30,42 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from nope_tpu_torch.models.blocks import nchw, nhwc
 from nope_tpu_torch.models.distributions import DiagonalGaussian
+from nope_tpu_torch.ops import fused_resnet as fr
+from nope_tpu_torch.utils import profiling
 
 SD_LATENT_SCALE = 0.18215
+
+
+def _routes(conv: nn.Conv2d, x: torch.Tensor) -> bool:
+    """Whether ``conv`` of ``x`` takes the 3xTF32 route
+    (``fused_resnet.tf32x3_routes``); counted by route."""
+    grad = torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, conv.weight, conv.bias))
+    routed = fr.tf32x3_routes(x.dtype, x.device.type, grad, conv.stride, conv.padding, conv.kernel_size,
+                              conv.in_channels, conv.out_channels)
+    if routed:
+        profiling.count("vae.tf32x3_convs")
+    elif x.dtype == torch.float32 and x.device.type == "cuda":
+        profiling.count("vae.cudnn_convs")
+    return routed
+
+
+def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)``; routed, the 3xTF32 conv of the NHWC view (its output
+    an NCHW view in channels-last memory)."""
+    if _routes(conv, x):
+        return nchw(fr.conv_tf32x3(nhwc(x), conv.weight, conv.bias))
+    return conv(x)
+
+
+def _norm_silu_conv(norm: nn.GroupNorm, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv(SiLU(norm(x)))``; where ``conv`` is routed, GroupNorm and
+    SiLU over the NHWC view too."""
+    if _routes(conv, x):
+        h = fr.group_norm_silu_nhwc(nhwc(x), norm.weight, norm.bias, norm.num_groups, norm.eps)
+        return nchw(fr.conv_tf32x3(h, conv.weight, conv.bias))
+    return conv(F.silu(norm(x)))
 
 
 class VAEResnetBlock(nn.Module):
@@ -33,10 +80,10 @@ class VAEResnetBlock(nn.Module):
         self.conv_shortcut = nn.Conv2d(dim, dim_out, 1) if dim != dim_out else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = _norm_silu_conv(self.norm1, self.conv1, x)
+        h = _norm_silu_conv(self.norm2, self.conv2, h)
         if self.conv_shortcut is not None:
-            x = self.conv_shortcut(x)
+            x = _conv(self.conv_shortcut, x)
         return x + h
 
 
@@ -68,7 +115,7 @@ class VAEDownsample(nn.Module):
         self.conv = nn.Conv2d(dim, dim, 3, stride=2, padding=0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(F.pad(x, (0, 1, 0, 1)))
+        return _conv(self.conv, F.pad(x, (0, 1, 0, 1)))
 
 
 class VAEUpsample(nn.Module):
@@ -79,7 +126,7 @@ class VAEUpsample(nn.Module):
         self.conv = nn.Conv2d(dim, dim, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+        return _conv(self.conv, F.interpolate(x, scale_factor=2.0, mode="nearest"))
 
 
 class _DownBlock(nn.Module):
@@ -143,11 +190,11 @@ class VAEEncoder(nn.Module):
         self.conv_out = nn.Conv2d(chans[-1], 2 * latent_channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv_in(x)
+        x = _conv(self.conv_in, x)
         for block in self.down_blocks:
             x = block(x)
         x = self.mid_block(x)
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        return _norm_silu_conv(self.conv_norm_out, self.conv_out, x)
 
 
 class VAEDecoder(nn.Module):
@@ -174,10 +221,10 @@ class VAEDecoder(nn.Module):
         self.conv_out = nn.Conv2d(chans[-1], out_channels, 3, padding=1)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        x = self.mid_block(self.conv_in(z))
+        x = self.mid_block(_conv(self.conv_in, z))
         for block in self.up_blocks:
             x = block(x)
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        return _norm_silu_conv(self.conv_norm_out, self.conv_out, x)
 
 
 class StableDiffusionVAE(nn.Module):
@@ -204,13 +251,13 @@ class StableDiffusionVAE(nn.Module):
     def encode(self, image: torch.Tensor) -> DiagonalGaussian:
         """(B, H, W, 3) NHWC images → distribution over (B, h, w, C) latents."""
         x = image.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        moments = self.quant_conv(self.encoder(x))
+        moments = _conv(self.quant_conv, self.encoder(x))
         return DiagonalGaussian.from_parameters(moments.permute(0, 2, 3, 1))
 
     def decode(self, latent: torch.Tensor) -> torch.Tensor:
         """(B, h, w, C) NHWC latents (unscaled) → (B, H, W, 3) images."""
         z = latent.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        return self.decoder(self.post_quant_conv(z)).permute(0, 2, 3, 1).contiguous()
+        return self.decoder(_conv(self.post_quant_conv, z)).permute(0, 2, 3, 1).contiguous()
 
     def encode_image(self, image: torch.Tensor, mode: Optional[str] = "mode"):
         """``mode="mode"``: the scaled latent mean, (B, h, w, C);

@@ -43,7 +43,7 @@ SIGNATURES = {
     "nope_gn_silu": (_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P),
     "nope_conv_wgmma": (_P, _P, _P, _I, _P, _P, _P, *[_I] * 16, _P, _P, _P, _P, _I, _P, _F, _P),
     "nope_conv_clusters": (_I, _I, _I, _P),
-    "nope_conv_tf32x3": (_P, _P, _P, _I, _P, _P, _P, *[_I] * 10, _P),
+    "nope_conv_tf32x3": (_P, _P, _P, _I, _P, _P, _P, *[_I] * 11, _P),
     "nope_gn_finalize": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 

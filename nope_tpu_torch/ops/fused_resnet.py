@@ -28,6 +28,11 @@ convs keep the chain of a float32 pre-norm output, ``gn_finalize`` and
 laid out for the kernels once per parameter (:func:`packed_weight`).
 :func:`fused_resnet_block` adds the gradient: its backward recomputes
 through the plain version, as the JAX op's custom VJP does.
+
+The 3xTF32 conv alone (:func:`conv_tf32x3`, in N tiles of
+:func:`n_tile` columns) also runs the float32 SD-VAE's convs where
+:func:`tf32x3_routes` says, with :func:`group_norm_silu_nhwc` between
+them (``models/vae.py``).
 """
 
 from __future__ import annotations
@@ -47,6 +52,9 @@ _KEYS = ("w1", "b1", "g1", "be1", "w2", "b2", "g2", "be2", "res_w", "res_b")
 #: the tensor-core conv's N tile (whole GroupNorm groups when the group
 #: width divides it)
 TILE_N = 192
+#: the 3xTF32 conv's other N tile, for a launch that writes no GroupNorm
+#: partials (see n_tile)
+TILE_N_FREE = 128
 
 
 class TensorCoreRoute(NamedTuple):
@@ -217,20 +225,39 @@ def register_groups(c_out: int, groups: int) -> bool:
     return c_out % groups == 0 and cg % 8 == 0 and min(c_out, TILE_N) // cg <= 8
 
 
+def n_tile(route: TensorCoreRoute, c_out: int, partials: bool) -> int:
+    """The N tile (output columns) of a tensor-core conv of ``c_out``
+    channels: :data:`TILE_N`, whose columns hold whole GroupNorm groups,
+    for every launch that writes partials (every GroupNorm of a K3 block)
+    and for bf16 (its kernel has that tile alone).  A float32 launch
+    without partials takes :data:`TILE_N_FREE` where that leaves fewer
+    columns of its last tile empty -- 128, 256 and 512 channels, the
+    SD-VAE's widths, fill it, where 192 leaves 64 or 128 idle -- and
+    :data:`TILE_N` on a tie (384, 768, 1536: each A tile serves more
+    columns)."""
+    if route.boxed or partials:
+        return TILE_N
+    empty = lambda tile: -(-c_out // tile) * tile - c_out  # noqa: E731
+    return TILE_N_FREE if empty(TILE_N_FREE) < empty(TILE_N) else TILE_N
+
+
 def conv_plan(m: int, hw: int, c_out: int, k_slices: int, sms: int, route: TensorCoreRoute,
               width: Optional[int] = None, groups: Optional[int] = None, fuse: bool = True) -> ConvPlan:
     """Tiling of the tensor-core conv of an (m, c_out) output with
     ``k_slices`` K-slices of ``route.slice_k`` channels, on a card with
-    ``sms`` SMs.  A boxed route (bf16) needs the image ``width``: a tile
-    holds whole image rows or whole samples (:func:`tile_box`), so bm =
-    width × rows × samples may be short of the kernel's tile.  The
-    shortest tile, when its blocks do not fill the card, splits K until
-    they do, each split keeping at least 4 K-slices.  Of the route's
-    tiles, the one that costs least in waves × rows an SM loads (the
-    tile's, and ``route.b_rows`` of the weight tile) per wave ÷ splits
-    (the taller on a tie: fewer bytes per operation).  The tile depends
-    on (m, hw, c_out) alone, not on K, so a block's convs write partials
-    of one layout.  An unsplit boxed tile is staged when it takes fewer
+    ``sms`` SMs, in N tiles of :func:`n_tile` columns (a conv given
+    ``groups`` writes GroupNorm partials).  A boxed route (bf16) needs the
+    image ``width``: a tile holds whole image rows or whole samples
+    (:func:`tile_box`), so bm = width × rows × samples may be short of the
+    kernel's tile.  The shortest tile, when its blocks do not fill the
+    card, splits K until they do, each split keeping at least 4 K-slices.
+    Of the route's tiles, the one that costs least in waves × rows an SM
+    loads (the tile's, and ``route.b_rows`` of the weight tile; a float32
+    tile of :data:`TILE_N_FREE` columns counts the hi and lo planes of its
+    weight tile, since the bytes L2 feeds it set its pace, as in bf16:
+    scripts/k3_tf32x3.py) per wave ÷ splits (the taller on a tie: fewer
+    bytes per operation).  The tile depends on (m, hw, c_out) alone, not
+    on K, so a block's convs write partials of one layout.  An unsplit boxed tile is staged when it takes fewer
     than ``route.staged_below`` K-slices, or when the conv writes
     GroupNorm partials of ``groups`` groups that :func:`register_groups`
     refuses; a split tile stores its raw sums from registers.
@@ -248,7 +275,9 @@ def conv_plan(m: int, hw: int, c_out: int, k_slices: int, sms: int, route: Tenso
     asks for the chain with the same tiles.  Where the tiles fill the card
     twice over, pairs of CTAs (the cluster's, or 2-CTA clusters) multicast
     the weight tile; with fewer, their lockstep costs more than it saves."""
-    n_tiles = -(-c_out // TILE_N)
+    bn = n_tile(route, c_out, groups is not None)
+    n_tiles = -(-c_out // bn)
+    b_rows = 2 * bn if bn == TILE_N_FREE else route.b_rows
     best = None
     for tile in route.tiles:
         rows = samples = 0
@@ -261,7 +290,7 @@ def conv_plan(m: int, hw: int, c_out: int, k_slices: int, sms: int, route: Tenso
             bm = width * rows * samples
         t = -(-m // bm) * n_tiles
         fill = max(1, sms // t) if tile == route.tiles[0] else 1
-        cost = -(-t * fill // sms) * (tile + route.b_rows) / fill
+        cost = -(-t * fill // sms) * (tile + b_rows) / fill
         if best is None or cost <= best[0]:
             best = (cost, tile, bm, rows, samples, min(fill, max(1, k_slices // 4)))
     if best is None:
@@ -394,7 +423,7 @@ def _conv_tensor_cores(call, route, x_ptr, w, bias, out_ptr, part_ptr, ws_ptr, s
         tiling = (plan.tile, plan.bm, plan.rows, plan.samples, plan.staged)
         fused = (plan.cluster, plan.multicast, *norm)
     else:
-        tiling, fused = (plan.bm,), ()
+        tiling, fused = (plan.bm, n_tile(route, w.shape[-2], part_ptr is not None)), ()
     call(route.entry, x_ptr, w.data_ptr(), bias.data_ptr(), _build.DTYPE_CODES[bias.dtype],
          out_ptr, part_ptr, ws_ptr, b, h, wd, c_in, w.shape[-2], ks, groups, *tiling, plan.splits, plan.segmax,
          *fused)
@@ -544,7 +573,9 @@ def conv_tf32x3(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.T
     """The 3xTF32 conv of K3's float32 route alone, without GroupNorm:
     x (B, H, W, Cin) float32, ``w`` (Co, Cin, k, k) for k in {1, 3} →
     (B, H, W, Co) float32.  A CUDA tensor runs the kernel (Cin % 32 == 0,
-    Co % 8 == 0); a CPU tensor :func:`conv_tf32x3_plain`."""
+    Co % 8 == 0), in N tiles of :func:`n_tile` columns (it writes no
+    partials); a CPU tensor :func:`conv_tf32x3_plain`.  The float32
+    SD-VAE's convs take it where :func:`tf32x3_routes` says."""
     if x.dim() != 4 or w.dim() != 4 or w.shape[1] != x.shape[-1] or w.shape[-1] not in (1, 3):
         raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} are not a K3 conv")
     if x.device.type == "cpu":
@@ -569,6 +600,50 @@ def conv_tf32x3(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.T
 
 
 conv_tf32x3.launches = 0
+
+
+def tf32x3_routes(dtype: torch.dtype, device_type: str, grad: bool, stride: Tuple[int, int],
+                  padding: Tuple[int, int], kernel: Tuple[int, int], c_in: int, c_out: int) -> bool:
+    """Whether a conv (an ``nn.Conv2d``'s ``stride``, ``padding`` and
+    ``kernel_size``) runs on :func:`conv_tf32x3` in place of ``F.conv2d``:
+    float32 on the card with no gradient asked (the kernel has no
+    backward); stride 1, a 1x1 or 3x3 kernel with zero padding k // 2;
+    whole 32-channel K-slices (Cin % 32 == 0); and whole
+    :data:`TILE_N_FREE` N tiles (Co % 128 == 0), since a narrower output
+    -- the SD-VAE encoder's 8-channel ``conv_out`` -- would leave most
+    of its tile's columns idle.  bf16 keeps cuDNN's tensor-core convs."""
+    k = kernel[0]
+    return (dtype == torch.float32 and device_type == "cuda" and not grad and tuple(stride) == (1, 1)
+            and tuple(kernel) == (k, k) and k in (1, 3) and tuple(padding) == (k // 2, k // 2)
+            and c_in % TENSOR_CORE_ROUTES[torch.float32].slice_k == 0 and c_out % TILE_N_FREE == 0)
+
+
+def group_norm_silu_nhwc(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, groups: int,
+                         eps: float) -> torch.Tensor:
+    """SiLU(GroupNorm(x)) of a contiguous float32 NHWC x (B, H, W, C),
+    kept NHWC (``nn.GroupNorm`` hands a channels-last tensor back
+    NCHW-contiguous):
+    float32 statistics per (sample, group) over the (B, H·W, G, C/G)
+    view, as (B, C) tables of mean and rstd·gamma; then, on CUDA, K3's
+    ``gn_silu`` kernel, and on the CPU its arithmetic, SiLU((x − mean)
+    · scale + beta)."""
+    b, h, w, c = x.shape
+    cg = c // groups
+    var, mean = torch.var_mean(x.view(b, h * w, groups, cg), dim=(1, 3), unbiased=False)
+    mean_c = mean.repeat_interleave(cg, dim=1)
+    scale_c = torch.rsqrt(var + eps).repeat_interleave(cg, dim=1) * gamma
+    if x.device.type == "cpu":
+        return F.silu((x - mean_c[:, None, None]) * scale_c[:, None, None] + beta)
+    for name, t in (("x", x), ("gamma", gamma), ("beta", beta)):
+        _build.check_cuda(name, t, (torch.float32,))
+    if c % 4 or x.data_ptr() % 16:
+        raise ValueError(f"gn_silu takes C % 4 == 0 and 16-byte aligned x; got C={c}")
+    out = torch.empty_like(x)
+    if out.numel():
+        _build.launch("nope_gn_silu", x.device, x.data_ptr(), mean_c.data_ptr(), scale_c.data_ptr(),
+                      beta.data_ptr(), _build.DTYPE_CODES[beta.dtype], None, 0, None, 0, out.data_ptr(),
+                      _build.DTYPE_CODES[x.dtype], b, h * w, c, _build.grid_y(b))
+    return out
 
 
 class _ResnetBlockFn(torch.autograd.Function):

@@ -440,6 +440,7 @@ class _EmulatedKernels:
     def __init__(self):
         self.calls = []
         self.tiles = set()  # the bm of every tensor-core conv
+        self.n_tiles = []  # the N tile of every 3xTF32 conv
         self.epilogues = []  # bf16 convs with GroupNorm (partials or fused): (staged, splits)
         self.fused = []  # fused bf16 convs: (cluster, multicast, staged)
         self.grid_y = []  # the y extent of every gn_silu launch
@@ -514,14 +515,16 @@ class _EmulatedKernels:
                        None if res is None else _view(res, m * co, rdt).reshape(b, hw, co))
         _store(dst, m * co, 1, y)
 
-    def nope_conv_tf32x3(self, x, w, bias, bdt, out, part, ws, b, h, wd, cin, co, ks, groups, bm, splits,
+    def nope_conv_tf32x3(self, x, w, bias, bdt, out, part, ws, b, h, wd, cin, co, ks, groups, bm, bn, splits,
                          segmax):
         """The split arithmetic: x and the pack's planes as the tensor
         cores read them (lo truncated), lo·hi + hi·lo + hi·hi per split of
         32-deep K-slices, the splits summed in order."""
         m, k = b * h * wd, ks * ks * cin
         assert cin % 32 == 0 and co % 8 == 0  # what the C entry point takes
+        assert bn == fr.TILE_N or (bn == fr.TILE_N_FREE and part is None)
         self.tiles.add(bm)
+        self.n_tiles.append(bn)
         xh, xl = fr.tf32_split(_view(x, m * cin, 0).reshape(b, h, wd, cin))
         x_hi, x_lo = im2col(xh.double(), ks), im2col(fr.tf32_truncate(xl).double(), ks)
         pack = _view(w, 2 * co * k, 0).reshape(2, co, k)
@@ -728,3 +731,46 @@ def test_fused_block_launches_equal_the_chain(monkeypatch, batch, hw_side, cin, 
     assert not chain.fused and chain.calls.count("nope_gn_silu") == 2 and sizes[-1]["conv"] > 0
     assert profiling.counters()["k3.fused_norms"] == before + 2
     torch.testing.assert_close(got, chain.out, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("batch,side,cin,co,n_tile", [
+    (2, 4, 64, 128, 128),   # the SD-VAE's widths: 128-column tiles, K split over the few M tiles
+    (3, 8, 32, 256, 128),
+    (2, 4, 64, 96, 128),    # rows past Co in a 128 tile
+    (2, 4, 64, 192, 192),   # 192 fills its tile: kept
+    (2, 4, 32, 384, 192),   # a tie: kept
+])
+def test_partial_free_conv_launches_its_n_tile(batch, side, cin, co, n_tile):
+    """A 3xTF32 conv without GroupNorm partials (``conv_tf32x3``'s launch)
+    passes the N tile ``n_tile`` chose, and gives the split arithmetic."""
+    emulated = _EmulatedKernels()
+    route = fr.TENSOR_CORE_ROUTES[torch.float32]
+    gen = torch.Generator().manual_seed(co + cin)
+    x = torch.randn(batch, side, side, cin, generator=gen)
+    w = torch.randn(co, cin, 3, 3, generator=gen) / (9 * cin) ** 0.5
+    b = 0.1 * torch.randn(co, generator=gen)
+    m = batch * side * side
+    plan = fr.conv_plan(m, side * side, co, 9 * cin // route.slice_k, 132, route)
+    out = torch.empty(batch, side, side, co)
+    ws = torch.empty(plan.splits * m * co)
+    fr._conv_tensor_cores(emulated, route, x.data_ptr(), fr.packed_weight(w, route.layout), b, out.data_ptr(), None,
+                          ws.data_ptr() if plan.splits > 1 else None, x.shape, 3, 1, plan)
+    assert emulated.n_tiles == [n_tile] and fr.n_tile(route, co, False) == n_tile
+    want = fr.conv_tf32x3_plain(x, w, b)
+    assert ((out - want).abs().max() / want.abs().max()).item() <= 1e-6
+
+
+@pytest.mark.parametrize("cin,co,n_tiles", [
+    (96, 192, [192, 192, 192]),     # the flagship U-Net's residual widths: 192 fills its tiles,
+    (192, 384, [192, 192, 192]),    # and 384, 768 and 1536 tie, so the residual keeps 192
+    (384, 768, [192, 192, 192]),
+    (768, 1536, [192, 192, 192]),
+    (128, 256, [192, 128, 192]),    # 256: the residual alone takes 128-column tiles
+])
+def test_k3_residual_conv_is_partial_free(monkeypatch, cin, co, n_tiles):
+    """A float32 K3 block's 1x1 residual conv writes no GroupNorm partials,
+    so it takes :func:`fr.n_tile`'s tile: 192 at the flagship's widths,
+    128 where that leaves fewer columns empty; its two 3x3 convs keep 192."""
+    emulated = _check_block_launches(monkeypatch, "tf32x3", 2, 4, cin, co, True, True, 132)
+    assert emulated.n_tiles == n_tiles  # conv1, the residual, conv2
+    assert fr.n_tile(fr.TENSOR_CORE_ROUTES[torch.float32], co, False) == n_tiles[1]

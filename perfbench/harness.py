@@ -10,6 +10,11 @@ or None where it finds nothing to read).  Code is found by name too: a
 mix's ``generator`` and a configuration's ``sides`` (``program``,
 ``reference``, ``control``) are ``"module:name"`` paths, so a new kind of
 traffic or of task is a new file, never an edit of one that is here.
+The benchmark's tests take theirs the same way: a configuration's small
+sizes in ``tests/toy_sizes/<config>.json``, a generator's small mix in
+``tests/toy_mixes/<generator module>.json`` and its planted faults in
+``tests/faults/<generator module>.py``.  A new configuration or cell is
+new files plus entries appended to ``BENCHMARK.json``'s lists.
 """
 
 from __future__ import annotations

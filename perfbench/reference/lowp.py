@@ -2,8 +2,11 @@
 below what the configuration states.  A bfloat16 stage becomes
 float8 (e4m3): every conv and linear takes its weight and its input
 rounded to float8 with a per-tensor scale, the rest runs in bfloat16.
-A float32 stage becomes TF32 (``tf32``).  A float32 elementwise stage
-(the rotation metric) takes bfloat16-rounded inputs (``bf16_round``).
+A float32 stage becomes TF32 (``tf32``): the backends' TF32 switches on,
+and every conv, linear and matmul takes its float32 operands rounded to
+TF32 (10 mantissa bits, to nearest even) on any device, so the CPU shows
+what the card's TF32 does.  A float32 elementwise stage (the rotation
+metric) takes bfloat16-rounded inputs (``bf16_round``).
 """
 
 from __future__ import annotations
@@ -12,7 +15,9 @@ import contextlib
 import copy
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.overrides import TorchFunctionMode
 
 FP8_MAX = 448.0
 
@@ -21,6 +26,26 @@ def fp8_round(t: torch.Tensor) -> torch.Tensor:
     """``t`` rounded to float8 e4m3 under a per-tensor scale, in t's dtype."""
     scale = t.detach().abs().amax().float().clamp(min=1e-12) / FP8_MAX
     return ((t.float() / scale).to(torch.float8_e4m3fn).float() * scale).to(t.dtype)
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """float32 ``t`` rounded to TF32's 10 mantissa bits, to nearest even;
+    gradients pass straight through."""
+    bits = t.detach().contiguous().view(torch.int32)
+    rounded = ((bits + 0xFFF + ((bits >> 13) & 1)) & -8192).view(torch.float32)
+    return t + (rounded - t).detach()
+
+
+class TF32Products(TorchFunctionMode):
+    """Every conv, linear and matmul on TF32-rounded float32 operands."""
+
+    PRODUCTS = {F.conv2d, F.linear, torch.matmul, torch.bmm, torch.baddbmm, torch.einsum, torch.Tensor.matmul}
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in self.PRODUCTS:
+            args = tuple(tf32_round(a) if isinstance(a, torch.Tensor) and a.dtype == torch.float32 else a
+                         for a in args)
+        return func(*args, **(kwargs or {}))
 
 
 def bf16_round(t: torch.Tensor) -> torch.Tensor:
@@ -45,10 +70,12 @@ def fp8_copy(module: nn.Module) -> nn.Module:
 
 @contextlib.contextmanager
 def tf32():
-    """float32 matmuls and convs on the TF32 tensor cores."""
+    """float32 matmuls and convs on the TF32 tensor cores, their operands
+    rounded to TF32 on any device."""
     saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
     try:
-        yield
+        with TF32Products():
+            yield
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved

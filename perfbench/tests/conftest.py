@@ -1,5 +1,13 @@
 """The benchmark's own tests: ``python -m pytest perfbench/tests -q``.
 
+They find what they need by name, as the harness does, so a new
+configuration or generator brings its test files as files of its own:
+``toy_sizes/<config>.json`` (its small sizes on the CPU),
+``toy_mixes/<generator module>.json`` (the generator's small mix) and
+``faults/<generator module>.py`` (its planted faults, ``FAULTS``, three or
+more).  The cell, fault and reference tests are parametrised over
+``BENCHMARK.json``.
+
 The card-marked test runs on a machine with an NVIDIA GPU; elsewhere it
 skips, deciding inside the test."""
 

@@ -1,9 +1,11 @@
 """Each cell driven at small sizes on the CPU: in a fresh process with no
-JAX loaded, against its control and against planted faults; a cell, a
-mix, a configuration and a metric added as files alone; and, on a
-machine with a card, one short run of each cell."""
+JAX loaded, against its control and against the planted faults of its
+generator (``faults/<generator module>.py``); a cell, a mix, a
+configuration, a generator and a metric added as files alone, with their
+tests; and, on a machine with a card, one short run of each cell."""
 
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -47,108 +49,62 @@ def test_the_control_comes_out_not_correct(workload):
     assert not check.verdict(outcome.check(side, harness.side(run.cfg, "control", 2**31 + 3, device)), limits)[0]
 
 
-def _eval_answer_altered(monkeypatch):
-    from nope_tpu_torch.tasks.pose_conditional import PoseConditionalTask
-
-    step = PoseConditionalTask.eval_geodesic_step
-
-    def altered(self, batch, **kwargs):
-        out = step(self, batch, **kwargs)
-        out["similarity"] = out["similarity"].roll(1, dims=1)
-        return out
-
-    monkeypatch.setattr(PoseConditionalTask, "eval_geodesic_step", altered)
-
-
-def _eval_half_batch(monkeypatch):
-    from nope_tpu_torch.tasks.pose_conditional import PoseConditionalTask
-
-    loss = PoseConditionalTask.forward_loss
-    monkeypatch.setattr(PoseConditionalTask, "forward_loss",
-                        lambda self, q, r, rel: loss(self, q[:len(q) // 2], r[:len(r) // 2], rel[:len(rel) // 2]))
-
-
-def _eval_topk_altered(monkeypatch):
-    from nope_tpu_torch.ops import similarity
-    from nope_tpu_torch.tasks import pose_conditional
-
-    top_k = similarity.top_k
-    for module in (similarity, pose_conditional):
-        monkeypatch.setattr(module, "top_k", lambda sim, k: top_k(sim, k).flip(-1))
-
-
-def _serve_answer_altered(monkeypatch):
-    from nope_tpu_torch.serving.engine import PoseEstimator
-
-    assemble = PoseEstimator._assemble
-    monkeypatch.setattr(PoseEstimator, "_assemble",
-                        lambda self, sim, idx, *a, **k: assemble(self, sim.roll(1, dims=1), idx, *a, **k))
-
-
-def _serve_nearest_altered(monkeypatch):
-    from nope_tpu_torch.serving.engine import PoseEstimator
-
-    assemble = PoseEstimator._assemble
-    monkeypatch.setattr(PoseEstimator, "_assemble",
-                        lambda self, sim, idx, *a, **k: assemble(self, sim, idx.flip(1), *a, **k))
-
-
-def _serve_state_unchanged(monkeypatch):
-    from nope_tpu_torch.serving.engine import PoseEstimator
-
-    register = PoseEstimator.register_objects
-
-    def unchanged(self, ids, *args, **kwargs):
-        if set(ids) <= {"o0", "o1", "o2", "o3"}:  # the set-up's gallery; later registrations change nothing
-            register(self, ids, *args, **kwargs)
-
-    monkeypatch.setattr(PoseEstimator, "register_objects", unchanged)
-
-
-FAULTS = {
-    "vae_base.eval_full": [_eval_answer_altered, _eval_topk_altered, _eval_half_batch],
-    "vae_cin_ldm.eval_fast": [_eval_answer_altered, _eval_topk_altered, _eval_half_batch],
-    "vae_base.serve_mixed": [_serve_answer_altered, _serve_nearest_altered, _serve_state_unchanged],
-}
-
-
-@pytest.mark.parametrize("workload, fault", [(w, f) for w in CELLS for f in FAULTS[w]],
+@pytest.mark.parametrize("workload, fault", [(w, f) for w in CELLS for f in toy.faults(w)],
                          ids=lambda x: getattr(x, "__name__", x))
 def test_a_planted_fault_comes_out_not_correct(workload, fault, monkeypatch):
     fault(monkeypatch)
     assert toy.run(workload, seconds=2.0)["correct"] is False
 
 
+@pytest.mark.parametrize("generator", toy.generators())
+def test_each_generator_plants_three_faults_or_more(generator):
+    faults = toy.faults_of(generator)
+    assert len(faults) >= 3 and all(callable(f) for f in faults)
+    assert len({f.__name__ for f in faults}) == len(faults)
+
+
 def test_a_cell_config_mix_and_metric_are_added_as_files_alone(tmp_path):
+    """A throwaway configuration, mix, cell, generator, sides, faults module
+    and per-layer metric come in as new files and entries appended to
+    ``BENCHMARK.json``'s lists; the cell runs, and the parametrised cell,
+    reference and spec tests collect it and pass, with no file changed."""
     shutil.copytree(ROOT / "perfbench", tmp_path / "perfbench", ignore=shutil.ignore_patterns("__pycache__"))
     (tmp_path / "nope_tpu_torch").symlink_to(ROOT / "nope_tpu_torch")
     before = {p: p.read_bytes() for p in (tmp_path / "perfbench").rglob("*") if p.is_file()}
     bench = harness.spec()
-    (tmp_path / "perfbench/generators/toy_steps.py").write_text(
-        "from perfbench.generators import eval_geodesic\n\n\ndef run(run):\n    return eval_geodesic.run(run)\n")
-    (tmp_path / "perfbench/sides/toy_sides.py").write_text(
-        "from perfbench.sides.pose_conditional import Control, Reference, program  # noqa: F401\n")
-    sides = {name: f"perfbench.sides.toy_sides:{attr}"
-             for name, attr in (("program", "program"), ("reference", "Reference"), ("control", "Control"))}
-    cfg = dict(toy.config("vae_base"), name="toy_base", sides=sides)
-    (tmp_path / "perfbench/configs/toy_base.json").write_text(json.dumps(cfg))
-    (tmp_path / "perfbench/mixes/toy_eval.json").write_text(json.dumps(dict(
-        toy.mix("vae_base.eval_full"), protocol="fast", generator="perfbench.generators.toy_steps:run")))
-    (tmp_path / "perfbench/limits/toy_base.toy_eval.json").write_text(
-        (ROOT / "perfbench/limits/vae_base.eval_full.json").read_text())
-    (tmp_path / "perfbench/layer_metrics/toy_steps.eval.py").write_text(
-        "def read(trace):\n    return float(trace['window']['steps'])\n")
+    files = {
+        "generators/toy_steps.py":
+            "from perfbench.generators import eval_geodesic\n\n\ndef run(run):\n    return eval_geodesic.run(run)\n",
+        "sides/toy_sides.py":
+            "from perfbench.sides.pose_conditional import Control, Reference, program  # noqa: F401\n",
+        "configs/toy_base.json": json.dumps(dict(
+            harness.load_json(ROOT / "perfbench/configs/vae_base.json"), name="toy_base",
+            source="https://example.org/toy",
+            sides={name: f"perfbench.sides.toy_sides:{attr}"
+                   for name, attr in (("program", "program"), ("reference", "Reference"), ("control", "Control"))})),
+        "mixes/toy_eval.json": json.dumps(dict(harness.load_json(ROOT / "perfbench/mixes/eval_full.json"),
+                                               protocol="fast", generator="perfbench.generators.toy_steps:run")),
+        "limits/toy_base.toy_eval.json": (ROOT / "perfbench/limits/vae_base.eval_full.json").read_text(),
+        "layer_metrics/toy_steps.eval.py":
+            "def read(trace):\n    steps = trace['window'].get('steps')\n    return float(steps) if steps else None\n",
+        "tests/toy_sizes/toy_base.json": (ROOT / "perfbench/tests/toy_sizes/vae_base.json").read_text(),
+        "tests/toy_mixes/toy_steps.json": (ROOT / "perfbench/tests/toy_mixes/eval_geodesic.json").read_text(),
+        "tests/faults/toy_steps.py": "from perfbench.tests.faults.eval_geodesic import FAULTS  # noqa: F401\n",
+    }
+    for name, text in files.items():
+        assert not (tmp_path / "perfbench" / name).exists(), name
+        (tmp_path / "perfbench" / name).write_text(text)
     bench["configs"].append({"name": "toy_base", "source": "https://example.org/toy", "reduced": [],
                              "file": "perfbench/configs/toy_base.json", "why": "a throwaway"})
     bench["workloads"].append({"name": "toy_base.toy_eval", "config": "toy_base", "traffic": "toy_eval",
                                "chips": 1, "why": "a throwaway"})
     bench["end_to_end"][0]["workloads"].append("toy_base.toy_eval")
     bench["per_layer"].append({"name": "toy_steps.eval", "unit": "steps", "better": "higher",
-                               "source": "program_counter", "layer": "evaluation step",
+                               "source": "program_counter", "layer": "evaluation step (tasks/pose_conditional.py)",
                                "moves": "eval_img_per_s", "workloads": ["toy_base.toy_eval"]})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
-    code = ("import json, sys, time, torch; sys.path.insert(0, sys.argv[1]); from perfbench import harness; "
-            "r = harness.run_cell('toy_base.toy_eval', 17, 1.0, False, torch.device('cpu'), time.perf_counter()); "
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); from perfbench import harness; "
+            "from perfbench.tests import toy; r = toy.run('toy_base.toy_eval', seed=17); "
             "m = [x['name'] for x in harness.reported(harness.spec(), 'toy_base.toy_eval', 'per_layer')]; "
             "print(json.dumps({'result': r, 'per_layer': m, "
             "'steps': harness.reader('toy_steps.eval')({'window': {'steps': 3}}), "
@@ -159,6 +115,25 @@ def test_a_cell_config_mix_and_metric_are_added_as_files_alone(tmp_path):
     assert line["result"]["correct"] and set(line["result"]["metrics"]) == {"eval_img_per_s", "setup_s"}
     assert "toy_steps.eval" in line["per_layer"] and line["steps"] == 3.0
     assert {"perfbench.generators.toy_steps", "perfbench.sides.toy_sides"} <= set(line["modules"])
+
+    tests = [f"perfbench/tests/{m}.py" for m in ("test_bench_cells", "test_bench_reference", "test_bench_spec")]
+    out = subprocess.run([sys.executable, "-m", "pytest", "-v", "-p", "no:cacheprovider", "-p", "no:randomly",
+                          "-k", "toy_base or toy_steps", *tests], capture_output=True, text=True, timeout=1200,
+                         cwd=tmp_path)
+    assert out.returncode == 0, out.stdout[-4000:]
+    outcomes = dict(m.groups() for m in re.finditer(r"^(\S+::\S+) (PASSED|SKIPPED|FAILED|ERROR)", out.stdout, re.M))
+    want = ["test_bench_cells.py::test_each_cell_runs_small_in_a_fresh_process_without_jax[toy_base.toy_eval]",
+            "test_bench_cells.py::test_the_control_comes_out_not_correct[toy_base.toy_eval]",
+            *[f"test_bench_cells.py::test_a_planted_fault_comes_out_not_correct[toy_base.toy_eval-{f.__name__}]"
+              for f in toy.faults_of("eval_geodesic")],
+            "test_bench_cells.py::test_each_generator_plants_three_faults_or_more[toy_steps]",
+            "test_bench_reference.py::test_the_reference_unet_and_encoder_equal_the_programs[toy_base]",
+            "test_bench_spec.py::test_the_harness_finds_every_file_a_cell_names[toy_base.toy_eval]",
+            "test_bench_spec.py::test_every_per_layer_metric_has_a_reader_and_its_cells_report_what_it_moves"
+            "[toy_steps.eval]"]
+    assert {k: outcomes.get(f"perfbench/tests/{k}") for k in want} == dict.fromkeys(want, "PASSED"), out.stdout[-4000:]
+    assert outcomes.get("perfbench/tests/test_bench_cells.py::test_one_short_run_of_each_cell_on_the_card"
+                        "[toy_base.toy_eval]") == ("PASSED" if torch.cuda.is_available() else "SKIPPED")
     after = {p: p.read_bytes() for p in before}
     assert after == before
 

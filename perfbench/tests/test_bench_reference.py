@@ -1,12 +1,13 @@
 """The frozen reference against the program at small sizes on the CPU
 (where the program's kernels run their plain versions), on one seeded
-state dict loaded into both."""
+state dict loaded into both: every configuration of ``BENCHMARK.json``
+at its ``toy_sizes/<config>.json``."""
 
 import numpy as np
 import pytest
 import torch
 
-from perfbench import inputs
+from perfbench import harness, inputs
 from perfbench.reference import task as ref
 from perfbench.tests import toy
 
@@ -28,7 +29,7 @@ def _both(name):
     return cfg, prog, want
 
 
-@pytest.mark.parametrize("name", ["vae_base", "vae_cin_ldm"])
+@pytest.mark.parametrize("name", [c["name"] for c in harness.spec()["configs"]])
 def test_the_reference_unet_and_encoder_equal_the_programs(name):
     cfg, prog, want = _both(name)
     gen = torch.Generator().manual_seed(0)

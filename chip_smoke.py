@@ -153,10 +153,10 @@ it fails at once.
    at full width, 256-px images, seeded weights (the factory's zero layers
    overwritten by seeded noise, else every template's prediction is the
    same): ``vae_cin_ldm`` from ``configs/model_ldm.yaml``,
-   ``vae_guidedDiffusion`` at ``UNetConfig``'s ``gd_*`` defaults and
-   ``template_base`` (ResNet-50, descriptor 8).  Each: (a) the fp32 U-Net
-   and encoder on the card against the CPU at 2 items; (b) in bf16,
-   registration at N=341 and ``estimate`` at B=64, N=26 through
+   ``vae_guidedDiffusion`` from ``configs/model_adm.yaml`` (heads of 64
+   channels) and ``template_base`` (ResNet-50, descriptor 8).  Each: (a)
+   the fp32 U-Net and encoder on the card against the CPU at 2 items; (b)
+   in bf16, registration at N=341 and ``estimate`` at B=64, N=26 through
    ``PoseEstimator`` (LDM, ADM; ``template_base`` is refused as in the JAX
    package), ``eval_geodesic_step`` at N=26 (B and chunks from
    ``ZOO_EVAL``), times, peak memory and every kernel's launches (K1 in
@@ -2394,14 +2394,14 @@ def parallel_phase(torch, dev, smi, counters, task32, half, grids, phase9_step_m
 
 def zoo_configs():
     """The three configurations of phase 11, full width, 256-px images:
-    the repo's LDM preset, the ADM variant at ``UNetConfig``'s ``gd_*``
-    defaults, and ``template_base`` with the ResNet-50 template encoder
+    the repo's LDM and ADM presets (the ADM with its published 64-channel
+    heads), and ``template_base`` with the ResNet-50 template encoder
     (descriptor 8)."""
     from nope_tpu_torch.configs import load_config
 
     return {
         "vae_cin_ldm": load_config(str(ROOT / "configs" / "model_ldm.yaml")).model,
-        "vae_guidedDiffusion": load_config(None, ["model.u_net.variant=vae_guidedDiffusion"]).model,
+        "vae_guidedDiffusion": load_config(str(ROOT / "configs" / "model_adm.yaml")).model,
         "template_base": load_config(None, ["model.u_net.variant=template_base", "model.encoder.kind=template",
                                             "model.encoder.latent_dim=8", "model.encoder.descriptor_size=8"]).model,
     }

@@ -74,7 +74,9 @@ class UNetConfig:
     context_dim: int = 512
     transformer_depth: int = 1
     injecting_condition_twice: bool = False
-    # guided-diffusion knobs (configs/model/vae_guidedDiffusion.yaml)
+    # guided-diffusion knobs (configs/model/vae_guidedDiffusion.yaml); the
+    # ADM's head width is num_head_channels above, the LDM's 32 by default:
+    # configs/model_adm.yaml sets the published 64
     gd_channel_mult: Tuple[int, ...] = (1, 1, 2, 2, 4, 4)
     gd_attention_resolutions: Tuple[int, ...] = (32, 16, 8)
     use_scale_shift_norm: bool = True

@@ -8,9 +8,18 @@ residual up/down blocks (``resblock_updown``) and QKV self-attention at
 the deeper scales.  Plain PyTorch throughout, as in JAX (no Pallas
 kernel); the attention's scores are written out as JAX writes them.
 
-Defaults mirror the reference's ``vae_guidedDiffusion.yaml``:
-model_channels 256, channel_mult (1, 1, 2, 2, 4, 4), attention at ds
-(32, 16, 8), num_head_channels 64.
+The constructor's defaults are the published model, the reference's
+``vae_guidedDiffusion.yaml``: model_channels 256, channel_mult
+(1, 1, 2, 2, 4, 4), attention at downsample rates (32, 16, 8) (4x4, 2x2
+and 1x1 of 32x32 latents), heads of 64 channels.  ``UNetConfig``'s
+defaults are not: its ``num_head_channels`` is the LDM's 32, so a config
+built from them has twice the published heads.  ``configs/model_adm.yaml``
+states the published model for ``build_task`` and the CLIs.
+
+Each res block is an ``adm.res`` span and each attention block an
+``adm.attn`` span (``utils.profiling``); the counters
+``adm.res_blocks``, ``adm.resample_blocks`` and ``adm.attn_blocks`` count
+their calls (42, 10 and 16 a forward of the published structure).
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ from torch import nn
 
 from nope_tpu_torch.models.blocks import PoseMLP, zero_module
 from nope_tpu_torch.models.ldm_unet import EmbedSequential, LDMDownsample, LDMResBlock, LDMUpsample, skip_channels
+from nope_tpu_torch.utils import profiling
 
 
 def legacy_qkv_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
@@ -59,9 +69,38 @@ class ADMAttentionBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
-        qkv = self.qkv(self.norm(x).reshape(b, c, h * w))
-        out = self.proj_out(legacy_qkv_attention(qkv, self.num_heads))
-        return x + out.reshape(b, c, h, w)
+        profiling.count("adm.attn_blocks")
+        with profiling.span("adm.attn", facts=lambda: self._facts(x)):
+            qkv = self.qkv(self.norm(x).reshape(b, c, h * w))
+            out = self.proj_out(legacy_qkv_attention(qkv, self.num_heads))
+            return x + out.reshape(b, c, h, w)
+
+    def _facts(self, x: torch.Tensor) -> dict:
+        """The ``adm.attn`` span's attributes: items, dtype and ``shape``
+        (tokens, channels, heads) of NCHW ``x``."""
+        return dict(profiling.batch_facts(x), shape=(int(x.shape[2] * x.shape[3]), int(x.shape[1]), self.num_heads))
+
+
+class ADMResBlock(LDMResBlock):
+    """``LDMResBlock`` as the ADM calls it, recorded as an ``adm.res`` span
+    and counted; the LDM's blocks stay unrecorded."""
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        profiling.count("adm.res_blocks")
+        if self.up or self.down:
+            profiling.count("adm.resample_blocks")
+        with profiling.span("adm.res", facts=lambda: self._facts(x)):
+            return super().forward(x, emb)
+
+    def _facts(self, x: torch.Tensor) -> dict:
+        """The ``adm.res`` span's attributes: items, dtype and ``shape``
+        (h, w, cin, co, film, resample) at the block's NCHW input, with
+        resample ``"up"``, ``"down"`` or ``""``."""
+        conv = self.in_layers[2]
+        resample = "up" if self.up else "down" if self.down else ""
+        return dict(profiling.batch_facts(x), shape=(
+            int(x.shape[2]), int(x.shape[3]), conv.in_channels, conv.out_channels, self.use_scale_shift_norm,
+            resample))
 
 
 class ADMPoseUNet(nn.Module):
@@ -90,7 +129,7 @@ class ADMPoseUNet(nn.Module):
             return max(1, ch // num_head_channels) if num_head_channels > 0 else num_heads
 
         def res(ch, out_ch, **kw):
-            return LDMResBlock(ch, emb, out_ch, use_scale_shift_norm=ssn, **kw)
+            return ADMResBlock(ch, emb, out_ch, use_scale_shift_norm=ssn, **kw)
 
         self.input_blocks = nn.ModuleList([EmbedSequential(nn.Conv2d(in_channels, model_channels, 3, padding=1))])
         ch, ds = model_channels, 1

@@ -8,7 +8,11 @@ factory builds (``vae_base`` and ``template_base``: ``PoseUNet``;
 ``ADMPoseUNet``) and every encoder kind (``vae``: the SD-VAE;
 ``template``: the ResNet-50 ``TemplateFeatureExtractor``;
 ``template_tiny``: ``BaseFeatureExtractor``), from the same config
-fields.  The U-Net's input width is ``encoder.latent_dim``.
+fields.  The U-Net's input width is ``encoder.latent_dim``.  The ADM
+takes the LDM's ``num_head_channels``, whose default is the LDM's 32: a
+``UNetConfig`` left at its defaults builds the ADM with twice its
+published heads, and ``configs/model_adm.yaml`` builds the published
+model (heads of 64 channels).
 
 Weights are random, drawn from an explicit ``torch.Generator`` on the
 CPU (so one seed gives the same weights on every device), then moved to

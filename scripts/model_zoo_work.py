@@ -14,8 +14,9 @@ would move), with the least time an H100 SXM could take for a batch
 (989 TFLOP/s bf16, 3.35 TB/s), the larger of the two.  The
 configurations: the flagship ``vae_base`` U-Net, ``template_base``'s
 U-Net (8 input channels), the ``vae_cin_ldm`` preset
-(``configs/model_ldm.yaml``), ``vae_guidedDiffusion`` at ``UNetConfig``'s
-``gd_*`` defaults, the SD-VAE encoder and the ResNet-50 template encoder.
+(``configs/model_ldm.yaml``), the ``vae_guidedDiffusion`` preset
+(``configs/model_adm.yaml``, heads of 64 channels), the SD-VAE encoder
+and the ResNet-50 template encoder.
 PoseUNet's K3 and K2 ops count through their plain versions (the same
 arithmetic).  Runs on any host; the numbers are counts, not measurements.
 """
@@ -62,7 +63,7 @@ def configs():
     yield "template_base", load_config(None, ["model.u_net.variant=template_base", "model.encoder.kind=template",
                                               "model.encoder.latent_dim=8"]).model
     yield "vae_cin_ldm", load_config(str(ROOT / "configs" / "model_ldm.yaml")).model
-    yield "vae_guidedDiffusion", load_config(None, ["model.u_net.variant=vae_guidedDiffusion"]).model
+    yield "vae_guidedDiffusion", load_config(str(ROOT / "configs" / "model_adm.yaml")).model
 
 
 def measure(fn, batch):

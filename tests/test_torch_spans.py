@@ -28,7 +28,7 @@ ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-from perfbench import harness, work  # noqa: E402
+from perfbench import harness, work, work_adm  # noqa: E402
 
 N_GRID = 8
 
@@ -193,6 +193,7 @@ def test_pose_estimator_spans_its_calls(task, tmp_path):
 # -- the benchmark's readers --------------------------------------------------------------------
 
 K3_SHAPE, K2_SHAPE = (32, 32, 192, 192, False, True), (384, 64)
+ADM_SHAPE = (16, 16, 256, 512, True, "down")
 
 
 def _store():
@@ -206,11 +207,17 @@ def _store():
 
     k3_least = work.bound(*work.k3_work(K3_SHAPE, 10))[0]
     k2_least = work.bound(*work.k2_work(*K2_SHAPE, 10))[0]
+    adm_least = work.bound(*work_adm.res_work(ADM_SHAPE, 10))[0]
     for r, (start, end, loss) in enumerate([(0.0, 100.0, 200.0), (130.0, 220.0, 300.0), (240.0, 330.0, 250.0)]):
         step = add("eval.step", request=r, t0=start, t1=start + 5)
         add("task.loss", step, r, device=loss)
         unet = add("unet", step, r, device=120.0 if r % 2 else 130.0, items=1000, dtype="bfloat16")
-        add("unet", step, r, device=50.0, items=64, dtype="float32")
+        fp32_unet = add("unet", step, r, device=50.0, items=64, dtype="float32")
+        add("adm.res", unet, r, device=2 * adm_least, items=10, dtype="bfloat16", shape=ADM_SHAPE)
+        add("adm.res", unet, r, device=6 * adm_least, items=10, dtype="bfloat16", shape=ADM_SHAPE)
+        add("adm.res", fp32_unet, r, device=1.0, items=10, dtype="float32", shape=ADM_SHAPE)
+        add("adm.attn", unet, r, device=3.0, items=10, dtype="bfloat16", shape=(16, 512, 8))
+        add("adm.attn", fp32_unet, r, device=9.0, items=10, dtype="float32", shape=(16, 512, 8))
         add("k3", unet, r, device=2 * k3_least, items=10, dtype="bfloat16", shape=K3_SHAPE)
         add("k3", unet, r, device=1.0, items=10, dtype="float32", shape=K3_SHAPE)
         add("k2", unet, r, device=4 * k2_least, items=10, dtype="bfloat16", shape=K2_SHAPE)
@@ -241,6 +248,10 @@ EXPECTED = {
     "service_ms.serve": (10.0 + 8.0 + 50.0) / 3,
     "unet_span_ms_per_kitem.register": 120.0,
     "vae_span_ms_per_img.serve": VAE_MS,
+    # the bf16 blocks' ms per 1,000 items of the bf16 unet spans that hold them
+    "adm_res_ms_per_kitem.eval": 1000.0 * 3 * 8 * work.bound(*work_adm.res_work(ADM_SHAPE, 10))[0] / 3000,
+    "adm_attn_ms_per_kitem.eval": 3.0,
+    "adm_res_roofline.eval": 25.0,
 }
 TRACE = {"spans": {}, "profile": {"busy_s": 1.0, "window_s": 1.0}, "window": {}}
 

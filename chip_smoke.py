@@ -40,7 +40,17 @@ it fails at once.
    number of vectors a pixel) and C = 16, shared and per query (the tiled
    kernel's shared instance); C = 3 (the scalar kernel) shared and per
    query; C = 4 over 5x5 latents (an odd pixel count: bf16 takes the
-   scalar kernel).
+   scalar kernel).  The LDM's and the ADM's res-block GroupNorms on the
+   channels-last pair (``fused_resnet.group_norm_film_silu_nhwc``, "GN"):
+   one bf16 forward of the published ADM and of the LDM (B=2) counting 84
+   and 34 of them (``ldm_res.nhwc_norms``), their float32 and grad-mode
+   forwards none, the bf16 forward within twice the plain bf16 path's gap
+   of the float32 one; then each distinct (H, W, C, conditioning) those
+   forwards ran (neither addend nor FiLM, the addend, the addend and the
+   FiLM), and each of ``NHWC_NORM_SHAPES`` with the FiLM and with the
+   addend, at B = 3 and 1,984 (and the smallest at B = 65,600) against
+   ``F.group_norm`` + addend + FiLM + SiLU in float32 at K3's bf16
+   tolerance, bitwise repeatable.
 3. The main path, at the flagship's full width (192-wide PoseUNet with
    dim_mults (1,2,4,8), the default SD-VAE, 256-px images, 32x32x4
    latents) with seeded random weights: PoseEstimators on the 26-template
@@ -70,7 +80,12 @@ it fails at once.
    data sheet; tensor-core and CUDA-core work overlap, so the larger of
    their times); a conv counts only its products by inputs inside the
    image, not by the padding, and K3's float32 route three of them for
-   each (3xTF32; the CUDA-core bound of one is printed beside it).
+   each (3xTF32; the CUDA-core bound of one is printed beside it).  The
+   channels-last GroupNorm pair, with the host and device alone, at each
+   distinct GroupNorm of one ADM and one LDM forward at 1,984 items, beside
+   ATen's chain (addend, GroupNorm, FiLM, SiLU), ``F.group_norm`` alone and
+   the bound (x read and the output written once), and summed over each
+   forward: the ADM's sums are the pair's row of the ``kernels`` line.
 5. One ``torch.profiler`` window each over a bf16 registration (N=26,
    N=341), a bf16 ``estimate`` (B=64) and, after phase 6 (5b), one
    full-protocol eval step:
@@ -228,8 +243,13 @@ and K3 ``bop_fp32`` (phase 12's fp32 route times per U-Net forward at
 version's and ``F.conv2d``'s on the device alone), and for K2 and
 K3 that call's ``refine_recomputes``, their Functions'
 ``backward_max_rel``, the pose gradient's ``unet_pose_grad_rel`` and the
-weight gradients' ``unet_weight_grad_rel`` by dtype) and
-``{"ok": true, ...}``.
+weight gradients' ``unet_weight_grad_rel`` by dtype; the channels-last
+GroupNorm pair's row: its phase-2 ``launches`` per bf16 forward of the
+ADM and the LDM, phase 4's sums over the ADM's forward at 1,984 items
+(``ms``, ``device_ms``, ``plain_ms`` for ATen's chain, ``library_ms``
+for ``F.group_norm`` alone, ``bound_ms``), both models' sums as
+``per_forward``, and ``zoo_launches`` of one eval step each in phase 11
+(b)) and ``{"ok": true, ...}``.
 
 Weight deltas (phase 9 (b)): AdamW's first update is g/(|g|+eps), about
 sign(g), so an element whose gradient is within float32 rounding of
@@ -262,7 +282,8 @@ ROOT = Path(__file__).resolve().parent
 # another order; bfloat16 kernels compute in float32 and round the
 # output once, so they are held against the plain version run in float32
 # on the same bfloat16-valued inputs, within the output's rounding
-TOL = {"float32": {"K1": 1e-5, "K2": 1e-5, "K3": 1e-4}, "bfloat16": {"K1": 1e-5, "K2": 1e-2, "K3": 1e-2}}
+TOL = {"float32": {"K1": 1e-5, "K2": 1e-5, "K3": 1e-4},
+       "bfloat16": {"K1": 1e-5, "K2": 1e-2, "K3": 1e-2, "GN": 1e-2}}
 # the float32 GPU path against the CPU path on one query, same weights
 CPU_SIM_RTOL = 1e-3
 FAST_N, FULL_N, QUERIES, REQUESTS = 26, 341, 8, 3
@@ -328,6 +349,18 @@ VAE_ROUTED, VAE_CUDNN, VAE_BATCH = 22, 6, 64
 # the NHWC GroupNorm + SiLU against nn.GroupNorm's: float32 statistics
 # reduced in another order
 VAE_GN_RTOL = 1e-5
+# the LDM's and the ADM's res-block GroupNorms on the channels-last pair
+# (fused_resnet.group_norm_film_silu_nhwc, "GN" at K3's bf16 tolerance):
+# (H, W, C) at their widths, each with the ADM's FiLM and with the LDM's
+# embedding added before the statistics, at a ragged 3 items (samples split
+# over blocks) and the evaluation sweep's 1,984 (whole samples), and the
+# last past the grid's 65,535 y extent
+NHWC_NORM_SHAPES = ((32, 32, 256), (32, 32, 512), (16, 16, 256), (8, 8, 512), (2, 2, 1024), (1, 1, 1024))
+# the pair's GroupNorms in one bf16 forward: two in each of the ADM's 42
+# res blocks and of the LDM's 17 (none in template_base's U-Net)
+NHWC_NORMS_A_FORWARD = {"vae_guidedDiffusion": 84, "vae_cin_ldm": 34}
+# the pair's row of the kernels line, and its key in phase 11's launches
+NHWC_NORM_ROW = "group_norm_film_silu_nhwc"
 # past the 65,535 a grid's y extent holds: K3's gn_silu and K1 with a bank
 # per query put samples (queries) on that axis and stride beyond it
 BIG_B = 65_600
@@ -769,6 +802,190 @@ def vae_route_checks(torch, F, fr, dev, vae, check):
     return len(convs), len(norms)
 
 
+def nhwc_norm_cond(addend, film) -> str:
+    """The conditioning of a call of the channels-last GroupNorm pair:
+    "plain" (neither), "addend", "film" or "addend+film" (the ADM's second
+    norm: the first conv's bias as the addend, then the FiLM)."""
+    return "+".join(name for name, t in (("addend", addend), ("film", film)) if t is not None) or "plain"
+
+
+def nhwc_norm_inputs(torch, shape, batch, cond, dev, gen):
+    """bf16 inputs of the channels-last GroupNorm pair at ``shape`` (H, W,
+    C): x (B, H, W, C) off-centre, gamma, beta, and the addend (B, C) and
+    the film (B, 2C) as ``cond`` (:func:`nhwc_norm_cond`) names them."""
+    h, w, c = shape
+
+    def draw(*size, scale=1.0, shift=0.0):
+        return (scale * torch.randn(*size, generator=gen, device=dev) + shift).to(torch.bfloat16)
+
+    x = draw(batch, h, w, c, scale=2.0, shift=0.5)
+    gamma, beta = draw(c, scale=0.2, shift=1.0), draw(c, scale=0.2)
+    parts = cond.split("+")
+    addend = draw(batch, c, scale=0.5) if "addend" in parts else None
+    film = draw(batch, 2 * c, scale=0.5) if "film" in parts else None
+    return x, gamma, beta, addend, film
+
+
+def nhwc_norm_plain(torch, F, x, gamma, beta, addend, film, groups=32, eps=1e-5):
+    """The pair's function in float32 by ``F.group_norm``:
+    SiLU(GroupNorm(x + addend)·(1 + scale) + shift), NHWC."""
+    v = x.float().permute(0, 3, 1, 2)
+    if addend is not None:
+        v = v + addend.float()[:, :, None, None]
+    y = F.group_norm(v, groups, gamma.float(), beta.float(), eps)
+    if film is not None:
+        scale, shift = film.float()[:, :, None, None].chunk(2, dim=1)
+        y = y * (1 + scale) + shift
+    return F.silu(y).permute(0, 2, 3, 1)
+
+
+def nhwc_norm_checks(torch, F, fr, dev, check, seen) -> int:
+    """Phase 2: the channels-last GroupNorm pair against
+    :func:`nhwc_norm_plain` and twice for a bitwise repeat, at B = 3 and
+    1,984, at each distinct (H, W, C, conditioning) of the ADM's and the
+    LDM's forward (``seen``, from :func:`nhwc_norm_counts`) and at each of
+    ``NHWC_NORM_SHAPES`` with the FiLM and with the addend; and the
+    smallest of those at B = 65,600 with both; returns the checks made."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    calls = [call for model in seen.values() for call in model]
+    calls += [(*shape, cond) for shape in NHWC_NORM_SHAPES for cond in ("film", "addend")]
+    distinct = sorted(set(calls), key=calls.index)
+    cases = [(call, batch) for batch in (3, EVAL_ITEMS[0]) for call in distinct]
+    cases.append(((*NHWC_NORM_SHAPES[-1], "addend+film"), BIG_B))
+    for (h, w, c, cond), batch in cases:
+        args = nhwc_norm_inputs(torch, (h, w, c), batch, cond, dev, gen)
+        x, gamma, beta, addend, film = args
+
+        def pair():
+            return fr.group_norm_film_silu_nhwc(x, gamma, beta, 32, 1e-5, addend=addend, film=film)
+
+        got = pair()
+        span, splits = fr.norm_plan(batch, h * w, c, fr._build.sm_count(dev))
+        check("GN", f"B={batch} {h}x{w} C={c} {cond} span {span} x{splits}", got,
+              nhwc_norm_plain(torch, F, *args), "bfloat16")
+        if not torch.equal(got, pair()):
+            raise RuntimeError(f"the channels-last GroupNorm B={batch} {h}x{w} C={c} {cond}: two launches differ")
+        del args, x, addend, film, got
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return len(cases)
+
+
+def nhwc_norm_counts(torch, fr, dev) -> dict:
+    """Phase 2: one bf16 forward (B=2, no gradient) of the published ADM
+    and of the LDM, seeded weights with the zero layers noised, runs
+    ``NHWC_NORMS_A_FORWARD`` GroupNorms on the channels-last pair
+    (``ldm_res.nhwc_norms``); their float32 forward and a bf16 one in grad
+    mode (the pose asking a gradient; the LDM's first blocks, before the
+    pose enters, too) none.  The bf16 forward is held
+    against the float32 one beside the plain bf16 path (the route turned
+    off), within twice the plain path's gap.  Returns each model's
+    GroupNorms on the pair, (H, W, C, :func:`nhwc_norm_cond`) in call
+    order."""
+    from nope_tpu_torch.models.adm_unet import ADMPoseUNet
+    from nope_tpu_torch.models.ldm_unet import LDMPoseUNet
+
+    norm, route, seen, batch = fr.group_norm_film_silu_nhwc, fr.channels_last_norms_route, {}, 2
+    for name, cls in (("vae_guidedDiffusion", ADMPoseUNet), ("vae_cin_ldm", LDMPoseUNet)):
+        torch.manual_seed(11)
+        with torch.device(dev):
+            net = cls()
+        noise_zero_layers(torch, net, 12)
+        half = copy.deepcopy(net).to(torch.bfloat16).requires_grad_(False)
+        gen = torch.Generator(device=dev).manual_seed(13)
+        x = torch.randn(batch, 4, LATENT, LATENT, generator=gen, device=dev)
+        pose = torch.randn(batch, net.rot_representation_dim, generator=gen, device=dev)
+        xh, ph = x.to(torch.bfloat16), pose.to(torch.bfloat16)
+        calls = seen[name] = []
+
+        def spy(t, gamma, beta, groups, eps, addend=None, film=None):
+            calls.append((*t.shape[1:], nhwc_norm_cond(addend, film)))
+            return norm(t, gamma, beta, groups, eps, addend=addend, film=film)
+
+        fr.group_norm_film_silu_nhwc = spy
+        try:
+            with torch.no_grad():
+                before = counters_now()
+                got = half(xh, ph)
+                n_half = counted("ldm_res.nhwc_norms", before)
+                before = counters_now()
+                want = net(x, pose)
+                n_fp32 = counted("ldm_res.nhwc_norms", before)
+                fr.channels_last_norms_route = lambda *args: False
+                plain = half(xh, ph)
+                fr.channels_last_norms_route = route
+            before = counters_now()
+            half(xh, ph.clone().requires_grad_())
+            n_grad = counted("ldm_res.nhwc_norms", before)
+        finally:
+            fr.group_norm_film_silu_nhwc, fr.channels_last_norms_route = norm, route
+        _, rel = rel_err(got, want)
+        _, rel_plain = rel_err(plain, want)
+        print(f"  {name} a bf16 forward (B={batch}): {n_half} GroupNorms on the channels-last pair (want "
+              f"{NHWC_NORMS_A_FORWARD[name]}), float32 {n_fp32}, bf16 in grad mode {n_grad}; against the float32 "
+              f"forward rel {rel:.3e}, the plain bf16 path {rel_plain:.3e}")
+        if (n_half, n_fp32, n_grad, len(calls)) != (NHWC_NORMS_A_FORWARD[name], 0, 0, n_half):
+            raise RuntimeError(f"{name}: the res blocks' GroupNorms took other routes")
+        if not rel <= 2 * rel_plain:
+            raise RuntimeError(f"{name}: the channels-last bf16 forward strays from the float32 one ({rel:.3e}) "
+                               f"more than twice the plain path ({rel_plain:.3e})")
+        del net, half, got, want, plain
+        torch.cuda.empty_cache()
+    return seen
+
+
+def nhwc_norm_timings(torch, F, fr, dev, seen) -> dict:
+    """Phase 4: the channels-last GroupNorm pair at each distinct GroupNorm
+    of one ADM and one LDM forward (``seen``, from :func:`nhwc_norm_counts`)
+    at the evaluation sweep's 1,984 items, with the host in the loop and on
+    the device alone, beside ATen's chain the plain path runs there
+    (``F.group_norm`` of the channels-last tensor, the addend and the FiLM
+    as the call has them, SiLU, in bf16), ``F.group_norm`` alone, the HBM
+    bound (x read once and out written once: 4 bytes an element over 3.35
+    TB/s) and the pair's share of it; then each summed over a forward,
+    returned by model ("ms", "device_ms", "plain_ms", "plain_device_ms",
+    "library_ms", "bound_ms")."""
+    items = EVAL_ITEMS[0]
+    gen = torch.Generator(device=dev).manual_seed(8)
+    keys = ("ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms", "bound_ms")
+    out = {}
+    for name, calls in seen.items():
+        tot = out[name] = dict.fromkeys(keys, 0.0)
+        for key in sorted(set(calls), key=calls.index):
+            (h, w, c, cond), n = key, calls.count(key)
+            x, gamma, beta, addend, film = nhwc_norm_inputs(torch, (h, w, c), items, cond, dev, gen)
+            xc = x.permute(0, 3, 1, 2)
+
+            def pair():
+                fr.group_norm_film_silu_nhwc(x, gamma, beta, 32, 1e-5, addend=addend, film=film)
+
+            def chain():
+                v = xc if addend is None else xc + addend[:, :, None, None]
+                y = F.group_norm(v, 32, gamma, beta, 1e-5)
+                if film is not None:
+                    scale, shift = film[:, :, None, None].chunk(2, dim=1)
+                    y = y * (1 + scale) + shift
+                F.silu(y)
+
+            t = dict(zip(keys, (cuda_ms(torch, pair, 20), device_ms(torch, pair), cuda_ms(torch, chain, 10),
+                                device_ms(torch, chain, 10),
+                                cuda_ms(torch, lambda: F.group_norm(xc, 32, gamma, beta, 1e-5), 10),
+                                4 * x.numel() / HBM_BPS * 1e3)))
+            for k in keys:
+                tot[k] += n * t[k]
+            print(f"  GN {name} B={items} {h:>2}x{w:<2} C={c:<4} {cond:<11} x{n:<2} pair {t['ms']:7.3f} ms (device "
+                  f"alone {t['device_ms']:.3f} ms; bound {t['bound_ms']:.3f} ms, "
+                  f"{100 * t['bound_ms'] / t['device_ms']:5.1f}%) ATen's chain {t['plain_ms']:7.3f} ms (device alone "
+                  f"{t['plain_device_ms']:.3f} ms) F.group_norm {t['library_ms']:7.3f} ms")
+            del x, xc, gamma, beta, addend, film
+        torch.cuda.empty_cache()
+        print(f"  GN {name} the {len(calls)} GroupNorms of one forward at B={items}: pair {tot['ms']:.3f} ms "
+              f"(device alone {tot['device_ms']:.3f} ms; bound {tot['bound_ms']:.3f} ms, "
+              f"{100 * tot['bound_ms'] / tot['device_ms']:.1f}%), ATen's chain {tot['plain_ms']:.3f} ms (device "
+              f"alone {tot['plain_device_ms']:.3f} ms), F.group_norm alone {tot['library_ms']:.3f} ms")
+    return out
+
+
 def evaluation_phase(torch, dev, task32, variant, grids, counters, unet_cpu, vae_cpu, rng):
     """Phase 6: the evaluation program and the gallery side of serving.
     Returns what phases 4 and 5 time: the launch counts of (a), the bf16
@@ -972,17 +1189,20 @@ def evaluation_phase(torch, dev, task32, variant, grids, counters, unet_cpu, vae
 
 @contextlib.contextmanager
 def plain_ops():
-    """Every op of the U-Net on its plain version: no kernel, plain autograd."""
+    """Every op of the U-Net on its plain version: no kernel (the LDM's and
+    the ADM's res blocks off the channels-last GroupNorm pair), plain
+    autograd."""
     from nope_tpu_torch.models import blocks
     from nope_tpu_torch.ops import fused_resnet as fr
     from nope_tpu_torch.ops import linear_attention as la
 
-    saved = blocks.fused_resnet_block, blocks.linear_attention
+    saved = blocks.fused_resnet_block, blocks.linear_attention, fr.channels_last_norms_route
     blocks.fused_resnet_block, blocks.linear_attention = fr.resnet_block_plain, la.linear_attention_inner_plain
+    fr.channels_last_norms_route = lambda *args: False
     try:
         yield
     finally:
-        blocks.fused_resnet_block, blocks.linear_attention = saved
+        blocks.fused_resnet_block, blocks.linear_attention, fr.channels_last_norms_route = saved
 
 
 @contextlib.contextmanager
@@ -2533,9 +2753,10 @@ def zoo_plain_check(torch, name, task32, half, batch, chunk, est26, q64, res):
     """Phase 11 (b), after its launches are read: K1 at this configuration's
     own shapes (estimate and the eval step) against its plain version on the
     same inputs, at phase 2's K1 limit; and the whole bf16 eval step against
-    the same step with all three ops on their plain versions (K2 and K3 in
-    template_base), similarity within BF16_SIM_RTOL and the top-1 equal on
-    every decided row."""
+    the same step with all its ops on their plain versions (K2 and K3 in
+    template_base, the channels-last GroupNorm pair in the LDM and the
+    ADM), similarity within BF16_SIM_RTOL and the top-1 equal on every
+    decided row."""
     worst = {}
     with k1_held(worst):
         if est26 is not None:
@@ -2630,10 +2851,23 @@ def model_zoo_phase(torch, dev, smi, counters):
         batch = on_device(torch, eval_batch(torch, grid, b, 112 + i), dev)
         half = task32.half()
         t_eval = median_ms(torch, lambda: task32.eval_geodesic_step(batch, chunk_size=chunk, infer_task=half))
-        res = task32.eval_geodesic_step(batch, chunk_size=chunk, infer_task=half)
-        torch.cuda.synchronize()
+        forwards = []  # the bf16 U-Net forwards of this eval step, each running NHWC_NORMS_A_FORWARD GroupNorms
+        hook = half.unet.register_forward_hook(lambda *args: forwards.append(1))
+        before = counters_now()
+        try:
+            res = task32.eval_geodesic_step(batch, chunk_size=chunk, infer_task=half)
+            torch.cuda.synchronize()
+        finally:
+            hook.remove()
+        nhwc = counted("ldm_res.nhwc_norms", before)
         peak = torch.cuda.max_memory_allocated() / 2**30
         launches = out[name] = {fn.__name__: fn.launches for fn in counters}
+        launches[NHWC_NORM_ROW] = nhwc
+        want = len(forwards) * NHWC_NORMS_A_FORWARD.get(name, 0)
+        print(f"    (b) one eval step: {len(forwards)} bf16 U-Net forwards, {nhwc} GroupNorms on the channels-last "
+              f"pair (ldm_res.nhwc_norms; want {want}) {'ok' if nhwc == want and forwards else 'FAIL'}")
+        if nhwc != want or not forwards:
+            raise RuntimeError(f"{name}: the eval step's res blocks took other GroupNorm routes")
         sim_ = res["similarity"]
         ok = (sim_.shape == (b, FAST_N) and torch.isfinite(sim_).all().item() and torch.isfinite(res["loss"]).item()
               and int(res["nearest_idx"].max()) < FAST_N and launches["reference_similarity"] > 0
@@ -3409,7 +3643,7 @@ def main() -> int:
 
     # -- phase 2: kernels against their plain versions on the card ------------
     gen = torch.Generator().manual_seed(1)
-    worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
+    worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "GN": 0.0}
 
     def check(kernel, label, got, want, dtype_name):
         err, rel = rel_err(got, want)
@@ -3478,6 +3712,8 @@ def main() -> int:
             raise RuntimeError(f"the 3xTF32 conv {side}x{side} {cin}->{co} {ks}x{ks}: two launches differ")
     torch.cuda.synchronize()
     vae_convs, vae_norms = vae_route_checks(torch, F, fr, dev, task32.vae, check)
+    gn_seen = nhwc_norm_counts(torch, fr, dev)
+    gn_checks = nhwc_norm_checks(torch, F, fr, dev, check, gn_seen)
     # the evaluation program's U-Net batches, bf16: inputs up to 2.6 GB,
     # drawn on the card; K3 at every block shape (its tiles hold whole image
     # rows or whole samples, and a multi-sample tile may end past B)
@@ -3548,6 +3784,7 @@ def main() -> int:
           f"block ran the 3xTF32 route, two launches bitwise equal at all "
           f"{(len(k3_shapes) + len(K3_GROUP_SHAPES)) * len(K3_BATCHES)}, and the conv alone at {len(convs)} shapes "
           f"and at the float32 VAE's {vae_convs} (B={VAE_BATCH}, with its {vae_norms} NHWC GroupNorms)")
+    print(f"  GN (the channels-last GroupNorm pair) bf16: two launches bitwise equal at all {gn_checks} shapes")
     print(f"  K1 and K2, both dtypes: two launches bitwise equal at all {len(K1_SHAPES) + len(K1_CHANNELS)} and "
           f"{len(K2_ITEMS) * len(k2_tokens)} shapes; K2 bf16 also at {len(CHECK_ITEMS) * len(k2_tokens)}")
 
@@ -3733,6 +3970,7 @@ def main() -> int:
     if kernel_ms["K3"][0] >= kernel_ms["K3"][1]:
         print(f"  note: K3 bf16 per forward {kernel_ms['K3'][0]:.3f} ms is not below its plain version "
               f"{kernel_ms['K3'][1]:.3f} ms")
+    gn_ms = nhwc_norm_timings(torch, F, fr, dev, gn_seen)
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # -- phase 5: where the time goes ------------------------------------------
@@ -3828,6 +4066,12 @@ def main() -> int:
          **({"refine_recomputes": rf["recomputes"][k], "backward_max_rel": rf["backward"][k],
              "unet_pose_grad_rel": rf["unet_grad"]} if k in rf["backward"] else {})}
         for name, k, src, rep, fn in table
+    ] + [
+        {"name": NHWC_NORM_ROW, "route": "cuda", "source": "nope_tpu_torch/csrc/fused_resnet.cu",
+         "replaces": "XLA's GroupNorm, FiLM and SiLU in nope_tpu/models/ldm_unet.py:32 (no kernel)",
+         "launches": {name: len(calls) for name, calls in gn_seen.items()}, "max_abs_err": worst["GN"],
+         **gn_ms["vae_guidedDiffusion"], "bound_by": "bytes", "per_forward": gn_ms,
+         "zoo_launches": {name: zoo[name][NHWC_NORM_ROW] for name in ZOO_EVAL}}
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

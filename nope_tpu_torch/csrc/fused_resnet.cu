@@ -349,6 +349,211 @@ gn_silu_kernel(const float* __restrict__ h, const float* __restrict__ mean,
 }
 
 // ---------------------------------------------------------------------------
+// GroupNorm + SiLU of channels-last bf16 activations, with an addend before
+// the statistics or a FiLM after them: the res blocks of the LDM and the ADM
+// (models/ldm_unet.py LDMResBlock)
+// ---------------------------------------------------------------------------
+//
+// Replaces no TPU kernel: JAX computes these blocks as XLA ops.  Added
+// because in PyTorch nn.GroupNorm hands a channels-last tensor back NCHW,
+// so each conv after it paid cuDNN's two layout transposes, and the norm,
+// the FiLM and the SiLU were a bf16 pass each (PERF.md).  What bounds the
+// pair is bytes: the statistics read x once, the apply kernel reads it once
+// more and writes the output, 6 bytes an element.
+//
+//   gn_nhwc_stats  blocks of (C / 8, ny) threads, ny = 256 / (C / 8): a
+//                  thread loads 8 channels (16 bytes) of kNormRows pixels
+//                  a step, so each warp reads whole pixel rows.  A step's
+//                  values stay in registers for two passes (its group
+//                  means, then the squared deviations from them); lane g
+//                  of warp 0 sums group g's threads in a fixed order and
+//                  merges the step into the group's (count, mean, M2) by
+//                  Chan's formula.  A block takes `span` pixels of one
+//                  sample and writes a partial a group; a sample splits
+//                  into spans only where the batch alone would not fill
+//                  the card.
+//   gn_nhwc_apply  the same blocks over the same spans: lane g merges the
+//                  sample's partials in span order; each thread folds the
+//                  affine, the addend e and the FiLM (scale, shift) into
+//                  a, d for its 8 channels,
+//                      a = rstd·gamma·(1 + scale)
+//                      d = (beta + (e - mean)·rstd·gamma)·(1 + scale) + shift,
+//                  and streams out = SiLU(x·a + d) in bf16, 16 bytes a load
+//                  and a store.
+// No atomics: every sum is in a fixed order, so a launch repeats bitwise.
+
+constexpr int kNormVec = 8;         // bf16 channels a thread loads at once (16 bytes)
+constexpr int kNormRows = 8;        // pixels a thread holds per step
+constexpr int kNormThreads = 256;   // C / 8 threads across a pixel, ny pixels deep
+constexpr int kNormMaxGroups = 32;  // the groups warp 0's lanes merge
+
+__device__ __forceinline__ void unpack8(const uint4& raw, float (&v)[kNormVec]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float (&v)[kNormVec]) {
+  uint4 raw;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  return raw;
+}
+
+// Sum of red over group g's threads (vg vectors of each of ny pixel rows),
+// in a fixed order
+__device__ __forceinline__ float group_sum(const float* red, int g, int vg, int V, int ny) {
+  float t = 0.f;
+  for (int y = 0; y < ny; ++y)
+    for (int q = g * vg; q < (g + 1) * vg; ++q) t = __fadd_rn(t, red[y * V + q]);
+  return t;
+}
+
+// part[b, k, g] = (count, mean, M2) of group g of (x + addend[b]) over
+// pixels [k·span, (k + 1)·span) of sample b
+__global__ void __launch_bounds__(kNormThreads)
+gn_nhwc_stats_kernel(const __nv_bfloat16* __restrict__ x, const void* __restrict__ addend, int adt,
+                     float* __restrict__ part, int B, int HW, int C, int G, int span, int splits) {
+  __shared__ float red[kNormThreads];
+  __shared__ float gmean[kNormMaxGroups];
+  const int V = blockDim.x, ny = blockDim.y, ty = threadIdx.y, tid = ty * V + threadIdx.x;
+  const int c = kNormVec * threadIdx.x, vg = C / (G * kNormVec), g = threadIdx.x / vg;
+  const int p0 = blockIdx.x * span, p1 = min(HW, p0 + span), rows = ny * kNormRows;
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {
+    float e[kNormVec];
+#pragma unroll
+    for (int j = 0; j < kNormVec; ++j)
+      e[j] = addend != nullptr ? load_f(addend, static_cast<size_t>(b) * C + c + j, adt) : 0.f;
+    float n = 0.f, mu = 0.f, m2 = 0.f;  // lane g of warp 0: group g so far
+    for (int t0 = p0; t0 < p1; t0 += rows) {
+      const int valid = min(rows, p1 - t0);
+      uint4 raw[kNormRows];
+#pragma unroll
+      for (int r = 0; r < kNormRows; ++r) {
+        const int p = r * ny + ty;
+        raw[r] = p < valid ? *reinterpret_cast<const uint4*>(x + (static_cast<size_t>(b) * HW + t0 + p) * C + c)
+                           : make_uint4(0u, 0u, 0u, 0u);
+      }
+      float s[kNormVec] = {};
+#pragma unroll
+      for (int r = 0; r < kNormRows; ++r) {
+        if (r * ny + ty >= valid) continue;
+        float v[kNormVec];
+        unpack8(raw[r], v);
+#pragma unroll
+        for (int j = 0; j < kNormVec; ++j) s[j] = __fadd_rn(s[j], __fadd_rn(v[j], e[j]));
+      }
+      float t = 0.f;
+#pragma unroll
+      for (int j = 0; j < kNormVec; ++j) t = __fadd_rn(t, s[j]);
+      red[tid] = t;
+      __syncthreads();
+      const float cnt = static_cast<float>(valid) * static_cast<float>(vg * kNormVec);  // a group's elements
+      if (tid < G) gmean[tid] = __fdiv_rn(group_sum(red, tid, vg, V, ny), cnt);
+      __syncthreads();
+      const float m = gmean[g];
+      float q[kNormVec] = {};
+#pragma unroll
+      for (int r = 0; r < kNormRows; ++r) {
+        if (r * ny + ty >= valid) continue;
+        float v[kNormVec];
+        unpack8(raw[r], v);
+#pragma unroll
+        for (int j = 0; j < kNormVec; ++j) {
+          const float d = __fsub_rn(__fadd_rn(v[j], e[j]), m);
+          q[j] = __fmaf_rn(d, d, q[j]);
+        }
+      }
+      t = 0.f;
+#pragma unroll
+      for (int j = 0; j < kNormVec; ++j) t = __fadd_rn(t, q[j]);
+      red[tid] = t;
+      __syncthreads();
+      if (tid < G) chan_merge(n, mu, m2, cnt, gmean[tid], group_sum(red, tid, vg, V, ny));
+      __syncthreads();  // red and gmean are rewritten by the next step
+    }
+    if (tid < G) {
+      float* o = part + ((static_cast<size_t>(b) * splits + blockIdx.x) * G + tid) * 3;
+      o[0] = n;
+      o[1] = mu;
+      o[2] = m2;
+    }
+  }
+}
+
+// out = SiLU(x·a[b, c] + d[b, c]) over the pixels of the stats kernel's
+// spans; gamma, beta (C) of dtype pdt; addend (B, C) of dtype adt and film
+// (B, 2C) = [scale | shift] of dtype fdt, each or both null
+__global__ void __launch_bounds__(kNormThreads)
+gn_nhwc_apply_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ part,
+                     const void* __restrict__ gamma, const void* __restrict__ beta, int pdt,
+                     const void* __restrict__ addend, int adt, const void* __restrict__ film, int fdt,
+                     __nv_bfloat16* __restrict__ out, int B, int HW, int C, int G, int span, int splits,
+                     float eps) {
+  __shared__ float stat[2 * kNormMaxGroups];
+  const int V = blockDim.x, ny = blockDim.y, ty = threadIdx.y, tid = ty * V + threadIdx.x;
+  const int c = kNormVec * threadIdx.x, g = threadIdx.x / (C / (G * kNormVec));
+  const int p0 = blockIdx.x * span, p1 = min(HW, p0 + span), rows = ny * kNormRows;
+  float gam[kNormVec], bet[kNormVec];
+#pragma unroll
+  for (int j = 0; j < kNormVec; ++j) {
+    gam[j] = load_f(gamma, c + j, pdt);
+    bet[j] = load_f(beta, c + j, pdt);
+  }
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {
+    if (tid < G) {
+      float n = 0.f, mu = 0.f, m2 = 0.f;
+      const float* p = part + (static_cast<size_t>(b) * splits * G + tid) * 3;
+      for (int k = 0; k < splits; ++k, p += 3 * G) chan_merge(n, mu, m2, p[0], p[1], p[2]);
+      stat[2 * tid] = mu;
+      stat[2 * tid + 1] = norm_rstd(m2, n, eps);
+    }
+    __syncthreads();
+    const float mu = stat[2 * g], rs = stat[2 * g + 1];
+    float a[kNormVec], d[kNormVec];
+#pragma unroll
+    for (int j = 0; j < kNormVec; ++j) {
+      const size_t bc = static_cast<size_t>(b) * C + c + j;
+      const float sc = __fmul_rn(rs, gam[j]);
+      const float e = addend != nullptr ? load_f(addend, bc, adt) : 0.f;
+      a[j] = sc;
+      d[j] = __fmaf_rn(__fsub_rn(e, mu), sc, bet[j]);
+      if (film != nullptr) {
+        const size_t f = static_cast<size_t>(b) * 2 * C + c + j;
+        const float s1 = __fadd_rn(1.f, load_f(film, f, fdt));
+        a[j] = __fmul_rn(sc, s1);
+        d[j] = __fmaf_rn(d[j], s1, load_f(film, f + C, fdt));
+      }
+    }
+    __syncthreads();  // stat is rewritten for the next sample
+    for (int t0 = p0; t0 < p1; t0 += rows) {
+      uint4 raw[kNormRows];
+#pragma unroll
+      for (int r = 0; r < kNormRows; ++r) {
+        const int p = t0 + r * ny + ty;
+        raw[r] = p < p1 ? *reinterpret_cast<const uint4*>(x + (static_cast<size_t>(b) * HW + p) * C + c)
+                        : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int r = 0; r < kNormRows; ++r) {
+        const int p = t0 + r * ny + ty;
+        if (p >= p1) continue;
+        float v[kNormVec];
+        unpack8(raw[r], v);
+#pragma unroll
+        for (int j = 0; j < kNormVec; ++j) v[j] = silu(__fmaf_rn(v[j], a[j], d[j]));
+        *reinterpret_cast<uint4*>(out + (static_cast<size_t>(b) * HW + p) * C + c) = pack8(v);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // the tensor-core conv: bf16 operands, or float32 as three tf32 products
 // ---------------------------------------------------------------------------
 
@@ -1738,6 +1943,45 @@ NOPE_API int nope_gn_silu(const float* h, const float* mean, const float* scale,
   const dim3 grid((HW + rows - 1) / rows, grid_y);
   gn_silu_kernel<<<grid, dim3(tx, ny), 0, static_cast<cudaStream_t>(stream)>>>(
       h, mean, scale, beta, pdt, emb, edt, res, rdt, out, odt, B, HW, C, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The channels-last GroupNorm pair's blocks: (C / 8, 256 / (C / 8)); false
+// where the kernels do not take the shape (C % (8 G), C > 2048, G > 32,
+// spans that do not cover HW exactly once, grid_y out of 1 .. 65,535)
+static bool norm_nhwc_block(int HW, int C, int G, int span, int splits, int grid_y, dim3* block) {
+  if (G < 1 || G > kNormMaxGroups || C % (G * kNormVec) || C / kNormVec > kNormThreads || span < 1 ||
+      splits < 1 || static_cast<long long>(span) * splits < HW || static_cast<long long>(span) * (splits - 1) >= HW ||
+      grid_y < 1 || grid_y > 65535)
+    return false;
+  const int V = C / kNormVec;
+  *block = dim3(V, kNormThreads / V);
+  return true;
+}
+
+// x: (B, HW, C) bf16, channels-last; addend: (B, C) of dtype adt, or null;
+// part: (B, splits, G, 3) float32, (count, mean, M2) of each span of `span`
+// pixels.  grid_y blocks share the B samples along the grid's y axis.
+NOPE_API int nope_gn_nhwc_stats(const void* x, const void* addend, int adt, float* part, int B, int HW, int C,
+                                int G, int span, int splits, int grid_y, void* stream) {
+  dim3 block;
+  if (!norm_nhwc_block(HW, C, G, span, splits, grid_y, &block)) return static_cast<int>(cudaErrorInvalidValue);
+  gn_nhwc_stats_kernel<<<dim3(splits, grid_y), block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), addend, adt, part, B, HW, C, G, span, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out (B, HW, C) bf16 = SiLU(x·a + d) from nope_gn_nhwc_stats' partials (the
+// same span, splits and addend); gamma, beta of dtype pdt; film (B, 2C) =
+// [scale | shift] of dtype fdt, or null
+NOPE_API int nope_gn_nhwc_apply(const void* x, const float* part, const void* gamma, const void* beta, int pdt,
+                                const void* addend, int adt, const void* film, int fdt, void* out, int B, int HW,
+                                int C, int G, int span, int splits, int grid_y, float eps, void* stream) {
+  dim3 block;
+  if (!norm_nhwc_block(HW, C, G, span, splits, grid_y, &block)) return static_cast<int>(cudaErrorInvalidValue);
+  gn_nhwc_apply_kernel<<<dim3(splits, grid_y), block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), part, gamma, beta, pdt, addend, adt, film, fdt,
+      static_cast<__nv_bfloat16*>(out), B, HW, C, G, span, splits, eps);
   return static_cast<int>(cudaGetLastError());
 }
 

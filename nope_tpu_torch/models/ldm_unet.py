@@ -11,7 +11,14 @@ into it too (``pose_mlp_timesteps``).  The reference's unused
 ``time_embed`` MLP is not built, as the port tool drops it.
 
 Everything here is plain PyTorch (cuDNN convs, GroupNorm, matmul
-attention): JAX computes these blocks outside any Pallas kernel.  The
+attention), as JAX computes these blocks outside any Pallas kernel, but
+for the res blocks' GroupNorms in bf16 on the card outside grad mode
+(the evaluation sweep, serving): there the activations stay channels-last
+through the hand-written GroupNorm + SiLU pair
+(``fused_resnet.group_norm_film_silu_nhwc``, the embedding or the FiLM
+folded in), so cuDNN's convs read and write NHWC with no layout
+transposes; the counter ``ldm_res.nhwc_norms`` (``utils.profiling``)
+counts those GroupNorms (two a block).  The
 attention is written as JAX writes it (scores, softmax, product), so a
 self-attention over 32x32 latents holds heads x 1024² scores per item:
 stream large template sweeps in chunks (``retrieve_streaming``).
@@ -31,7 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from nope_tpu_torch.models.blocks import PoseMLP, zero_module
+from nope_tpu_torch.models.blocks import PoseMLP, nchw, nhwc, zero_module
+from nope_tpu_torch.ops import fused_resnet as fr
 
 
 class LDMResBlock(nn.Module):
@@ -60,6 +68,8 @@ class LDMResBlock(nn.Module):
         return t
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        if self._channels_last_routes(x, emb):
+            return self._forward_channels_last(x, emb)
         h = self.in_layers[1](self.in_layers[0](x))
         if self.up or self.down:
             h, x = self._resample(h), self._resample(x)
@@ -72,6 +82,45 @@ class LDMResBlock(nn.Module):
         else:
             h = rest(norm(h + emb_out))
         return self.skip_connection(x) + h
+
+    def _channels_last_routes(self, x: torch.Tensor, emb: torch.Tensor) -> bool:
+        """Whether :meth:`forward` takes :meth:`_forward_channels_last`
+        (``fused_resnet.channels_last_norms_route``); in grad mode never, so
+        refinement and training keep the plain ops and their gradients."""
+        norms = (self.in_layers[0], self.out_layers[0])
+        return fr.channels_last_norms_route(x.dtype, x.device.type, torch.is_grad_enabled(),
+                                            x.is_contiguous(memory_format=torch.channels_last),
+                                            tuple(n.num_channels for n in norms), norms[0].num_groups)
+
+    def _forward_channels_last(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        """:meth:`forward` of a channels-last x, every activation kept
+        channels-last: each GroupNorm with its SiLU, and the embedding or
+        the FiLM, by ``fused_resnet.group_norm_film_silu_nhwc``, the first
+        conv's bias added there with the embedding (so no pass of its own);
+        the convs on channels-last operands; the skip added into the second
+        conv's output in place (no gradient flows here)."""
+        norm1, norm2, conv1 = self.in_layers[0], self.out_layers[0], self.in_layers[2]
+        h = nchw(fr.group_norm_film_silu_nhwc(nhwc(x), norm1.weight, norm1.bias, norm1.num_groups, norm1.eps))
+        if self.up or self.down:
+            h, x = self._resample(h), self._resample(x)
+        h = _conv_channels_last(conv1, h, bias=False)
+        emb_out = self.emb_layers(emb)
+        if self.use_scale_shift_norm:
+            cond = {"addend": conv1.bias.float().expand(len(emb_out), -1).contiguous(), "film": emb_out}
+        else:
+            cond = {"addend": emb_out.float() + conv1.bias.float()}
+        h = nchw(fr.group_norm_film_silu_nhwc(nhwc(h), norm2.weight, norm2.bias, norm2.num_groups, norm2.eps, **cond))
+        h = _conv_channels_last(self.out_layers[3], h)
+        skip = x if isinstance(self.skip_connection, nn.Identity) else _conv_channels_last(self.skip_connection, x)
+        return h.add_(skip)
+
+
+def _conv_channels_last(conv: nn.Conv2d, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
+    """``conv(x)`` (without its bias where ``bias`` is False) with its
+    weight held channels-last once (``fused_resnet.packed_weight``), where
+    x is channels-last."""
+    return F.conv2d(x, fr.packed_weight(conv.weight, "channels_last"), conv.bias if bias else None, conv.stride,
+                    conv.padding, conv.dilation, conv.groups)
 
 
 class LDMCrossAttention(nn.Module):
@@ -162,7 +211,7 @@ class LDMSpatialTransformer(nn.Module):
         for block in self.transformer_blocks:
             t = block(t, context)
         t = t.reshape(b, h, w, -1).permute(0, 3, 1, 2)
-        return self.proj_out(t) + x
+        return x + self.proj_out(t)  # x first: the sum keeps x's layout (channels-last) for the res blocks
 
 
 class LDMDownsample(nn.Module):

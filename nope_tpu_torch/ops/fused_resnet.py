@@ -33,6 +33,11 @@ The 3xTF32 conv alone (:func:`conv_tf32x3`, in N tiles of
 :func:`n_tile` columns) also runs the float32 SD-VAE's convs where
 :func:`tf32x3_routes` says, with :func:`group_norm_silu_nhwc` between
 them (``models/vae.py``).
+
+The LDM's and the ADM's bf16 res blocks (``models/ldm_unet.py``) keep
+their activations channels-last through :func:`group_norm_film_silu_nhwc`,
+GroupNorm + SiLU with the embedding or the FiLM folded in, where
+:func:`channels_last_norms_route` says.
 """
 
 from __future__ import annotations
@@ -146,7 +151,7 @@ def conv_tf32x3_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> t
 
 
 def packed_weight(w: torch.Tensor, layout: str) -> torch.Tensor:
-    """Conv weight ``w`` (Co, Cin, kh, kw) in the layout a K3 kernel reads:
+    """Conv weight ``w`` (Co, Cin, kh, kw) in the layout a conv kernel reads:
 
     - ``"co_k"``: (Co, kh·kw·Cin), K ordered (tap, ci): the bf16
       tensor-core conv's B operand, K-major as ``wgmma`` reads it
@@ -154,7 +159,10 @@ def packed_weight(w: torch.Tensor, layout: str) -> torch.Tensor:
     - ``"co_k_tf32x3"``: float32 (2, Co, kh·kw·Cin), the "co_k" order
       split by :func:`tf32_split` into a hi and a lo plane, the 3xTF32
       conv's B operand;
-    - ``"k_co"``: (kh·kw·Cin, Co), the CUDA-core conv's operand.
+    - ``"k_co"``: (kh·kw·Cin, Co), the CUDA-core conv's operand;
+    - ``"channels_last"``: (Co, Cin, kh, kw) in channels-last memory, the
+      filter cuDNN's NHWC conv reads: a conv of a channels-last activation
+      (``models/ldm_unet.py``) then copies no weight per call.
 
     Made once per parameter and held, while the parameter lives, in a
     table keyed on the parameter object and checked against its storage,
@@ -171,7 +179,9 @@ def packed_weight(w: torch.Tensor, layout: str) -> torch.Tensor:
         return packs[layout]
     co, ci, kh, kw = w.shape
     flat = w.detach().permute(0, 2, 3, 1).reshape(co, kh * kw * ci)
-    if layout == "co_k":
+    if layout == "channels_last":
+        packed = flat.view(co, kh, kw, ci).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    elif layout == "co_k":
         packed = flat.contiguous()
     elif layout == "co_k_tf32x3":
         packed = torch.stack(tf32_split(flat))
@@ -644,6 +654,105 @@ def group_norm_silu_nhwc(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tenso
                       beta.data_ptr(), _build.DTYPE_CODES[beta.dtype], None, 0, None, 0, out.data_ptr(),
                       _build.DTYPE_CODES[x.dtype], b, h * w, c, _build.grid_y(b))
     return out
+
+
+#: threads of a block of the channels-last GroupNorm pair: C / 8 across a
+#: pixel (16 bytes of bf16 each), 256 / (C / 8) pixels deep
+NORM_THREADS = 256
+#: pixels a thread of the pair holds per step (the kernels' kNormRows)
+NORM_ROWS = 8
+#: blocks an SM the pair's plan aims at before it splits samples
+NORM_BLOCKS_PER_SM = 16
+
+
+def channels_last_norms_route(dtype: torch.dtype, device_type: str, grad: bool, channels_last: bool,
+                              widths: Tuple[int, ...], groups: int) -> bool:
+    """Whether a res block's GroupNorms run on :func:`group_norm_film_silu_nhwc`'s
+    kernel pair: bf16 on the card outside grad mode (the pair has no
+    backward), the block's input channels-last, and each GroupNorm's width
+    in ``widths`` whole 16-byte vectors a group (C % (8·groups) == 0) that
+    one block spans (C ≤ 8·:data:`NORM_THREADS`), with at most 32 groups."""
+    return (dtype == torch.bfloat16 and device_type == "cuda" and not grad and channels_last and 1 <= groups <= 32
+            and all(c % (8 * groups) == 0 and c <= 8 * NORM_THREADS for c in widths))
+
+
+def norm_plan(batch: int, hw: int, c: int, sms: int) -> Tuple[int, int]:
+    """(span, splits) of the channels-last GroupNorm pair: each block takes
+    ``span`` pixels of one sample, ``splits`` blocks a sample.  A span is
+    whole steps of ny·:data:`NORM_ROWS` pixels; a sample splits only as far
+    as it takes the batch to make :data:`NORM_BLOCKS_PER_SM` blocks an SM."""
+    ny = max(1, NORM_THREADS // (c // 8))
+    step = ny * NORM_ROWS
+    steps = -(-hw // step)
+    per = -(-steps // min(steps, -(-NORM_BLOCKS_PER_SM * sms // batch)))
+    return per * step, -(-steps // per)
+
+
+def norm_tables(mean: torch.Tensor, rstd: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                addend: Optional[torch.Tensor] = None, film: Optional[torch.Tensor] = None):
+    """GroupNorm's statistics (B, G) of ``x + addend``, its affine and the
+    FiLM folded into float32 (B, C) tables a and d, so that
+    ``SiLU(x·a + d)`` is :func:`group_norm_film_silu_nhwc`:
+    a = rstd·γ·(1 + scale), d = (β + (addend − mean)·rstd·γ)·(1 + scale) + shift."""
+    cg = gamma.numel() // mean.shape[1]
+    mu = mean.repeat_interleave(cg, dim=1)
+    a = rstd.repeat_interleave(cg, dim=1) * gamma.float()
+    e = 0.0 if addend is None else addend.float()
+    d = beta.float() + (e - mu) * a
+    if film is not None:
+        scale, shift = film.float().chunk(2, dim=1)
+        a, d = a * (1 + scale), d * (1 + scale) + shift
+    return a, d
+
+
+def group_norm_film_silu_nhwc(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, groups: int, eps: float,
+                              addend: Optional[torch.Tensor] = None,
+                              film: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """SiLU(GroupNorm(x + addend)·(1 + scale) + shift) of an NHWC x (B, H, W,
+    C), kept NHWC, in x's dtype: float32 statistics per (sample, group);
+    ``addend`` (B, C) is added before them (the LDM's embedding), ``film``
+    (B, 2C) = [scale | shift] applies after (the ADM's), either or neither.
+    Folded into (B, C) tables (:func:`norm_tables`), out = SiLU(x·a + d).
+    A CUDA tensor runs the kernel pair ``gn_nhwc_stats`` / ``gn_nhwc_apply``
+    (bf16, the widths :func:`channels_last_norms_route` takes), counted as
+    ``ldm_res.nhwc_norms``; a CPU tensor the same arithmetic in plain PyTorch."""
+    b, h, w, c = x.shape
+    if x.device.type == "cpu":
+        v = x.float() if addend is None else x.float() + addend.float()[:, None, None]
+        var, mean = torch.var_mean(v.reshape(b, h * w, groups, c // groups), dim=(1, 3), unbiased=False)
+        a, d = norm_tables(mean, torch.rsqrt(var + eps), gamma, beta, addend, film)
+        return F.silu(x.float() * a[:, None, None] + d[:, None, None]).to(x.dtype)
+    _build.check_cuda("x", x, (torch.bfloat16,))
+    for name, t in (("gamma", gamma), ("beta", beta), ("addend", addend), ("film", film)):
+        if t is not None:
+            _build.check_cuda(name, t)
+    if (not channels_last_norms_route(x.dtype, "cuda", False, True, (c,), groups) or gamma.dtype != beta.dtype
+            or x.data_ptr() % 16):
+        raise ValueError(f"the channels-last GroupNorm takes C % (8·groups) == 0, C <= {8 * NORM_THREADS}, "
+                         f"groups <= 32, 16-byte aligned x and gamma, beta of one dtype; got C={c}, groups={groups}")
+    if (addend is not None and addend.shape != (b, c)) or (film is not None and film.shape != (b, 2 * c)):
+        raise ValueError(f"addend must be (B, C) and film (B, 2C) for x {tuple(x.shape)}")
+    out = torch.empty_like(x)
+    if out.numel():
+        _norm_kernels(x, gamma, beta, groups, eps, addend, film, out)
+        profiling.count("ldm_res.nhwc_norms")
+    return out
+
+
+def _norm_kernels(x, gamma, beta, groups, eps, addend, film, out) -> None:
+    """The pair's launches: the statistics into a (B, splits, G, 3) float32
+    scratch of partials, then the apply into ``out``."""
+    b, h, w, c = x.shape
+    span, splits = norm_plan(b, h * w, c, _build.sm_count(x.device))
+    part = torch.empty(b * splits * groups * 3, dtype=torch.float32, device=x.device)
+    codes = _build.DTYPE_CODES
+    add = (None, 0) if addend is None else (addend.data_ptr(), codes[addend.dtype])
+    mod = (None, 0) if film is None else (film.data_ptr(), codes[film.dtype])
+    shape = (b, h * w, c, groups, span, splits, _build.grid_y(b))
+    with _build.launcher(x.device) as call:
+        call("nope_gn_nhwc_stats", x.data_ptr(), *add, part.data_ptr(), *shape)
+        call("nope_gn_nhwc_apply", x.data_ptr(), part.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+             codes[gamma.dtype], *add, *mod, out.data_ptr(), *shape, eps)
 
 
 class _ResnetBlockFn(torch.autograd.Function):

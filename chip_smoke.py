@@ -16,10 +16,11 @@ it fails at once.
    at B = 3 (a ragged M), 26 and 341 (the registration batch), every
    float32 block on the 3xTF32 route, and each distinct 3xTF32 conv alone
    at B=26 against its plain split arithmetic; the float32 SD-VAE's
-   route: a 256-px encode's counters (22 convs routed, 6 on cuDNN; none
-   in bf16), each distinct routed conv at B=64 (128-column N tiles)
-   against its plain split arithmetic, and each NHWC GroupNorm + SiLU
-   before one against ``nn.GroupNorm``'s, both bitwise repeatable (phase
+   route: a 256-px encode's counters (22 convs routed, 6 on cuDNN, 20
+   launches of the channels-last GroupNorm pair; none in bf16), each
+   distinct routed conv at B=64 (128-column N tiles) against its plain
+   split arithmetic, bitwise repeatable, and its GroupNorms among the
+   pair's checks below (phase
    6 (a) reads the counters over the eval step's float32 loss too);
    its bf16 32x32 blocks
    at the evaluation program's 1,984 and 3,328 U-Net items (64 x 31 and
@@ -43,14 +44,15 @@ it fails at once.
    scalar kernel).  The LDM's and the ADM's res-block GroupNorms on the
    channels-last pair (``fused_resnet.group_norm_film_silu_nhwc``, "GN"):
    one bf16 forward of the published ADM and of the LDM (B=2) counting 84
-   and 34 of them (``ldm_res.nhwc_norms``), their float32 and grad-mode
-   forwards none, the bf16 forward within twice the plain bf16 path's gap
-   of the float32 one; then each distinct (H, W, C, conditioning) those
-   forwards ran (neither addend nor FiLM, the addend, the addend and the
-   FiLM), and each of ``NHWC_NORM_SHAPES`` with the FiLM and with the
-   addend, at B = 3 and 1,984 (and the smallest at B = 65,600) against
-   ``F.group_norm`` + addend + FiLM + SiLU in float32 at K3's bf16
-   tolerance, bitwise repeatable.
+   and 34 of them (``ldm_res.nhwc_norms`` and the pair's
+   ``gn_nhwc.launches``), their float32 and grad-mode forwards none, the
+   bf16 forward within twice the plain bf16 path's gap of the float32 one;
+   then each distinct (H, W, C, conditioning) those forwards ran (neither
+   addend nor FiLM, the addend, the addend and the FiLM), and each of
+   ``NHWC_NORM_SHAPES`` with the FiLM and with the addend, at B = 3 and
+   1,984 (and the smallest at B = 65,600), and the float32 VAE's at B=64,
+   against ``F.group_norm`` + addend + FiLM + SiLU in float32 at K3's bf16
+   tolerance (float32: 1e-5), bitwise repeatable.
 3. The main path, at the flagship's full width (192-wide PoseUNet with
    dim_mults (1,2,4,8), the default SD-VAE, 256-px images, 32x32x4
    latents) with seeded random weights: PoseEstimators on the 26-template
@@ -245,11 +247,13 @@ K3 that call's ``refine_recomputes``, their Functions'
 ``backward_max_rel``, the pose gradient's ``unet_pose_grad_rel`` and the
 weight gradients' ``unet_weight_grad_rel`` by dtype; the channels-last
 GroupNorm pair's row: its phase-2 ``launches`` per bf16 forward of the
-ADM and the LDM, phase 4's sums over the ADM's forward at 1,984 items
-(``ms``, ``device_ms``, ``plain_ms`` for ATen's chain, ``library_ms``
-for ``F.group_norm`` alone, ``bound_ms``), both models' sums as
-``per_forward``, and ``zoo_launches`` of one eval step each in phase 11
-(b)) and ``{"ok": true, ...}``.
+ADM and the LDM and per float32 VAE encode, phase 4's sums over the
+ADM's forward at 1,984 items (``ms``, ``device_ms``, ``plain_ms`` for
+ATen's chain, ``library_ms`` for ``F.group_norm`` alone, ``bound_ms``),
+each caller's sums as ``per_forward``, and its ``eval_launches``,
+``zoo_launches`` and ``bop_launches`` as the kernels' above) and
+``{"ok": true, ...}``.  Every launch count is a ``counters()`` diff of
+the kernels' own counters (``LAUNCH_COUNTERS``).
 
 Weight deltas (phase 9 (b)): AdamW's first update is g/(|g|+eps), about
 sign(g), so an element whose gradient is within float32 rounding of
@@ -282,7 +286,7 @@ ROOT = Path(__file__).resolve().parent
 # another order; bfloat16 kernels compute in float32 and round the
 # output once, so they are held against the plain version run in float32
 # on the same bfloat16-valued inputs, within the output's rounding
-TOL = {"float32": {"K1": 1e-5, "K2": 1e-5, "K3": 1e-4},
+TOL = {"float32": {"K1": 1e-5, "K2": 1e-5, "K3": 1e-4, "GN": 1e-5},
        "bfloat16": {"K1": 1e-5, "K2": 1e-2, "K3": 1e-2, "GN": 1e-2}}
 # the float32 GPU path against the CPU path on one query, same weights
 CPU_SIM_RTOL = 1e-3
@@ -343,12 +347,11 @@ LATENT = IMAGE // 8
 # encode's 28, the 20 stride-1 3x3 convs of the resnets and the mid block
 # and the 2 1x1 shortcuts take the 3xTF32 conv; conv_in, the three
 # downsamplers, conv_out and quant_conv keep cuDNN.  Phase 2 holds each
-# distinct routed conv, and the NHWC GroupNorm + SiLU before it, at the
-# eval step's encode of 64 images
-VAE_ROUTED, VAE_CUDNN, VAE_BATCH = 22, 6, 64
-# the NHWC GroupNorm + SiLU against nn.GroupNorm's: float32 statistics
-# reduced in another order
-VAE_GN_RTOL = 1e-5
+# distinct routed conv, and the GroupNorm + SiLU before it (the channels-last
+# pair in float32, "GN" at float32's tolerance: statistics reduced in another
+# order), at the eval step's encode of 64 images.  The 20 3x3 convs of the
+# 22 follow a GroupNorm + SiLU on the pair: VAE_NORMS of its launches an encode
+VAE_ROUTED, VAE_CUDNN, VAE_BATCH, VAE_NORMS = 22, 6, 64, 20
 # the LDM's and the ADM's res-block GroupNorms on the channels-last pair
 # (fused_resnet.group_norm_film_silu_nhwc, "GN" at K3's bf16 tolerance):
 # (H, W, C) at their widths, each with the ADM's FiLM and with the LDM's
@@ -359,6 +362,11 @@ NHWC_NORM_SHAPES = ((32, 32, 256), (32, 32, 512), (16, 16, 256), (8, 8, 512), (2
 # the pair's GroupNorms in one bf16 forward: two in each of the ADM's 42
 # res blocks and of the LDM's 17 (none in template_base's U-Net)
 NHWC_NORMS_A_FORWARD = {"vae_guidedDiffusion": 84, "vae_cin_ldm": 34}
+# the pair's callers phase 2 records: x's dtype, eps, the batches its
+# checks run at (phase 4 times the last) and what one recording is
+NHWC_NORM_CALLERS = {"vae_guidedDiffusion": ("bfloat16", 1e-5, (3, EVAL_ITEMS[0]), "forward"),
+                     "vae_cin_ldm": ("bfloat16", 1e-5, (3, EVAL_ITEMS[0]), "forward"),
+                     "sd_vae_float32": ("float32", 1e-6, (VAE_BATCH,), "encode")}
 # the pair's row of the kernels line, and its key in phase 11's launches
 NHWC_NORM_ROW = "group_norm_film_silu_nhwc"
 # past the 65,535 a grid's y extent holds: K3's gn_silu and K1 with a bank
@@ -443,6 +451,27 @@ def counters_now() -> dict:
     from nope_tpu_torch.utils import profiling
 
     return profiling.counters()
+
+
+#: each kernel's launch counters (utils.profiling), by the op that launches it: K1, K2, K3's three
+#: routes, which together count every K3 block, and the channels-last GroupNorm pair
+LAUNCH_COUNTERS = {"reference_similarity": ("k1.launches",), "linear_attention_inner": ("k2.launches",),
+                   "resnet_block": ("k3.tensor_core_launches", "k3.tf32x3_launches", "k3.cuda_core_launches"),
+                   "group_norm_film_silu_nhwc": ("gn_nhwc.launches",)}
+
+
+def kernel_launches(since: dict) -> dict:
+    """Each kernel's launches since ``since`` (an earlier :func:`counters_now`),
+    by its op's name (:data:`LAUNCH_COUNTERS`)."""
+    now = counters_now()
+    return {op: sum(now.get(n, 0) - since.get(n, 0) for n in names) for op, names in LAUNCH_COUNTERS.items()}
+
+
+def all_launched(launches: dict, pair: bool = False) -> bool:
+    """Whether every count in ``launches`` is above 0; the channels-last
+    GroupNorm pair's only with ``pair``: it runs only where a float32 VAE
+    encodes without a gradient or the LDM's or the ADM's bf16 blocks run."""
+    return all(v for k, v in launches.items() if pair or k != NHWC_NORM_ROW)
 
 
 def rel_err(got, want):
@@ -730,43 +759,48 @@ MIXED = ("cup", "mug", "can", "cup", "can", "mug", "mug", "cup")
 
 def vae_route_checks(torch, F, fr, dev, vae, check):
     """Phase 2, the float32 SD-VAE's route: one 256-px encode on the card
-    records the shapes its routed convs and NHWC GroupNorms take and the
-    two counters (22 and 6 in float32, 0 and 0 for a bf16 copy); then each
+    records the shapes its routed convs take and the GroupNorms it runs on
+    the channels-last pair (``group_norm_film_silu_nhwc``, float32), and
+    the counters: 22 and 6 convs by route and ``VAE_NORMS`` launches of the
+    pair (``gn_nhwc.launches``) in float32, none for a bf16 copy; then each
     distinct routed conv at B=64 (the 128-column N tile) against its plain
-    split arithmetic (in slices of 8 images) and twice for bitwise repeats,
-    and each distinct GroupNorm + SiLU against nn.GroupNorm's on the same
-    channels-last tensor."""
-    convs, norms = set(), set()
-    conv, norm = fr.conv_tf32x3, fr.group_norm_silu_nhwc
+    split arithmetic (in slices of 8 images) and twice for bitwise repeats.
+    Returns the number of distinct convs and the norms' calls (H, W, C,
+    "plain") in call order, for :func:`nhwc_norm_checks` and
+    :func:`nhwc_norm_timings`."""
+    convs, norms, kinds = set(), [], set()
+    conv, norm = fr.conv_tf32x3, fr.group_norm_film_silu_nhwc
 
     def conv_spy(x, w, b):
         convs.add((x.shape[1], w.shape[1], w.shape[0], w.shape[-1]))
         return conv(x, w, b)
 
-    def norm_spy(x, gamma, beta, groups, eps):
-        norms.add((x.shape[1], x.shape[-1], groups, eps))
-        return norm(x, gamma, beta, groups, eps)
+    def norm_spy(x, gamma, beta, groups, eps, **cond):
+        norms.append((*x.shape[1:], nhwc_norm_cond(cond.get("addend"), cond.get("film"))))
+        kinds.add((str(x.dtype).split(".")[-1], eps, groups))
+        return norm(x, gamma, beta, groups, eps, **cond)
 
     image = torch.rand(1, IMAGE, IMAGE, 3, generator=torch.Generator(device=dev).manual_seed(5), device=dev) * 2 - 1
     half = copy.deepcopy(vae).to(torch.bfloat16)
-    conv_spy.launches = conv.launches  # conv_tf32x3 counts its launches on the module's name, the spy's meanwhile
-    fr.conv_tf32x3, fr.group_norm_silu_nhwc = conv_spy, norm_spy
+    fr.conv_tf32x3, fr.group_norm_film_silu_nhwc = conv_spy, norm_spy
     try:
         with torch.no_grad():
             per_encode = []
             for v, img in ((vae, image), (half, image.to(torch.bfloat16))):
                 before = counters_now()
                 v.encode(img)
-                per_encode.append((counted("vae.tf32x3_convs", before), counted("vae.cudnn_convs", before)))
+                per_encode.append(tuple(counted(n, before) for n in ("vae.tf32x3_convs", "vae.cudnn_convs",
+                                                                     "gn_nhwc.launches")))
     finally:
-        fr.conv_tf32x3, fr.group_norm_silu_nhwc = conv, norm
-        conv.launches = conv_spy.launches
+        fr.conv_tf32x3, fr.group_norm_film_silu_nhwc = conv, norm
     del half
+    dn, eps = NHWC_NORM_CALLERS["sd_vae_float32"][:2]
     print(f"  VAE encode ({IMAGE} px): float32 {per_encode[0][0]} convs on the 3xTF32 conv, {per_encode[0][1]} on "
-          f"cuDNN; bf16 {per_encode[1][0]} and {per_encode[1][1]}; {len(convs)} distinct routed convs, "
-          f"{len(norms)} distinct NHWC GroupNorms")
-    if per_encode != [(VAE_ROUTED, VAE_CUDNN), (0, 0)]:
-        raise RuntimeError(f"the VAE encode's convs took other routes: {per_encode}")
+          f"cuDNN, {per_encode[0][2]} launches of the channels-last GroupNorm pair; bf16 {per_encode[1]}; "
+          f"{len(convs)} distinct routed convs, {len(set(norms))} distinct NHWC GroupNorms {sorted(kinds)}")
+    if (per_encode != [(VAE_ROUTED, VAE_CUDNN, VAE_NORMS), (0, 0, 0)] or len(norms) != VAE_NORMS
+            or kinds != {(dn, eps, 32)} or {n[-1] for n in norms} != {"plain"}):
+        raise RuntimeError(f"the VAE encode's convs or norms took other routes: {per_encode}, {kinds}")
     dgen = torch.Generator(device=dev).manual_seed(3)
     route = fr.TENSOR_CORE_ROUTES[torch.float32]
     for side, cin, co, ks in sorted(convs, reverse=True):
@@ -781,25 +815,9 @@ def vae_route_checks(torch, F, fr, dev, vae, check):
         if not torch.equal(got, fr.conv_tf32x3(x, w, b)):
             raise RuntimeError(f"the VAE's 3xTF32 conv {side}x{side} {cin}->{co} {ks}x{ks}: two launches differ")
         del x, got
-    for side, c, groups, eps in sorted(norms, reverse=True):
-        x = 2 * torch.randn(VAE_BATCH, side, side, c, generator=dgen, device=dev) + 0.5
-        gamma = 0.5 + torch.rand(c, generator=dgen, device=dev)
-        beta = 0.1 * torch.randn(c, generator=dgen, device=dev)
-        got = fr.group_norm_silu_nhwc(x, gamma, beta, groups, eps)
-        want = F.silu(F.group_norm(x.permute(0, 3, 1, 2), groups, gamma, beta, eps)).permute(0, 2, 3, 1)
-        err, rel = rel_err(got, want)
-        ok = rel <= VAE_GN_RTOL and torch.isfinite(got).all().item()
-        print(f"  VAE GroupNorm+SiLU NHWC B={VAE_BATCH} {side}x{side} C={c} G={groups} vs nn.GroupNorm: max_abs "
-              f"{err:.3e} rel {rel:.3e} tol {VAE_GN_RTOL:.0e} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise RuntimeError(f"the VAE's NHWC GroupNorm {side}x{side} C={c} disagrees with nn.GroupNorm")
-        del want
-        if not torch.equal(got, fr.group_norm_silu_nhwc(x, gamma, beta, groups, eps)):
-            raise RuntimeError(f"the VAE's NHWC GroupNorm {side}x{side} C={c}: two launches differ")
-        del x, got
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    return len(convs), len(norms)
+    return len(convs), norms
 
 
 def nhwc_norm_cond(addend, film) -> str:
@@ -809,14 +827,15 @@ def nhwc_norm_cond(addend, film) -> str:
     return "+".join(name for name, t in (("addend", addend), ("film", film)) if t is not None) or "plain"
 
 
-def nhwc_norm_inputs(torch, shape, batch, cond, dev, gen):
-    """bf16 inputs of the channels-last GroupNorm pair at ``shape`` (H, W,
-    C): x (B, H, W, C) off-centre, gamma, beta, and the addend (B, C) and
-    the film (B, 2C) as ``cond`` (:func:`nhwc_norm_cond`) names them."""
+def nhwc_norm_inputs(torch, shape, batch, cond, dev, gen, dtype=None):
+    """Inputs of the channels-last GroupNorm pair at ``shape`` (H, W, C), in
+    ``dtype`` (bf16 by default): x (B, H, W, C) off-centre, gamma, beta,
+    and the addend (B, C) and the film (B, 2C) as ``cond``
+    (:func:`nhwc_norm_cond`) names them."""
     h, w, c = shape
 
     def draw(*size, scale=1.0, shift=0.0):
-        return (scale * torch.randn(*size, generator=gen, device=dev) + shift).to(torch.bfloat16)
+        return (scale * torch.randn(*size, generator=gen, device=dev) + shift).to(dtype or torch.bfloat16)
 
     x = draw(batch, h, w, c, scale=2.0, shift=0.5)
     gamma, beta = draw(c, scale=0.2, shift=1.0), draw(c, scale=0.2)
@@ -841,30 +860,33 @@ def nhwc_norm_plain(torch, F, x, gamma, beta, addend, film, groups=32, eps=1e-5)
 
 def nhwc_norm_checks(torch, F, fr, dev, check, seen) -> int:
     """Phase 2: the channels-last GroupNorm pair against
-    :func:`nhwc_norm_plain` and twice for a bitwise repeat, at B = 3 and
-    1,984, at each distinct (H, W, C, conditioning) of the ADM's and the
-    LDM's forward (``seen``, from :func:`nhwc_norm_counts`) and at each of
-    ``NHWC_NORM_SHAPES`` with the FiLM and with the addend; and the
-    smallest of those at B = 65,600 with both; returns the checks made."""
+    :func:`nhwc_norm_plain` and twice for a bitwise repeat, at each distinct
+    (H, W, C, conditioning) its callers ran (``seen``: the ADM's and the
+    LDM's forward from :func:`nhwc_norm_counts`, bf16 at B = 3 and 1,984;
+    the float32 VAE's encode from :func:`vae_route_checks`, at B = 64;
+    ``NHWC_NORM_CALLERS``), at each of ``NHWC_NORM_SHAPES`` with the FiLM
+    and with the addend in bf16 at B = 3 and 1,984, and the smallest of
+    those at B = 65,600 with both; returns the checks made."""
     gen = torch.Generator(device=dev).manual_seed(7)
-    calls = [call for model in seen.values() for call in model]
-    calls += [(*shape, cond) for shape in NHWC_NORM_SHAPES for cond in ("film", "addend")]
-    distinct = sorted(set(calls), key=calls.index)
-    cases = [(call, batch) for batch in (3, EVAL_ITEMS[0]) for call in distinct]
-    cases.append(((*NHWC_NORM_SHAPES[-1], "addend+film"), BIG_B))
-    for (h, w, c, cond), batch in cases:
-        args = nhwc_norm_inputs(torch, (h, w, c), batch, cond, dev, gen)
+    cases = [(call, batch, *NHWC_NORM_CALLERS[name][:2]) for name, calls in seen.items()
+             for batch in NHWC_NORM_CALLERS[name][2] for call in calls]
+    cases += [((*shape, cond), batch, "bfloat16", 1e-5) for batch in (3, EVAL_ITEMS[0]) for shape in NHWC_NORM_SHAPES
+              for cond in ("film", "addend")]
+    cases.append(((*NHWC_NORM_SHAPES[-1], "addend+film"), BIG_B, "bfloat16", 1e-5))
+    cases = sorted(set(cases), key=cases.index)
+    for (h, w, c, cond), batch, dn, eps in cases:
+        args = nhwc_norm_inputs(torch, (h, w, c), batch, cond, dev, gen, getattr(torch, dn))
         x, gamma, beta, addend, film = args
 
         def pair():
-            return fr.group_norm_film_silu_nhwc(x, gamma, beta, 32, 1e-5, addend=addend, film=film)
+            return fr.group_norm_film_silu_nhwc(x, gamma, beta, 32, eps, addend=addend, film=film)
 
         got = pair()
-        span, splits = fr.norm_plan(batch, h * w, c, fr._build.sm_count(dev))
+        span, splits = fr.norm_plan(batch, h * w, c, fr._build.sm_count(dev), fr.norm_vec(x.dtype))
         check("GN", f"B={batch} {h}x{w} C={c} {cond} span {span} x{splits}", got,
-              nhwc_norm_plain(torch, F, *args), "bfloat16")
+              nhwc_norm_plain(torch, F, *args, eps=eps), dn)
         if not torch.equal(got, pair()):
-            raise RuntimeError(f"the channels-last GroupNorm B={batch} {h}x{w} C={c} {cond}: two launches differ")
+            raise RuntimeError(f"the channels-last GroupNorm B={batch} {h}x{w} C={c} {cond} {dn}: two launches differ")
         del args, x, addend, film, got
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -874,10 +896,11 @@ def nhwc_norm_checks(torch, F, fr, dev, check, seen) -> int:
 def nhwc_norm_counts(torch, fr, dev) -> dict:
     """Phase 2: one bf16 forward (B=2, no gradient) of the published ADM
     and of the LDM, seeded weights with the zero layers noised, runs
-    ``NHWC_NORMS_A_FORWARD`` GroupNorms on the channels-last pair
-    (``ldm_res.nhwc_norms``); their float32 forward and a bf16 one in grad
-    mode (the pose asking a gradient; the LDM's first blocks, before the
-    pose enters, too) none.  The bf16 forward is held
+    ``NHWC_NORMS_A_FORWARD`` GroupNorms on the channels-last pair, as the
+    blocks count them (``ldm_res.nhwc_norms``) and as the pair counts its
+    launches (``gn_nhwc.launches``); their float32 forward and a bf16 one in
+    grad mode (the pose asking a gradient; the LDM's first blocks, before
+    the pose enters, too) none.  The bf16 forward is held
     against the float32 one beside the plain bf16 path (the route turned
     off), within twice the plain path's gap.  Returns each model's
     GroupNorms on the pair, (H, W, C, :func:`nhwc_norm_cond`) in call
@@ -886,6 +909,10 @@ def nhwc_norm_counts(torch, fr, dev) -> dict:
     from nope_tpu_torch.models.ldm_unet import LDMPoseUNet
 
     norm, route, seen, batch = fr.group_norm_film_silu_nhwc, fr.channels_last_norms_route, {}, 2
+
+    def norms_since(before):
+        return counted("ldm_res.nhwc_norms", before), counted("gn_nhwc.launches", before)
+
     for name, cls in (("vae_guidedDiffusion", ADMPoseUNet), ("vae_cin_ldm", LDMPoseUNet)):
         torch.manual_seed(11)
         with torch.device(dev):
@@ -907,24 +934,25 @@ def nhwc_norm_counts(torch, fr, dev) -> dict:
             with torch.no_grad():
                 before = counters_now()
                 got = half(xh, ph)
-                n_half = counted("ldm_res.nhwc_norms", before)
+                n_half = norms_since(before)
                 before = counters_now()
                 want = net(x, pose)
-                n_fp32 = counted("ldm_res.nhwc_norms", before)
+                n_fp32 = norms_since(before)
                 fr.channels_last_norms_route = lambda *args: False
                 plain = half(xh, ph)
                 fr.channels_last_norms_route = route
             before = counters_now()
             half(xh, ph.clone().requires_grad_())
-            n_grad = counted("ldm_res.nhwc_norms", before)
+            n_grad = norms_since(before)
         finally:
             fr.group_norm_film_silu_nhwc, fr.channels_last_norms_route = norm, route
         _, rel = rel_err(got, want)
         _, rel_plain = rel_err(plain, want)
-        print(f"  {name} a bf16 forward (B={batch}): {n_half} GroupNorms on the channels-last pair (want "
-              f"{NHWC_NORMS_A_FORWARD[name]}), float32 {n_fp32}, bf16 in grad mode {n_grad}; against the float32 "
-              f"forward rel {rel:.3e}, the plain bf16 path {rel_plain:.3e}")
-        if (n_half, n_fp32, n_grad, len(calls)) != (NHWC_NORMS_A_FORWARD[name], 0, 0, n_half):
+        want_n = NHWC_NORMS_A_FORWARD[name]
+        print(f"  {name} a bf16 forward (B={batch}): {n_half[0]} GroupNorms on the channels-last pair by the blocks' "
+              f"count, {n_half[1]} launches of the pair (want {want_n}), float32 {n_fp32}, bf16 in grad mode "
+              f"{n_grad}; against the float32 forward rel {rel:.3e}, the plain bf16 path {rel_plain:.3e}")
+        if (n_half, n_fp32, n_grad, len(calls)) != ((want_n, want_n), (0, 0), (0, 0), want_n):
             raise RuntimeError(f"{name}: the res blocks' GroupNorms took other routes")
         if not rel <= 2 * rel_plain:
             raise RuntimeError(f"{name}: the channels-last bf16 forward strays from the float32 one ({rel:.3e}) "
@@ -936,32 +964,34 @@ def nhwc_norm_counts(torch, fr, dev) -> dict:
 
 def nhwc_norm_timings(torch, F, fr, dev, seen) -> dict:
     """Phase 4: the channels-last GroupNorm pair at each distinct GroupNorm
-    of one ADM and one LDM forward (``seen``, from :func:`nhwc_norm_counts`)
-    at the evaluation sweep's 1,984 items, with the host in the loop and on
-    the device alone, beside ATen's chain the plain path runs there
-    (``F.group_norm`` of the channels-last tensor, the addend and the FiLM
-    as the call has them, SiLU, in bf16), ``F.group_norm`` alone, the HBM
-    bound (x read once and out written once: 4 bytes an element over 3.35
-    TB/s) and the pair's share of it; then each summed over a forward,
-    returned by model ("ms", "device_ms", "plain_ms", "plain_device_ms",
-    "library_ms", "bound_ms")."""
-    items = EVAL_ITEMS[0]
+    of its callers (``seen``: one ADM and one LDM forward in bf16 at the
+    evaluation sweep's 1,984 items, one float32 VAE encode at 64 images;
+    ``NHWC_NORM_CALLERS``), with the host in the loop and on the device
+    alone, beside ATen's chain the plain path runs there (``F.group_norm``
+    of the channels-last tensor, the addend and the FiLM as the call has
+    them, SiLU, in x's dtype), ``F.group_norm`` alone, the HBM bound (x read
+    once and out written once over 3.35 TB/s) and the pair's share of it;
+    then each summed over a forward (an encode), returned by caller ("ms",
+    "device_ms", "plain_ms", "plain_device_ms", "library_ms",
+    "bound_ms")."""
     gen = torch.Generator(device=dev).manual_seed(8)
     keys = ("ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms", "bound_ms")
     out = {}
     for name, calls in seen.items():
+        dn, eps, batches, unit = NHWC_NORM_CALLERS[name]
+        items = batches[-1]
         tot = out[name] = dict.fromkeys(keys, 0.0)
         for key in sorted(set(calls), key=calls.index):
             (h, w, c, cond), n = key, calls.count(key)
-            x, gamma, beta, addend, film = nhwc_norm_inputs(torch, (h, w, c), items, cond, dev, gen)
+            x, gamma, beta, addend, film = nhwc_norm_inputs(torch, (h, w, c), items, cond, dev, gen, getattr(torch, dn))
             xc = x.permute(0, 3, 1, 2)
 
             def pair():
-                fr.group_norm_film_silu_nhwc(x, gamma, beta, 32, 1e-5, addend=addend, film=film)
+                fr.group_norm_film_silu_nhwc(x, gamma, beta, 32, eps, addend=addend, film=film)
 
             def chain():
                 v = xc if addend is None else xc + addend[:, :, None, None]
-                y = F.group_norm(v, 32, gamma, beta, 1e-5)
+                y = F.group_norm(v, 32, gamma, beta, eps)
                 if film is not None:
                     scale, shift = film[:, :, None, None].chunk(2, dim=1)
                     y = y * (1 + scale) + shift
@@ -969,29 +999,30 @@ def nhwc_norm_timings(torch, F, fr, dev, seen) -> dict:
 
             t = dict(zip(keys, (cuda_ms(torch, pair, 20), device_ms(torch, pair), cuda_ms(torch, chain, 10),
                                 device_ms(torch, chain, 10),
-                                cuda_ms(torch, lambda: F.group_norm(xc, 32, gamma, beta, 1e-5), 10),
-                                4 * x.numel() / HBM_BPS * 1e3)))
+                                cuda_ms(torch, lambda: F.group_norm(xc, 32, gamma, beta, eps), 10),
+                                2 * x.element_size() * x.numel() / HBM_BPS * 1e3)))
             for k in keys:
                 tot[k] += n * t[k]
-            print(f"  GN {name} B={items} {h:>2}x{w:<2} C={c:<4} {cond:<11} x{n:<2} pair {t['ms']:7.3f} ms (device "
-                  f"alone {t['device_ms']:.3f} ms; bound {t['bound_ms']:.3f} ms, "
-                  f"{100 * t['bound_ms'] / t['device_ms']:5.1f}%) ATen's chain {t['plain_ms']:7.3f} ms (device alone "
-                  f"{t['plain_device_ms']:.3f} ms) F.group_norm {t['library_ms']:7.3f} ms")
+            print(f"  GN {name} B={items} {h:>3}x{w:<3} C={c:<4} {cond:<11} x{n:<2} pair {t['ms']:7.3f} ms (device "
+                  f"alone {t['device_ms']:.3f} ms, {t['device_ms'] / items:.4f} ms an item; bound "
+                  f"{t['bound_ms']:.3f} ms, {100 * t['bound_ms'] / t['device_ms']:5.1f}%) ATen's chain "
+                  f"{t['plain_ms']:7.3f} ms (device alone {t['plain_device_ms']:.3f} ms) F.group_norm "
+                  f"{t['library_ms']:7.3f} ms")
             del x, xc, gamma, beta, addend, film
         torch.cuda.empty_cache()
-        print(f"  GN {name} the {len(calls)} GroupNorms of one forward at B={items}: pair {tot['ms']:.3f} ms "
-              f"(device alone {tot['device_ms']:.3f} ms; bound {tot['bound_ms']:.3f} ms, "
-              f"{100 * tot['bound_ms'] / tot['device_ms']:.1f}%), ATen's chain {tot['plain_ms']:.3f} ms (device "
-              f"alone {tot['plain_device_ms']:.3f} ms), F.group_norm alone {tot['library_ms']:.3f} ms")
+        print(f"  GN {name} the {len(calls)} GroupNorms of one {unit} at B={items}: pair {tot['ms']:.3f} ms "
+              f"(device alone {tot['device_ms']:.3f} ms, {tot['device_ms'] / items:.4f} ms an item; bound "
+              f"{tot['bound_ms']:.3f} ms, {100 * tot['bound_ms'] / tot['device_ms']:.1f}%), ATen's chain "
+              f"{tot['plain_ms']:.3f} ms (device alone {tot['plain_device_ms']:.3f} ms), F.group_norm alone "
+              f"{tot['library_ms']:.3f} ms")
     return out
 
 
-def evaluation_phase(torch, dev, task32, variant, grids, counters, unet_cpu, vae_cpu, rng):
+def evaluation_phase(torch, dev, task32, variant, grids, unet_cpu, vae_cpu, rng):
     """Phase 6: the evaluation program and the gallery side of serving.
     Returns what phases 4 and 5 time: the launch counts of (a), the bf16
     copy of the modules, the batches, the chunk sizes, a 4-object gallery."""
     from nope_tpu_torch.evaluation.geodesic import evaluate_geodesic
-    from nope_tpu_torch.ops import fused_resnet as fr
     from nope_tpu_torch.ops import similarity as sim
     from nope_tpu_torch.serving import PoseEstimator
     from nope_tpu_torch.tasks.pose_conditional import PoseConditionalTask
@@ -1001,8 +1032,6 @@ def evaluation_phase(torch, dev, task32, variant, grids, counters, unet_cpu, vae
     batches = {name: eval_batch(torch, grids[n], b, seed) for seed, (name, (b, n, _)) in enumerate(EVAL.items(), 10)}
 
     # (a) both protocols through evaluate_geodesic, every kernel counted over them
-    for fn in counters:
-        fn.launches = 0
     counts0 = counters_now()
     chunks = {}
     for name, (b, n, chunk) in EVAL.items():
@@ -1042,11 +1071,11 @@ def evaluation_phase(torch, dev, task32, variant, grids, counters, unet_cpu, vae
               f"{scores['top1, median']:.2f} deg; dump keys {sorted(dump)} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise RuntimeError(f"the {name} protocol's outputs are malformed: {scores}")
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = kernel_launches(counts0)
     tc, t3 = counted("k3.tensor_core_launches", counts0), counted("k3.tf32x3_launches", counts0)
     print(f"  launches over both protocols {launches}; K3 on the tensor cores: bf16 {tc}, float32 in 3xTF32 (the "
           f"fp32 loss) {t3}, elsewhere {launches['resnet_block'] - tc - t3}")
-    if not all(launches.values()) or not tc or not t3:
+    if not all_launched(launches, pair=True) or not tc or not t3:
         raise RuntimeError(f"a kernel of the evaluation program never launched: {launches}, tensor-core K3 {tc}, "
                            f"3xTF32 K3 {t3}")
     if tc + t3 != launches["resnet_block"]:
@@ -1056,10 +1085,14 @@ def evaluation_phase(torch, dev, task32, variant, grids, counters, unet_cpu, vae
     # sweep's encodes count neither
     v3, vc = counted("vae.tf32x3_convs", counts0), counted("vae.cudnn_convs", counts0)
     encodes = v3 // VAE_ROUTED
+    pair, blocks = launches[NHWC_NORM_ROW], counted("ldm_res.nhwc_norms", counts0)
     print(f"  the float32 VAE over both protocols: {v3} convs on the 3xTF32 conv, {vc} on cuDNN ({encodes} encodes "
-          f"of {VAE_ROUTED} and {VAE_CUDNN})")
-    if encodes < 2 * len(EVAL) or (v3, vc) != (encodes * VAE_ROUTED, encodes * VAE_CUDNN):
-        raise RuntimeError(f"the evaluation program's float32 VAE convs took other routes: {v3} routed, {vc} on cuDNN")
+          f"of {VAE_ROUTED} and {VAE_CUDNN}); {pair} launches of the channels-last GroupNorm pair ({VAE_NORMS} an "
+          f"encode, {blocks} by U-Net blocks)")
+    if encodes < 2 * len(EVAL) or (v3, vc, pair) != (encodes * VAE_ROUTED, encodes * VAE_CUDNN,
+                                                      encodes * VAE_NORMS + blocks):
+        raise RuntimeError(f"the evaluation program's float32 VAE convs or norms took other routes: {v3} routed, "
+                           f"{vc} on cuDNN, {pair} launches of the GroupNorm pair")
 
     # the streamed peak does not grow with N: the (B, N, h, w, C) bank never exists
     half = task32.half()
@@ -1286,7 +1319,7 @@ def check_refined(torch, label, est, object_ids, queries, plain, result, tol):
     return ratio
 
 
-def refinement_phase(torch, dev, task32, half, estimators, cpu_est, gallery, grids, requests, counters, k2_calls,
+def refinement_phase(torch, dev, task32, half, estimators, cpu_est, gallery, grids, requests, k2_calls,
                      k3_calls, gen):
     """Phase 7: refinement on the card, full width, seeded weights.
     Returns the K2 and K3 backward checks and the refine path's launches."""
@@ -1382,18 +1415,16 @@ def refinement_phase(torch, dev, task32, half, estimators, cpu_est, gallery, gri
     est = estimators[("bfloat16", FAST_N)]
     q8 = requests[1]
     plain = est.estimate("object", q8)
-    for fn in counters:
-        fn.launches = 0
     counts0 = counters_now()
     t0 = time.perf_counter()
     r1 = est.estimate("object", q8, refine_steps=REFINE_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    out["launches"] = {fn.__name__: fn.launches for fn in counters}
+    out["launches"] = kernel_launches(counts0)
     out["recomputes"] = {"K3": counted("k3.recomputes", counts0), "K2": counted("k2.recomputes", counts0)}
     print(f"  estimate bf16 B={QUERIES} N={FAST_N} refine_steps={REFINE_STEPS} refine_topk=1: {wall:.2f} s; launches "
           f"{out['launches']}, recompute backwards {out['recomputes']}")
-    if not all(out["launches"].values()) or not all(out["recomputes"].values()):
+    if not all_launched(out["launches"]) or not all(out["recomputes"].values()):
         raise RuntimeError(f"a kernel of the refine path never ran: {out['launches']} {out['recomputes']}")
     check_refined(torch, "estimate refine_topk=1", est, ["object"] * QUERIES, q8, plain, r1, 1e-5)
     r5 = est.estimate("object", q8, refine_steps=REFINE_STEPS, refine_topk=REFINE_TOPK)
@@ -1680,7 +1711,7 @@ def write_training_root(root):
     return len(train) * CLI_VIEWS, len(val) * CLI_VIEWS
 
 
-def cli_phase(torch, dev, smi, counters, task32, half, native_build):
+def cli_phase(torch, dev, smi, task32, half, native_build):
     """Phase 8: ``cli.test_shapenet.main`` on the card over a root written
     here; the native warp and the crop on the card checked first; then the
     input pipeline's times beside the eval step's.  Returns the kernels'
@@ -1697,7 +1728,6 @@ def cli_phase(torch, dev, smi, counters, task32, half, native_build):
     from nope_tpu_torch.data.shapenet import SHAPENET_INTRINSIC, ShapeNetDataset, decode_png, decoder
     from nope_tpu_torch.evaluation.geodesic import _to_device
     from nope_tpu_torch.geometry import cropping
-    from nope_tpu_torch.ops import fused_resnet as fr
 
     print("phase 8: the ShapeNet evaluation CLI (cli.test_shapenet.main) over a PNG root written here")
     with tempfile.TemporaryDirectory(prefix="nope_shapenet_") as tmp:
@@ -1754,21 +1784,19 @@ def cli_phase(torch, dev, smi, counters, task32, half, native_build):
 
         def run(label, flags, overrides, expect_images, expect_batches, n):
             save = tmp / label
-            for fn in counters:
-                fn.launches = 0
             counts0 = counters_now()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(io.StringIO()):
                 results = test_shapenet.main([*flags, *data, *overrides, f"save_dir={save}"])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = {fn.__name__: fn.launches for fn in counters}
+            launches = kernel_launches(counts0)
             launches["resnet_block tensor cores"] = counted("k3.tensor_core_launches", counts0)
             cats = [c for c in results if c != "mean"]
             written = json.loads((save / "train" / "scores.json").read_text())
             dumps = sorted(p.name for p in (save / "train" / "predictions").glob("*.npz"))
             want_dumps = sorted(f"pred_{c}_batch{i}_rank0.npz" for c in cats for i in range(expect_batches))
-            ok = written == results and dumps == want_dumps and all(launches.values())
+            ok = written == results and dumps == want_dumps and all_launched(launches)
             for cat in cats:
                 sc = results[cat]
                 ok &= (sc["num_images"] == expect_images and all(np.isfinite(v) for v in sc.values())
@@ -1954,7 +1982,7 @@ def span_ms(torch, spans):
     return {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
 
 
-def training_phase(torch, dev, smi, counters, task32, unet_cpu, vae_cpu, per_forward):
+def training_phase(torch, dev, smi, task32, unet_cpu, vae_cpu, per_forward):
     """Phase 9: training at full width.  ``per_forward``: K3's and K2's
     launches in one U-Net forward.  Returns the kernels' launches and
     recomputes over the CLI's uninterrupted run, the weight gradients'
@@ -1965,8 +1993,6 @@ def training_phase(torch, dev, smi, counters, task32, unet_cpu, vae_cpu, per_for
     from nope_tpu_torch.data import pipeline
     from nope_tpu_torch.data.shapenet import ShapeNetDataset
     from nope_tpu_torch.models.factory import build_task
-    from nope_tpu_torch.ops import fused_resnet as fr
-    from nope_tpu_torch.ops import linear_attention as la
     from nope_tpu_torch.tasks.pose_conditional import PoseConditionalTask
     from nope_tpu_torch.training import checkpoint, optim, train_state
     from nope_tpu_torch.training.checkpoint import CheckpointManager
@@ -1978,10 +2004,11 @@ def training_phase(torch, dev, smi, counters, task32, unet_cpu, vae_cpu, per_for
     # (a) weight gradients through K3, K2 and their recompute backwards against the plain U-Net
     batches = {"ds": train_pairs(torch, 2, 90)}
     for dn, half in (("float32", False), ("bfloat16", True)):
-        before = (fr.resnet_block.launches, la.linear_attention_inner.launches)
+        before = counters_now()
         with weight_grad_spy(torch) as asked:
             g_k, loss_k = weight_grads(torch, task32, batches, half)
-        fwd = (fr.resnet_block.launches - before[0], la.linear_attention_inner.launches - before[1])
+        ran = kernel_launches(before)
+        fwd = (ran["resnet_block"], ran["linear_attention_inner"])
         with plain_ops():
             g_p, loss_p = weight_grads(torch, task32, batches, half)
         rels = {}
@@ -2101,8 +2128,6 @@ def training_phase(torch, dev, smi, counters, task32, unet_cpu, vae_cpu, per_for
         ShapeNetDataset.__getitem__, pipeline.collate = item, collate
         CheckpointManager.save, CheckpointManager.restore_with_ema = timed_save, timed_restore
         try:
-            for fn in counters:
-                fn.launches = 0
             counts0 = counters_now()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -2110,7 +2135,7 @@ def training_phase(torch, dev, smi, counters, task32, unet_cpu, vae_cpu, per_for
                                                  f"trainer.checkpoint_every_n_steps={TRAIN_CKPT}"])
             torch.cuda.synchronize()
             wall_a = time.perf_counter() - t0
-            out["launches"] = {fn.__name__: fn.launches for fn in counters}
+            out["launches"] = kernel_launches(counts0)
             out["recomputes"] = {"K3": counted("k3.recomputes", counts0), "K2": counted("k2.recomputes", counts0),
                                  "K1": 0}
             peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2143,7 +2168,7 @@ def training_phase(torch, dev, smi, counters, task32, unet_cpu, vae_cpu, per_for
         export_gb = sum((exports / n).stat().st_size for n in ("final_params.pth", "final_params_ema.pth")) / 1e9
         rates = [r["steps_per_sec"] for r in rec_a if "steps_per_sec" in r and r["step"] > 1]
         step_ms = 1000 / float(np.median(rates))
-        ok = (all(out["launches"].values()) and all(np.isfinite(list(loss_a.values()))) and len(loss_a) == TRAIN_STEPS
+        ok = (all_launched(out["launches"]) and all(np.isfinite(list(loss_a.values()))) and len(loss_a) == TRAIN_STEPS
               and state_a.step == state_b.step == TRAIN_STEPS and resumed and worst <= RESUME_LOSS_RTOL and same_stream
               and len(val_a) == 1 and [s for s, _, _ in saves] == [TRAIN_CKPT, TRAIN_STEPS] and len(restores) == 1
               and loaded)
@@ -2289,8 +2314,6 @@ def parallel_rank(rank, world, init_method, plan):
     returns the numbers, every rank its kernels' launches per path."""
     global IMAGE, LATENT
     sys.path.insert(0, str(ROOT))
-    import tempfile
-
     import torch
 
     from nope_tpu_torch.cli import train as train_cli
@@ -2299,9 +2322,6 @@ def parallel_rank(rank, world, init_method, plan):
     from nope_tpu_torch.data.pipeline import DataLoader
     from nope_tpu_torch.evaluation.geodesic import evaluate_geodesic
     from nope_tpu_torch.models.factory import build_task
-    from nope_tpu_torch.ops import fused_resnet as fr
-    from nope_tpu_torch.ops import linear_attention as la
-    from nope_tpu_torch.ops import similarity as sim
     from nope_tpu_torch.parallel.eval import make_sharded_streaming_eval_fn
     from nope_tpu_torch.parallel.mesh import create_mesh, initialize_distributed, process_barrier, shard_batch
     from nope_tpu_torch.parallel.zero import zero1_state_shardings
@@ -2315,20 +2335,18 @@ def parallel_rank(rank, world, init_method, plan):
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     dev = initialize_distributed("gloo", plan["device"], init_method, rank, world)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    counters = (sim.reference_similarity, la.linear_attention_inner, fr.resnet_block)
     cfg = load_config(None, plan["overrides"])
     task32 = build_task(cfg.model, dev, torch.Generator().manual_seed(0))
     out = {"launches": {}, "seconds": {}}
 
     def counted(name, fn):
-        for c in counters:
-            c.launches = 0
+        before = counters_now()
         sync()
         t0 = time.perf_counter()
         result = fn()
         sync()
         out["seconds"][name] = time.perf_counter() - t0
-        out["launches"][name] = {c.__name__: c.launches for c in counters}
+        out["launches"][name] = kernel_launches(before)
         return result
 
     # the data-parallel step: fp32 and bf16, ZeRO-1; global B = PAR_BATCH, half a rank
@@ -2429,7 +2447,7 @@ def parallel_rank(rank, world, init_method, plan):
     return out
 
 
-def parallel_phase(torch, dev, smi, counters, task32, half, grids, phase9_step_ms, backend="nccl",
+def parallel_phase(torch, dev, smi, task32, half, grids, phase9_step_ms, backend="nccl",
                    rank_device="cuda:0", overrides=()):
     """Phase 10: the parallel paths at full width.  (a) one rank of an
     NCCL group in this process; (b) two fresh ranks on this card in a
@@ -2445,14 +2463,13 @@ def parallel_phase(torch, dev, smi, counters, task32, half, grids, phase9_step_m
     from nope_tpu_torch.training import train_state
 
     print(f"phase 10: the parallel paths (full width, seeded random weights; cuDNN deterministic) [{smi}]")
-    names = [fn.__name__ for fn in counters]
-    out = {"a": dict.fromkeys(names, 0), "b": dict.fromkeys(names, 0)}
+    out = {"a": dict.fromkeys(LAUNCH_COUNTERS, 0), "b": dict.fromkeys(LAUNCH_COUNTERS, 0)}
     saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
 
-    def launches():
+    def launches(since):
         torch.cuda.synchronize()
-        got = {fn.__name__: fn.launches for fn in counters}
+        got = kernel_launches(since)
         for k, v in got.items():
             out["a"][k] += v
         return got
@@ -2472,10 +2489,9 @@ def parallel_phase(torch, dev, smi, counters, task32, half, grids, phase9_step_m
 
             one, loss_one, step_one = bf16(None)
             again, loss_again, _ = bf16(None)
-            for fn in counters:
-                fn.launches = 0
+            before = counters_now()
             dp, loss_dp, step_dp = bf16(mesh)
-            got = launches()
+            got = launches(before)
             d_dp, d_rep = _max_diff(dp.unet, one.unet), _max_diff(again.unet, one.unet)
             # the train step runs K3 and K2 (K1 scores retrieval only)
             ok = (d_dp <= d_rep and abs(loss_dp - loss_one) <= abs(loss_again - loss_one)
@@ -2504,15 +2520,14 @@ def parallel_phase(torch, dev, smi, counters, task32, half, grids, phase9_step_m
             torch.cuda.empty_cache()
             hb = eval_batch(torch, grids[FULL_N], PAR_BATCH, 97)
             run = make_sharded_streaming_eval_fn(half, mesh, chunk_size=31)
-            for fn in counters:
-                fn.launches = 0
+            before = counters_now()
             sim_p, idx_p = run(hb["reference"], hb["query"], hb["all_relativeR"])
-            got = launches()
+            got = launches(before)
             db = on_device(torch, hb, dev, torch.bfloat16)
             sim_w, idx_w = half.retrieve_streaming(db["query"], db["reference"], db["all_relativeR"], 31)
             err, rel = rel_err(sim_p, sim_w)
             same = torch.equal(idx_p, idx_w)
-            ok = rel <= BF16_SIM_RTOL and same and all(got.values())
+            ok = rel <= BF16_SIM_RTOL and same and all_launched(got)
             print(f"  (a) make_sharded_streaming_eval_fn, mesh (1, 1), bf16 B={PAR_BATCH} N={FULL_N} chunk_size 31 vs "
                   f"retrieve_streaming: max_abs {err:.3e} rel {rel:.3e} (tol {BF16_SIM_RTOL:.0e}), top-k "
                   f"{'equal' if same else 'DIFFER'}; launches {got} {'ok' if ok else 'FAIL'}")
@@ -2603,7 +2618,7 @@ def parallel_phase(torch, dev, smi, counters, task32, half, grids, phase9_step_m
           f"{worst:.3e} (tol {RESUME_LOSS_RTOL:.0e}) {'ok' if ok else 'FAIL'}")
     print(f"  launches over (a): {out['a']}; over (b), both ranks: {out['b']}")
     failed = [name for name, good in checks if not good]
-    if failed or not all(out["b"].values()):
+    if failed or not all_launched(out["b"]):
         raise RuntimeError(f"phase 10 (b) failed: {failed or out['b']}")
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
     return out
@@ -2777,7 +2792,7 @@ def zoo_plain_check(torch, name, task32, half, batch, chunk, est26, q64, res):
         raise RuntimeError(f"{name}: the kernels disagree with their plain versions at phase 11's shapes")
 
 
-def model_zoo_phase(torch, dev, smi, counters):
+def model_zoo_phase(torch, dev, smi):
     """Phase 11: the LDM preset, the ADM variant and ``template_base`` at
     full width with seeded weights (the factory's zero layers overwritten
     by noise).  Returns each configuration's kernel launches over (b)."""
@@ -2821,8 +2836,7 @@ def model_zoo_phase(torch, dev, smi, counters):
         del unet_cpu, enc_cpu, pred_cpu, lat_cpu
 
         # (b) bf16 serving and the eval step, every kernel counted over them
-        for fn in counters:
-            fn.launches = 0
+        counts0 = counters_now()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         est26 = None
@@ -2859,15 +2873,17 @@ def model_zoo_phase(torch, dev, smi, counters):
             torch.cuda.synchronize()
         finally:
             hook.remove()
-        nhwc = counted("ldm_res.nhwc_norms", before)
+        nhwc, pair = counted("ldm_res.nhwc_norms", before), counted("gn_nhwc.launches", before)
+        encodes = counted("vae.tf32x3_convs", before) / VAE_ROUTED  # the float32 loss's VAE encodes
         peak = torch.cuda.max_memory_allocated() / 2**30
-        launches = out[name] = {fn.__name__: fn.launches for fn in counters}
-        launches[NHWC_NORM_ROW] = nhwc
+        launches = out[name] = kernel_launches(counts0)
         want = len(forwards) * NHWC_NORMS_A_FORWARD.get(name, 0)
+        ok = nhwc == want and pair == want + VAE_NORMS * encodes and forwards
         print(f"    (b) one eval step: {len(forwards)} bf16 U-Net forwards, {nhwc} GroupNorms on the channels-last "
-              f"pair (ldm_res.nhwc_norms; want {want}) {'ok' if nhwc == want and forwards else 'FAIL'}")
-        if nhwc != want or not forwards:
-            raise RuntimeError(f"{name}: the eval step's res blocks took other GroupNorm routes")
+              f"pair (ldm_res.nhwc_norms; want {want}); {pair} launches of the pair (gn_nhwc.launches; want {want} + "
+              f"{VAE_NORMS} x {encodes:g} float32 VAE encodes) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{name}: the eval step's res blocks or VAE took other GroupNorm routes")
         sim_ = res["similarity"]
         ok = (sim_.shape == (b, FAST_N) and torch.isfinite(sim_).all().item() and torch.isfinite(res["loss"]).item()
               and int(res["nearest_idx"].max()) < FAST_N and launches["reference_similarity"] > 0
@@ -3020,7 +3036,7 @@ def bop_kernel_times(torch, smi, dev, k3_calls, k2_calls, check):
     return out
 
 
-def bop_phase(torch, dev, smi, counters, k3_calls, k2_calls, check, overrides=(), device_flag="cuda"):
+def bop_phase(torch, dev, smi, k3_calls, k2_calls, check, overrides=(), device_flag="cuda"):
     """Phase 12: the BOP / T-LESS VSD path.  (a) a procedural T-LESS root
     and the GT-pose VSD of every instance; (b) ``cli.export`` of seeded
     reference-format weights; (c) ``cli.test_bop.main`` in fp32, the bank
@@ -3038,7 +3054,6 @@ def bop_phase(torch, dev, smi, counters, k3_calls, k2_calls, check, overrides=()
     from nope_tpu_torch.data.pipeline import collate
     from nope_tpu_torch.evaluation import vsd
     from nope_tpu_torch.models.factory import build_task
-    from nope_tpu_torch.ops import fused_resnet as fr
     from nope_tpu_torch.tasks.pose_conditional import PoseConditionalTask
     from nope_tpu_torch.training import optim, train_state
     from nope_tpu_torch.training.checkpoint import restore_params
@@ -3098,11 +3113,9 @@ def bop_phase(torch, dev, smi, counters, k3_calls, k2_calls, check, overrides=()
         flags = ["--renderer", "numpy", "--device", device_flag, "--num-workers", "0"]  # flags before overrides
         base = [*overrides, f"model.checkpoint_path={paths['ckpt']}", f"data.datasets.tless.root_dir={root}",
                 "data.datasets.tless.split=test_primesense", f"machine.batch_size={BOP_BATCH}", "machine.num_workers=4"]
-        runs, total, tf32x3 = {}, {fn.__name__: 0 for fn in counters}, 0
+        runs, total, tf32x3 = {}, dict.fromkeys(LAUNCH_COUNTERS, 0), 0
         for chunk in (BOP_CHUNK, None):
             record = {"card_ms": [], "vsd_ms": [], "sim": [], "idx": []}
-            for fn in counters:
-                fn.launches = 0
             counts0 = counters_now()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -3112,7 +3125,7 @@ def bop_phase(torch, dev, smi, counters, k3_calls, k2_calls, check, overrides=()
                                        + [f"save_dir={os.path.join(tmp, f'out_{chunk}')}"])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = {fn.__name__: fn.launches for fn in counters}
+            launches = kernel_launches(counts0)
             for k, v in launches.items():
                 total[k] += v
             t3 = counted("k3.tf32x3_launches", counts0)
@@ -3123,7 +3136,8 @@ def bop_phase(torch, dev, smi, counters, k3_calls, k2_calls, check, overrides=()
             peak = torch.cuda.max_memory_allocated() / 2**30
             runs[chunk] = (scores, torch.cat(record["sim"]), torch.cat(record["idx"]))
             batches = len(record["card_ms"])
-            ok = (set(scores) == VSD_KEYS and np.isfinite(list(scores.values())).all() and all(launches.values())
+            ok = (set(scores) == VSD_KEYS and np.isfinite(list(scores.values())).all()
+                  and all_launched(launches, pair=True)
                   and batches == -(-n // BOP_BATCH) and len(runs[chunk][1]) == n)
             print(f"  (c) cli.test_bop.main fp32, chunk_size {chunk}: {n} queries in {wall:.2f} s "
                   f"({n / wall:.2f} img/s, model build and checkpoint load included); per batch of {BOP_BATCH} "
@@ -3359,7 +3373,7 @@ def trace_kernels(log_dir):
     return kernels
 
 
-def tools_phase(torch, dev, smi, counters, phase9_step_ms):
+def tools_phase(torch, dev, smi, phase9_step_ms):
     """Phase 13: the port's tools on the card.  (a) ``utils.profiling.trace`` of one
     ``register_object`` and one ``estimate`` (B=8) of a seeded flagship ``PoseEstimator`` (bf16, N=26):
     its trace must name kernels of K1, K2 and K3, and the launch counts match an untraced run; (b)
@@ -3384,12 +3398,10 @@ def tools_phase(torch, dev, smi, counters, phase9_step_ms):
     out = {}
 
     def run(label, fn):
-        for c in counters:
-            c.launches = 0
+        before = counters_now()
         result = fn()
         torch.cuda.synchronize()
-        got = {c.__name__: c.launches for c in counters}
-        out[label] = got
+        got = out[label] = kernel_launches(before)
         return result, got
 
     # (a) the profiler's trace of the serving path
@@ -3418,7 +3430,7 @@ def tools_phase(torch, dev, smi, counters, phase9_step_ms):
     del out["a untraced"]
     named = {k: {n: v for n, v in kernels.items() if any(s in n for s in names)}
              for k, names in (("K1", K1_KERNELS), ("K2", K2_KERNELS), ("K3", K3_KERNELS))}
-    ok = (all(named.values()) and traced == untraced and all(traced.values())
+    ok = (all(named.values()) and traced == untraced and all_launched(traced)
           and result.nearest_idx.shape == (QUERIES, 5) and np.isfinite(result.similarity).all()
           and norms == {"gn_silu": chained, "gn_finalize": chained} and fused > 0)
     print(f"  (a) profiling.trace of register_object + estimate (bf16, N={FAST_N}, B={QUERIES}): one .pt.trace.json, "
@@ -3520,7 +3532,7 @@ def tools_phase(torch, dev, smi, counters, phase9_step_ms):
             step_ms = 1000 / float(np.median(rates))
             val = [r for r in rec if any(k.startswith("val") for k in r)]
             ok = (len(losses) == GEN_STEPS and all(np.isfinite(losses)) and len(val) == 1
-                  and all(launches[c.__name__] for c in counters))
+                  and all_launched(launches))
             print(f"      cli.train machine.loader={loader} num_workers={workers}, bf16, B={TRAIN_BATCH}: losses "
                   f"{[round(x, 5) for x in losses]}, validation at step {GEN_STEPS}: {'yes' if val else 'MISSING'}; "
                   f"{step_ms:.2f} ms a step (median of steps 2-{GEN_STEPS}, host clock); the card waits on the host "
@@ -3713,6 +3725,7 @@ def main() -> int:
     torch.cuda.synchronize()
     vae_convs, vae_norms = vae_route_checks(torch, F, fr, dev, task32.vae, check)
     gn_seen = nhwc_norm_counts(torch, fr, dev)
+    gn_seen["sd_vae_float32"] = vae_norms
     gn_checks = nhwc_norm_checks(torch, F, fr, dev, check, gn_seen)
     # the evaluation program's U-Net batches, bf16: inputs up to 2.6 GB,
     # drawn on the card; K3 at every block shape (its tiles hold whole image
@@ -3783,8 +3796,9 @@ def main() -> int:
           f" (shape, batch) and {len(K3_GROUP_SHAPES) * len(K3_BATCHES)} at other GroupNorm widths; K3 fp32: every "
           f"block ran the 3xTF32 route, two launches bitwise equal at all "
           f"{(len(k3_shapes) + len(K3_GROUP_SHAPES)) * len(K3_BATCHES)}, and the conv alone at {len(convs)} shapes "
-          f"and at the float32 VAE's {vae_convs} (B={VAE_BATCH}, with its {vae_norms} NHWC GroupNorms)")
-    print(f"  GN (the channels-last GroupNorm pair) bf16: two launches bitwise equal at all {gn_checks} shapes")
+          f"and at the float32 VAE's {vae_convs} (B={VAE_BATCH})")
+    print(f"  GN (the channels-last GroupNorm pair) bf16 and float32 (the VAE's {len(set(vae_norms))} at B={VAE_BATCH}): "
+          f"two launches bitwise equal at all {gn_checks} shapes")
     print(f"  K1 and K2, both dtypes: two launches bitwise equal at all {len(K1_SHAPES) + len(K1_CHANNELS)} and "
           f"{len(K2_ITEMS) * len(k2_tokens)} shapes; K2 bf16 also at {len(CHECK_ITEMS) * len(k2_tokens)}")
 
@@ -3802,9 +3816,6 @@ def main() -> int:
         (dt, n): PoseEstimator(variant(dt == "bfloat16"), fast_evaluation=(n == FAST_N))
         for dt in ("bfloat16", "float32") for n in (FAST_N, FULL_N)
     }
-    counters = (sim.reference_similarity, la.linear_attention_inner, fr.resnet_block)
-    for fn in counters:
-        fn.launches = 0
     counts0 = counters_now()
     answers = {}
     t0 = time.perf_counter()
@@ -3812,11 +3823,11 @@ def main() -> int:
         est.register_object("object", ref_image)
         answers[(dt, n)] = [est.estimate("object", q) for q in requests]
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = kernel_launches(counts0)
     tc, serve_tf32x3 = counted("k3.tensor_core_launches", counts0), counted("k3.tf32x3_launches", counts0)
     print(f"  4 registrations + {4 * REQUESTS} requests: {time.perf_counter() - t0:.1f} s; launches {launches}; "
           f"K3 on the tensor cores: bf16 {tc}, float32 in 3xTF32 {serve_tf32x3}")
-    if not all(launches.values()) or not tc or not serve_tf32x3:
+    if not all_launched(launches) or not tc or not serve_tf32x3:
         raise RuntimeError(f"a kernel of the main path never launched: {launches}, tensor-core K3 {tc}, "
                            f"3xTF32 K3 {serve_tf32x3}")
     if tc + serve_tf32x3 != launches["resnet_block"]:
@@ -3984,7 +3995,7 @@ def main() -> int:
 
     # -- phase 6, then the evaluation program's timings (4b) and profile (5b) --
     grids = {n: estimators[("bfloat16", n)].template_poses for n in (FAST_N, FULL_N)}
-    ev = evaluation_phase(torch, dev, task32, variant, grids, counters, unet_cpu, vae_cpu, rng)
+    ev = evaluation_phase(torch, dev, task32, variant, grids, unet_cpu, vae_cpu, rng)
     print(f"phase 4b: timings of the evaluation program on {smi} (CUDA events after warm-up, median of 3)")
     half, eval_dev = ev["half"], {}
     for name, (b, n, _) in EVAL.items():
@@ -4013,30 +4024,30 @@ def main() -> int:
                    lambda: estimators[("bfloat16", FAST_N)].estimate("object", requests[0], refine_steps=4), top=10)
 
     # -- phase 7: refinement ---------------------------------------------------
-    rf = refinement_phase(torch, dev, task32, half, estimators, cpu_est, ev["gallery"], grids, requests, counters,
+    rf = refinement_phase(torch, dev, task32, half, estimators, cpu_est, ev["gallery"], grids, requests,
                           k2_calls, k3_calls, gen)
 
     # -- phase 8: the evaluation CLI ---------------------------------------------
-    cli_launches = cli_phase(torch, dev, smi, counters, task32, half, native_build)
+    cli_launches = cli_phase(torch, dev, smi, task32, half, native_build)
 
     # -- phase 9: training -------------------------------------------------------
-    tr = training_phase(torch, dev, smi, counters, task32, unet_cpu, vae_cpu, (len(k3_calls), len(k2_calls)))
+    tr = training_phase(torch, dev, smi, task32, unet_cpu, vae_cpu, (len(k3_calls), len(k2_calls)))
 
     # -- phase 10: the parallel paths ---------------------------------------------
-    par = parallel_phase(torch, dev, smi, counters, task32, half, grids, tr["timings"]["step_ms"])
+    par = parallel_phase(torch, dev, smi, task32, half, grids, tr["timings"]["step_ms"])
 
     # -- phase 11: the model zoo ------------------------------------------------------
     del estimators, cpu_est, eval_dev, half  # the flagship's banks and copies: phase 11 builds its own tasks
     for key in ("gallery", "batches", "half"):
         ev.pop(key, None)
     torch.cuda.empty_cache()
-    zoo = model_zoo_phase(torch, dev, smi, counters)
+    zoo = model_zoo_phase(torch, dev, smi)
 
     # -- phase 12: the BOP / T-LESS path ---------------------------------------------------
-    bop = bop_phase(torch, dev, smi, counters, k3_calls, k2_calls, check)
+    bop = bop_phase(torch, dev, smi, k3_calls, k2_calls, check)
 
     # -- phase 13: the port's tools ------------------------------------------------------------------
-    tools = tools_phase(torch, dev, smi, counters, tr["timings"]["step_ms"])
+    tools = tools_phase(torch, dev, smi, tr["timings"]["step_ms"])
 
     table = [
         ("reference_similarity", "K1", "nope_tpu_torch/csrc/similarity.cu",
@@ -4071,6 +4082,7 @@ def main() -> int:
          "replaces": "XLA's GroupNorm, FiLM and SiLU in nope_tpu/models/ldm_unet.py:32 (no kernel)",
          "launches": {name: len(calls) for name, calls in gn_seen.items()}, "max_abs_err": worst["GN"],
          **gn_ms["vae_guidedDiffusion"], "bound_by": "bytes", "per_forward": gn_ms,
+         "eval_launches": ev["launches"][NHWC_NORM_ROW], "bop_launches": bop["launches"][NHWC_NORM_ROW],
          "zoo_launches": {name: zoo[name][NHWC_NORM_ROW] for name in ZOO_EVAL}}
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -349,61 +349,87 @@ gn_silu_kernel(const float* __restrict__ h, const float* __restrict__ mean,
 }
 
 // ---------------------------------------------------------------------------
-// GroupNorm + SiLU of channels-last bf16 activations, with an addend before
-// the statistics or a FiLM after them: the res blocks of the LDM and the ADM
-// (models/ldm_unet.py LDMResBlock)
+// GroupNorm + SiLU of channels-last float32 or bf16 activations, with an
+// addend before the statistics or a FiLM after them: the bf16 res blocks of
+// the LDM and the ADM (models/ldm_unet.py LDMResBlock) and the float32
+// SD-VAE's norms before its 3xTF32 convs (models/vae.py)
 // ---------------------------------------------------------------------------
 //
 // Replaces no TPU kernel: JAX computes these blocks as XLA ops.  Added
 // because in PyTorch nn.GroupNorm hands a channels-last tensor back NCHW,
 // so each conv after it paid cuDNN's two layout transposes, and the norm,
-// the FiLM and the SiLU were a bf16 pass each (PERF.md).  What bounds the
-// pair is bytes: the statistics read x once, the apply kernel reads it once
-// more and writes the output, 6 bytes an element.
+// the FiLM and the SiLU were a bf16 pass each (PERF.md).  The pair serves
+// the LDM's and the ADM's bf16 res blocks and the float32 SD-VAE's
+// GroupNorm + SiLU before its 3xTF32 convs: x and the output are float32
+// or bf16 (one dtype code), statistics and tables float32.  What bounds
+// the pair is bytes: the statistics read x once, the apply kernel reads it
+// once more and writes the output, 3 x's element size an element.
 //
-//   gn_nhwc_stats  blocks of (C / 8, ny) threads, ny = 256 / (C / 8): a
-//                  thread loads 8 channels (16 bytes) of kNormRows pixels
-//                  a step, so each warp reads whole pixel rows.  A step's
-//                  values stay in registers for two passes (its group
-//                  means, then the squared deviations from them); lane g
-//                  of warp 0 sums group g's threads in a fixed order and
-//                  merges the step into the group's (count, mean, M2) by
-//                  Chan's formula.  A block takes `span` pixels of one
-//                  sample and writes a partial a group; a sample splits
-//                  into spans only where the batch alone would not fill
-//                  the card.
+//   gn_nhwc_stats  blocks of (C / V, ny) threads, ny = 256 / (C / V): a
+//                  thread loads one 16-byte vector of V channels (8 bf16
+//                  or 4 float32) of kNormRows pixels a step, so each warp
+//                  reads whole pixel rows.  A step's values stay in
+//                  registers for two passes (its group means, then the
+//                  squared deviations from them); lane g of warp 0 sums
+//                  group g's threads in a fixed order and merges the step
+//                  into the group's (count, mean, M2) by Chan's formula.
+//                  A block takes `span` pixels of one sample and writes a
+//                  partial a group; a sample splits into spans only where
+//                  the batch alone would not fill the card.
 //   gn_nhwc_apply  the same blocks over the same spans: lane g merges the
 //                  sample's partials in span order; each thread folds the
 //                  affine, the addend e and the FiLM (scale, shift) into
-//                  a, d for its 8 channels,
-//                      a = rstd·gamma·(1 + scale)
-//                      d = (beta + (e - mean)·rstd·gamma)·(1 + scale) + shift,
-//                  and streams out = SiLU(x·a + d) in bf16, 16 bytes a load
-//                  and a store.
+//                  m, a, d for its V channels,
+//                      m = mean - e,  a = rstd·gamma·(1 + scale)
+//                      d = beta·(1 + scale) + shift,
+//                  and streams out = SiLU((x - m)·a + d) in x's dtype, 16
+//                  bytes a load and a store.  x is centred before the
+//                  scale, so a group whose mean is far above its spread
+//                  loses no more than nn.GroupNorm does.
 // No atomics: every sum is in a fixed order, so a launch repeats bitwise.
 
-constexpr int kNormVec = 8;         // bf16 channels a thread loads at once (16 bytes)
 constexpr int kNormRows = 8;        // pixels a thread holds per step
-constexpr int kNormThreads = 256;   // C / 8 threads across a pixel, ny pixels deep
+constexpr int kNormThreads = 256;   // C / V threads across a pixel, ny pixels deep
 constexpr int kNormMaxGroups = 32;  // the groups warp 0's lanes merge
 
-__device__ __forceinline__ void unpack8(const uint4& raw, float (&v)[kNormVec]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
+// A thread's 16-byte vector of the pair, as kV float32 values
+template <typename T>
+struct NormVec;
 
-__device__ __forceinline__ uint4 pack8(const float (&v)[kNormVec]) {
-  uint4 raw;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+template <>
+struct NormVec<__nv_bfloat16> {
+  static constexpr int kV = 8;
+  static __device__ __forceinline__ void load(const uint4& raw, float (&v)[kV]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  return raw;
-}
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ uint4 store(const float (&v)[kV]) {
+    uint4 raw;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    return raw;
+  }
+};
+
+template <>
+struct NormVec<float> {
+  static constexpr int kV = 4;
+  static __device__ __forceinline__ void load(const uint4& raw, float (&v)[kV]) {
+    v[0] = __uint_as_float(raw.x);
+    v[1] = __uint_as_float(raw.y);
+    v[2] = __uint_as_float(raw.z);
+    v[3] = __uint_as_float(raw.w);
+  }
+  static __device__ __forceinline__ uint4 store(const float (&v)[kV]) {
+    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]), __float_as_uint(v[3]));
+  }
+};
 
 // Sum of red over group g's threads (vg vectors of each of ny pixel rows),
 // in a fixed order
@@ -416,18 +442,21 @@ __device__ __forceinline__ float group_sum(const float* red, int g, int vg, int 
 
 // part[b, k, g] = (count, mean, M2) of group g of (x + addend[b]) over
 // pixels [k·span, (k + 1)·span) of sample b
+template <typename T>
 __global__ void __launch_bounds__(kNormThreads)
-gn_nhwc_stats_kernel(const __nv_bfloat16* __restrict__ x, const void* __restrict__ addend, int adt,
+gn_nhwc_stats_kernel(const void* __restrict__ xv, const void* __restrict__ addend, int adt,
                      float* __restrict__ part, int B, int HW, int C, int G, int span, int splits) {
+  const T* __restrict__ x = static_cast<const T*>(xv);
+  constexpr int kV = NormVec<T>::kV;
   __shared__ float red[kNormThreads];
   __shared__ float gmean[kNormMaxGroups];
   const int V = blockDim.x, ny = blockDim.y, ty = threadIdx.y, tid = ty * V + threadIdx.x;
-  const int c = kNormVec * threadIdx.x, vg = C / (G * kNormVec), g = threadIdx.x / vg;
+  const int c = kV * threadIdx.x, vg = C / (G * kV), g = threadIdx.x / vg;
   const int p0 = blockIdx.x * span, p1 = min(HW, p0 + span), rows = ny * kNormRows;
   for (int b = blockIdx.y; b < B; b += gridDim.y) {
-    float e[kNormVec];
+    float e[kV];
 #pragma unroll
-    for (int j = 0; j < kNormVec; ++j)
+    for (int j = 0; j < kV; ++j)
       e[j] = addend != nullptr ? load_f(addend, static_cast<size_t>(b) * C + c + j, adt) : 0.f;
     float n = 0.f, mu = 0.f, m2 = 0.f;  // lane g of warp 0: group g so far
     for (int t0 = p0; t0 < p1; t0 += rows) {
@@ -439,39 +468,39 @@ gn_nhwc_stats_kernel(const __nv_bfloat16* __restrict__ x, const void* __restrict
         raw[r] = p < valid ? *reinterpret_cast<const uint4*>(x + (static_cast<size_t>(b) * HW + t0 + p) * C + c)
                            : make_uint4(0u, 0u, 0u, 0u);
       }
-      float s[kNormVec] = {};
+      float s[kV] = {};
 #pragma unroll
       for (int r = 0; r < kNormRows; ++r) {
         if (r * ny + ty >= valid) continue;
-        float v[kNormVec];
-        unpack8(raw[r], v);
+        float v[kV];
+        NormVec<T>::load(raw[r], v);
 #pragma unroll
-        for (int j = 0; j < kNormVec; ++j) s[j] = __fadd_rn(s[j], __fadd_rn(v[j], e[j]));
+        for (int j = 0; j < kV; ++j) s[j] = __fadd_rn(s[j], __fadd_rn(v[j], e[j]));
       }
       float t = 0.f;
 #pragma unroll
-      for (int j = 0; j < kNormVec; ++j) t = __fadd_rn(t, s[j]);
+      for (int j = 0; j < kV; ++j) t = __fadd_rn(t, s[j]);
       red[tid] = t;
       __syncthreads();
-      const float cnt = static_cast<float>(valid) * static_cast<float>(vg * kNormVec);  // a group's elements
+      const float cnt = static_cast<float>(valid) * static_cast<float>(vg * kV);  // a group's elements
       if (tid < G) gmean[tid] = __fdiv_rn(group_sum(red, tid, vg, V, ny), cnt);
       __syncthreads();
       const float m = gmean[g];
-      float q[kNormVec] = {};
+      float q[kV] = {};
 #pragma unroll
       for (int r = 0; r < kNormRows; ++r) {
         if (r * ny + ty >= valid) continue;
-        float v[kNormVec];
-        unpack8(raw[r], v);
+        float v[kV];
+        NormVec<T>::load(raw[r], v);
 #pragma unroll
-        for (int j = 0; j < kNormVec; ++j) {
+        for (int j = 0; j < kV; ++j) {
           const float d = __fsub_rn(__fadd_rn(v[j], e[j]), m);
           q[j] = __fmaf_rn(d, d, q[j]);
         }
       }
       t = 0.f;
 #pragma unroll
-      for (int j = 0; j < kNormVec; ++j) t = __fadd_rn(t, q[j]);
+      for (int j = 0; j < kV; ++j) t = __fadd_rn(t, q[j]);
       red[tid] = t;
       __syncthreads();
       if (tid < G) chan_merge(n, mu, m2, cnt, gmean[tid], group_sum(red, tid, vg, V, ny));
@@ -486,22 +515,26 @@ gn_nhwc_stats_kernel(const __nv_bfloat16* __restrict__ x, const void* __restrict
   }
 }
 
-// out = SiLU(x·a[b, c] + d[b, c]) over the pixels of the stats kernel's
+// out (x's dtype) = SiLU((x - m[b, c])·a[b, c] + d[b, c]) over the pixels of the stats kernel's
 // spans; gamma, beta (C) of dtype pdt; addend (B, C) of dtype adt and film
 // (B, 2C) = [scale | shift] of dtype fdt, each or both null
+template <typename T>
 __global__ void __launch_bounds__(kNormThreads)
-gn_nhwc_apply_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ part,
+gn_nhwc_apply_kernel(const void* __restrict__ xv, const float* __restrict__ part,
                      const void* __restrict__ gamma, const void* __restrict__ beta, int pdt,
                      const void* __restrict__ addend, int adt, const void* __restrict__ film, int fdt,
-                     __nv_bfloat16* __restrict__ out, int B, int HW, int C, int G, int span, int splits,
+                     void* __restrict__ outv, int B, int HW, int C, int G, int span, int splits,
                      float eps) {
+  const T* __restrict__ x = static_cast<const T*>(xv);
+  T* __restrict__ out = static_cast<T*>(outv);
+  constexpr int kV = NormVec<T>::kV;
   __shared__ float stat[2 * kNormMaxGroups];
   const int V = blockDim.x, ny = blockDim.y, ty = threadIdx.y, tid = ty * V + threadIdx.x;
-  const int c = kNormVec * threadIdx.x, g = threadIdx.x / (C / (G * kNormVec));
+  const int c = kV * threadIdx.x, g = threadIdx.x / (C / (G * kV));
   const int p0 = blockIdx.x * span, p1 = min(HW, p0 + span), rows = ny * kNormRows;
-  float gam[kNormVec], bet[kNormVec];
+  float gam[kV], bet[kV];
 #pragma unroll
-  for (int j = 0; j < kNormVec; ++j) {
+  for (int j = 0; j < kV; ++j) {
     gam[j] = load_f(gamma, c + j, pdt);
     bet[j] = load_f(beta, c + j, pdt);
   }
@@ -515,18 +548,17 @@ gn_nhwc_apply_kernel(const __nv_bfloat16* __restrict__ x, const float* __restric
     }
     __syncthreads();
     const float mu = stat[2 * g], rs = stat[2 * g + 1];
-    float a[kNormVec], d[kNormVec];
+    float m[kV], a[kV], d[kV];
 #pragma unroll
-    for (int j = 0; j < kNormVec; ++j) {
+    for (int j = 0; j < kV; ++j) {
       const size_t bc = static_cast<size_t>(b) * C + c + j;
-      const float sc = __fmul_rn(rs, gam[j]);
-      const float e = addend != nullptr ? load_f(addend, bc, adt) : 0.f;
-      a[j] = sc;
-      d[j] = __fmaf_rn(__fsub_rn(e, mu), sc, bet[j]);
+      m[j] = addend != nullptr ? __fsub_rn(mu, load_f(addend, bc, adt)) : mu;
+      a[j] = __fmul_rn(rs, gam[j]);
+      d[j] = bet[j];
       if (film != nullptr) {
         const size_t f = static_cast<size_t>(b) * 2 * C + c + j;
         const float s1 = __fadd_rn(1.f, load_f(film, f, fdt));
-        a[j] = __fmul_rn(sc, s1);
+        a[j] = __fmul_rn(a[j], s1);
         d[j] = __fmaf_rn(d[j], s1, load_f(film, f + C, fdt));
       }
     }
@@ -543,11 +575,11 @@ gn_nhwc_apply_kernel(const __nv_bfloat16* __restrict__ x, const float* __restric
       for (int r = 0; r < kNormRows; ++r) {
         const int p = t0 + r * ny + ty;
         if (p >= p1) continue;
-        float v[kNormVec];
-        unpack8(raw[r], v);
+        float v[kV];
+        NormVec<T>::load(raw[r], v);
 #pragma unroll
-        for (int j = 0; j < kNormVec; ++j) v[j] = silu(__fmaf_rn(v[j], a[j], d[j]));
-        *reinterpret_cast<uint4*>(out + (static_cast<size_t>(b) * HW + p) * C + c) = pack8(v);
+        for (int j = 0; j < kV; ++j) v[j] = silu(__fmaf_rn(__fsub_rn(v[j], m[j]), a[j], d[j]));
+        *reinterpret_cast<uint4*>(out + (static_cast<size_t>(b) * HW + p) * C + c) = NormVec<T>::store(v);
       }
     }
   }
@@ -1946,42 +1978,45 @@ NOPE_API int nope_gn_silu(const float* h, const float* mean, const float* scale,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The channels-last GroupNorm pair's blocks: (C / 8, 256 / (C / 8)); false
-// where the kernels do not take the shape (C % (8 G), C > 2048, G > 32,
-// spans that do not cover HW exactly once, grid_y out of 1 .. 65,535)
-static bool norm_nhwc_block(int HW, int C, int G, int span, int splits, int grid_y, dim3* block) {
-  if (G < 1 || G > kNormMaxGroups || C % (G * kNormVec) || C / kNormVec > kNormThreads || span < 1 ||
-      splits < 1 || static_cast<long long>(span) * splits < HW || static_cast<long long>(span) * (splits - 1) >= HW ||
-      grid_y < 1 || grid_y > 65535)
+// The channels-last GroupNorm pair's blocks: (C / V, 256 / (C / V)), V the
+// channels of a 16-byte vector of dtype xdt; false where the kernels do not
+// take the shape (C % (V G), C > 256 V, G > 32, spans that do not cover HW
+// exactly once, grid_y out of 1 .. 65,535)
+static bool norm_nhwc_block(int xdt, int HW, int C, int G, int span, int splits, int grid_y, dim3* block) {
+  const int vec = xdt == DT_F32 ? NormVec<float>::kV : NormVec<__nv_bfloat16>::kV;
+  if ((xdt != DT_F32 && xdt != DT_BF16) || G < 1 || G > kNormMaxGroups || C % (G * vec) ||
+      C / vec > kNormThreads || span < 1 || splits < 1 || static_cast<long long>(span) * splits < HW ||
+      static_cast<long long>(span) * (splits - 1) >= HW || grid_y < 1 || grid_y > 65535)
     return false;
-  const int V = C / kNormVec;
-  *block = dim3(V, kNormThreads / V);
+  *block = dim3(C / vec, kNormThreads / (C / vec));
   return true;
 }
 
-// x: (B, HW, C) bf16, channels-last; addend: (B, C) of dtype adt, or null;
-// part: (B, splits, G, 3) float32, (count, mean, M2) of each span of `span`
-// pixels.  grid_y blocks share the B samples along the grid's y axis.
-NOPE_API int nope_gn_nhwc_stats(const void* x, const void* addend, int adt, float* part, int B, int HW, int C,
-                                int G, int span, int splits, int grid_y, void* stream) {
+// x: (B, HW, C) channels-last, float32 or bf16 (dtype code xdt); addend:
+// (B, C) of dtype adt, or null; part: (B, splits, G, 3) float32, (count,
+// mean, M2) of each span of `span` pixels.  grid_y blocks share the B
+// samples along the grid's y axis.
+NOPE_API int nope_gn_nhwc_stats(const void* x, int xdt, const void* addend, int adt, float* part, int B, int HW,
+                                int C, int G, int span, int splits, int grid_y, void* stream) {
   dim3 block;
-  if (!norm_nhwc_block(HW, C, G, span, splits, grid_y, &block)) return static_cast<int>(cudaErrorInvalidValue);
-  gn_nhwc_stats_kernel<<<dim3(splits, grid_y), block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), addend, adt, part, B, HW, C, G, span, splits);
+  if (!norm_nhwc_block(xdt, HW, C, G, span, splits, grid_y, &block)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = xdt == DT_F32 ? gn_nhwc_stats_kernel<float> : gn_nhwc_stats_kernel<__nv_bfloat16>;
+  kernel<<<dim3(splits, grid_y), block, 0, static_cast<cudaStream_t>(stream)>>>(x, addend, adt, part, B, HW, C, G,
+                                                                               span, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
-// out (B, HW, C) bf16 = SiLU(x·a + d) from nope_gn_nhwc_stats' partials (the
-// same span, splits and addend); gamma, beta of dtype pdt; film (B, 2C) =
-// [scale | shift] of dtype fdt, or null
-NOPE_API int nope_gn_nhwc_apply(const void* x, const float* part, const void* gamma, const void* beta, int pdt,
-                                const void* addend, int adt, const void* film, int fdt, void* out, int B, int HW,
-                                int C, int G, int span, int splits, int grid_y, float eps, void* stream) {
+// out (B, HW, C) in x's dtype = SiLU((x - m)·a + d) from nope_gn_nhwc_stats'
+// partials (the same x, span, splits and addend); gamma, beta of dtype pdt;
+// film (B, 2C) = [scale | shift] of dtype fdt, or null
+NOPE_API int nope_gn_nhwc_apply(const void* x, int xdt, const float* part, const void* gamma, const void* beta,
+                                int pdt, const void* addend, int adt, const void* film, int fdt, void* out, int B,
+                                int HW, int C, int G, int span, int splits, int grid_y, float eps, void* stream) {
   dim3 block;
-  if (!norm_nhwc_block(HW, C, G, span, splits, grid_y, &block)) return static_cast<int>(cudaErrorInvalidValue);
-  gn_nhwc_apply_kernel<<<dim3(splits, grid_y), block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), part, gamma, beta, pdt, addend, adt, film, fdt,
-      static_cast<__nv_bfloat16*>(out), B, HW, C, G, span, splits, eps);
+  if (!norm_nhwc_block(xdt, HW, C, G, span, splits, grid_y, &block)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = xdt == DT_F32 ? gn_nhwc_apply_kernel<float> : gn_nhwc_apply_kernel<__nv_bfloat16>;
+  kernel<<<dim3(splits, grid_y), block, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, part, gamma, beta, pdt, addend, adt, film, fdt, out, B, HW, C, G, span, splits, eps);
   return static_cast<int>(cudaGetLastError());
 }
 

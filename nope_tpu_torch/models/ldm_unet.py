@@ -40,6 +40,7 @@ from torch import nn
 
 from nope_tpu_torch.models.blocks import PoseMLP, nchw, nhwc, zero_module
 from nope_tpu_torch.ops import fused_resnet as fr
+from nope_tpu_torch.utils import profiling
 
 
 class LDMResBlock(nn.Module):
@@ -69,6 +70,7 @@ class LDMResBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         if self._channels_last_routes(x, emb):
+            profiling.count("ldm_res.nhwc_norms", 2)  # its two GroupNorms, on the pair
             return self._forward_channels_last(x, emb)
         h = self.in_layers[1](self.in_layers[0](x))
         if self.up or self.down:

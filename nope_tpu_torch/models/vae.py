@@ -11,8 +11,9 @@ resnets' stride-1 3x3 convs and 1x1 shortcuts at 128-512 channels --
 run on the tensor cores through the hand-written 3xTF32 conv
 (``fused_resnet.conv_tf32x3``, float32's accuracy), over the NHWC view
 of the channels-last activations, and the GroupNorm + SiLU before such
-a conv stays NHWC too (``fused_resnet.group_norm_silu_nhwc``), so the
-route makes no layout copies.  ``conv_in`` (3 channels), the stride-2
+a conv runs there too, on the channels-last GroupNorm kernel pair
+(``fused_resnet.group_norm_film_silu_nhwc``), so the route makes no
+layout copies.  ``conv_in`` (3 channels), the stride-2
 downsamplers, ``conv_out`` (8) and ``quant_conv`` keep cuDNN; bf16,
 the CPU and training keep every op plain.  The counters
 ``vae.tf32x3_convs`` and ``vae.cudnn_convs`` (``utils.profiling``)
@@ -38,12 +39,15 @@ from nope_tpu_torch.utils import profiling
 SD_LATENT_SCALE = 0.18215
 
 
-def _routes(conv: nn.Conv2d, x: torch.Tensor) -> bool:
+def _routes(conv: nn.Conv2d, x: torch.Tensor, norm: Optional[nn.GroupNorm] = None) -> bool:
     """Whether ``conv`` of ``x`` takes the 3xTF32 route
-    (``fused_resnet.tf32x3_routes``); counted by route."""
+    (``fused_resnet.tf32x3_routes``), with ``norm`` before it where the
+    channels-last GroupNorm pair takes it (``fused_resnet.nhwc_norm_fits``);
+    counted by route."""
     grad = torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, conv.weight, conv.bias))
     routed = fr.tf32x3_routes(x.dtype, x.device.type, grad, conv.stride, conv.padding, conv.kernel_size,
-                              conv.in_channels, conv.out_channels)
+                              conv.in_channels, conv.out_channels) and (
+        norm is None or fr.nhwc_norm_fits(x.dtype, norm.num_channels, norm.num_groups))
     if routed:
         profiling.count("vae.tf32x3_convs")
     elif x.dtype == torch.float32 and x.device.type == "cuda":
@@ -62,8 +66,8 @@ def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
 def _norm_silu_conv(norm: nn.GroupNorm, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """``conv(SiLU(norm(x)))``; where ``conv`` is routed, GroupNorm and
     SiLU over the NHWC view too."""
-    if _routes(conv, x):
-        h = fr.group_norm_silu_nhwc(nhwc(x), norm.weight, norm.bias, norm.num_groups, norm.eps)
+    if _routes(conv, x, norm):
+        h = fr.group_norm_film_silu_nhwc(nhwc(x), norm.weight, norm.bias, norm.num_groups, norm.eps)
         return nchw(fr.conv_tf32x3(h, conv.weight, conv.bias))
     return conv(F.silu(norm(x)))
 

@@ -45,8 +45,8 @@ SIGNATURES = {
     "nope_conv_clusters": (_I, _I, _I, _P),
     "nope_conv_tf32x3": (_P, _P, _P, _I, _P, _P, _P, *[_I] * 11, _P),
     "nope_gn_finalize": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
-    "nope_gn_nhwc_stats": (_P, _P, _I, _P, *[_I] * 7, _P),
-    "nope_gn_nhwc_apply": (_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, *[_I] * 7, _F, _P),
+    "nope_gn_nhwc_stats": (_P, _I, _P, _I, _P, *[_I] * 7, _P),
+    "nope_gn_nhwc_apply": (_P, _I, _P, _P, _P, _I, _P, _I, _P, _I, _P, *[_I] * 7, _F, _P),
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -31,13 +31,20 @@ through the plain version, as the JAX op's custom VJP does.
 
 The 3xTF32 conv alone (:func:`conv_tf32x3`, in N tiles of
 :func:`n_tile` columns) also runs the float32 SD-VAE's convs where
-:func:`tf32x3_routes` says, with :func:`group_norm_silu_nhwc` between
-them (``models/vae.py``).
+:func:`tf32x3_routes` says (``models/vae.py``).
 
-The LDM's and the ADM's bf16 res blocks (``models/ldm_unet.py``) keep
-their activations channels-last through :func:`group_norm_film_silu_nhwc`,
-GroupNorm + SiLU with the embedding or the FiLM folded in, where
-:func:`channels_last_norms_route` says.
+:func:`group_norm_film_silu_nhwc` is GroupNorm + SiLU of a channels-last
+float32 or bf16 tensor, with an embedding or a FiLM folded in: the
+float32 SD-VAE's before its routed convs, and the LDM's and the ADM's bf16
+res blocks (``models/ldm_unet.py``) where :func:`channels_last_norms_route`
+says; ``gn_nhwc.launches`` counts its launches on the card.
+
+Counters (``utils.profiling.counters``): ``k3.tensor_core_launches``,
+``k3.tf32x3_launches`` and ``k3.cuda_core_launches``, the blocks that ran
+each route (together, every K3 block launched); ``k3.fused_norms``, their
+GroupNorms applied in a conv's epilogue (a fused plan; the others launched
+``gn_finalize`` and ``gn_silu``); ``k3.recomputes``, the backward passes of
+``_ResnetBlockFn``.
 """
 
 from __future__ import annotations
@@ -567,16 +574,8 @@ def resnet_block(
         _block_tensor_cores(x, emb, params, groups, eps, out)
     else:
         _block_cuda_cores(x, emb, params, groups, eps, out)
-    resnet_block.launches += 1
+        profiling.count("k3.cuda_core_launches")
     return out
-
-
-resnet_block.launches = 0
-# Counters (utils.profiling.counters): k3.tensor_core_launches, the blocks
-# that ran the bf16 tensor-core route; k3.tf32x3_launches, the float32 one
-# (3xTF32); k3.fused_norms, their GroupNorms applied in a conv's epilogue
-# (a fused plan; the others launched gn_finalize and gn_silu);
-# k3.recomputes, the backward passes of _ResnetBlockFn.
 
 
 def conv_tf32x3(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -605,11 +604,7 @@ def conv_tf32x3(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.T
     with _build.launcher(x.device) as call:
         _conv_tensor_cores(call, route, x.data_ptr(), packed_weight(w, route.layout), bias, out.data_ptr(),
                            None, ws.data_ptr() if ws.numel() else None, x.shape, w.shape[-1], 1, plan)
-    conv_tf32x3.launches += 1
     return out
-
-
-conv_tf32x3.launches = 0
 
 
 def tf32x3_routes(dtype: torch.dtype, device_type: str, grad: bool, stride: Tuple[int, int],
@@ -628,36 +623,9 @@ def tf32x3_routes(dtype: torch.dtype, device_type: str, grad: bool, stride: Tupl
             and c_in % TENSOR_CORE_ROUTES[torch.float32].slice_k == 0 and c_out % TILE_N_FREE == 0)
 
 
-def group_norm_silu_nhwc(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, groups: int,
-                         eps: float) -> torch.Tensor:
-    """SiLU(GroupNorm(x)) of a contiguous float32 NHWC x (B, H, W, C),
-    kept NHWC (``nn.GroupNorm`` hands a channels-last tensor back
-    NCHW-contiguous):
-    float32 statistics per (sample, group) over the (B, H·W, G, C/G)
-    view, as (B, C) tables of mean and rstd·gamma; then, on CUDA, K3's
-    ``gn_silu`` kernel, and on the CPU its arithmetic, SiLU((x − mean)
-    · scale + beta)."""
-    b, h, w, c = x.shape
-    cg = c // groups
-    var, mean = torch.var_mean(x.view(b, h * w, groups, cg), dim=(1, 3), unbiased=False)
-    mean_c = mean.repeat_interleave(cg, dim=1)
-    scale_c = torch.rsqrt(var + eps).repeat_interleave(cg, dim=1) * gamma
-    if x.device.type == "cpu":
-        return F.silu((x - mean_c[:, None, None]) * scale_c[:, None, None] + beta)
-    for name, t in (("x", x), ("gamma", gamma), ("beta", beta)):
-        _build.check_cuda(name, t, (torch.float32,))
-    if c % 4 or x.data_ptr() % 16:
-        raise ValueError(f"gn_silu takes C % 4 == 0 and 16-byte aligned x; got C={c}")
-    out = torch.empty_like(x)
-    if out.numel():
-        _build.launch("nope_gn_silu", x.device, x.data_ptr(), mean_c.data_ptr(), scale_c.data_ptr(),
-                      beta.data_ptr(), _build.DTYPE_CODES[beta.dtype], None, 0, None, 0, out.data_ptr(),
-                      _build.DTYPE_CODES[x.dtype], b, h * w, c, _build.grid_y(b))
-    return out
-
-
-#: threads of a block of the channels-last GroupNorm pair: C / 8 across a
-#: pixel (16 bytes of bf16 each), 256 / (C / 8) pixels deep
+#: threads of a block of the channels-last GroupNorm pair: C / V across a
+#: pixel (16 bytes each: V = 8 bf16 or 4 float32 channels), 256 / (C / V)
+#: pixels deep
 NORM_THREADS = 256
 #: pixels a thread of the pair holds per step (the kernels' kNormRows)
 NORM_ROWS = 8
@@ -665,23 +633,38 @@ NORM_ROWS = 8
 NORM_BLOCKS_PER_SM = 16
 
 
+def norm_vec(dtype: torch.dtype) -> int:
+    """V, the channels of one 16-byte vector of the pair: 8 bf16 or 4 float32."""
+    return 16 // dtype.itemsize
+
+
+def nhwc_norm_fits(dtype: torch.dtype, c: int, groups: int) -> bool:
+    """Whether the channels-last GroupNorm pair takes a GroupNorm of ``c``
+    channels in ``groups`` groups of x in ``dtype``: whole 16-byte vectors a
+    group (C % (V·groups) == 0, V = :func:`norm_vec`) that one block spans
+    (C ≤ V·:data:`NORM_THREADS`), with at most 32 groups."""
+    v = norm_vec(dtype)
+    return 1 <= groups <= 32 and c % (v * groups) == 0 and c <= v * NORM_THREADS
+
+
 def channels_last_norms_route(dtype: torch.dtype, device_type: str, grad: bool, channels_last: bool,
                               widths: Tuple[int, ...], groups: int) -> bool:
     """Whether a res block's GroupNorms run on :func:`group_norm_film_silu_nhwc`'s
     kernel pair: bf16 on the card outside grad mode (the pair has no
-    backward), the block's input channels-last, and each GroupNorm's width
-    in ``widths`` whole 16-byte vectors a group (C % (8·groups) == 0) that
-    one block spans (C ≤ 8·:data:`NORM_THREADS`), with at most 32 groups."""
-    return (dtype == torch.bfloat16 and device_type == "cuda" and not grad and channels_last and 1 <= groups <= 32
-            and all(c % (8 * groups) == 0 and c <= 8 * NORM_THREADS for c in widths))
+    backward; the float32 blocks of the loss keep the plain ops), the
+    block's input channels-last, and each GroupNorm's width in ``widths``
+    one the pair takes (:func:`nhwc_norm_fits`)."""
+    return (dtype == torch.bfloat16 and device_type == "cuda" and not grad and channels_last
+            and all(nhwc_norm_fits(dtype, c, groups) for c in widths))
 
 
-def norm_plan(batch: int, hw: int, c: int, sms: int) -> Tuple[int, int]:
-    """(span, splits) of the channels-last GroupNorm pair: each block takes
-    ``span`` pixels of one sample, ``splits`` blocks a sample.  A span is
-    whole steps of ny·:data:`NORM_ROWS` pixels; a sample splits only as far
-    as it takes the batch to make :data:`NORM_BLOCKS_PER_SM` blocks an SM."""
-    ny = max(1, NORM_THREADS // (c // 8))
+def norm_plan(batch: int, hw: int, c: int, sms: int, vec: int) -> Tuple[int, int]:
+    """(span, splits) of the channels-last GroupNorm pair at ``vec``
+    channels a thread (:func:`norm_vec`): each block takes ``span`` pixels
+    of one sample, ``splits`` blocks a sample.  A span is whole steps of
+    ny·:data:`NORM_ROWS` pixels; a sample splits only as far as it takes the
+    batch to make :data:`NORM_BLOCKS_PER_SM` blocks an SM."""
+    ny = max(1, NORM_THREADS // (c // vec))
     step = ny * NORM_ROWS
     steps = -(-hw // step)
     per = -(-steps // min(steps, -(-NORM_BLOCKS_PER_SM * sms // batch)))
@@ -691,51 +674,56 @@ def norm_plan(batch: int, hw: int, c: int, sms: int) -> Tuple[int, int]:
 def norm_tables(mean: torch.Tensor, rstd: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                 addend: Optional[torch.Tensor] = None, film: Optional[torch.Tensor] = None):
     """GroupNorm's statistics (B, G) of ``x + addend``, its affine and the
-    FiLM folded into float32 (B, C) tables a and d, so that
-    ``SiLU(x·a + d)`` is :func:`group_norm_film_silu_nhwc`:
-    a = rstd·γ·(1 + scale), d = (β + (addend − mean)·rstd·γ)·(1 + scale) + shift."""
+    FiLM folded into float32 (B, C) tables m, a and d, so that
+    ``SiLU((x − m)·a + d)`` is :func:`group_norm_film_silu_nhwc`:
+    m = mean − addend, a = rstd·γ·(1 + scale), d = β·(1 + scale) + shift.
+    x is centred before the scale, so a group whose mean is far above its
+    spread loses no more than ``nn.GroupNorm`` does."""
     cg = gamma.numel() // mean.shape[1]
-    mu = mean.repeat_interleave(cg, dim=1)
+    m = mean.repeat_interleave(cg, dim=1)
+    if addend is not None:
+        m = m - addend.float()
     a = rstd.repeat_interleave(cg, dim=1) * gamma.float()
-    e = 0.0 if addend is None else addend.float()
-    d = beta.float() + (e - mu) * a
+    d = beta.float().expand_as(a)
     if film is not None:
         scale, shift = film.float().chunk(2, dim=1)
         a, d = a * (1 + scale), d * (1 + scale) + shift
-    return a, d
+    return m, a, d
 
 
 def group_norm_film_silu_nhwc(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, groups: int, eps: float,
                               addend: Optional[torch.Tensor] = None,
                               film: Optional[torch.Tensor] = None) -> torch.Tensor:
     """SiLU(GroupNorm(x + addend)·(1 + scale) + shift) of an NHWC x (B, H, W,
-    C), kept NHWC, in x's dtype: float32 statistics per (sample, group);
+    C), kept NHWC (``nn.GroupNorm`` hands a channels-last tensor back
+    NCHW-contiguous), in x's dtype: float32 statistics per (sample, group);
     ``addend`` (B, C) is added before them (the LDM's embedding), ``film``
     (B, 2C) = [scale | shift] applies after (the ADM's), either or neither.
-    Folded into (B, C) tables (:func:`norm_tables`), out = SiLU(x·a + d).
+    Folded into (B, C) tables (:func:`norm_tables`), out = SiLU((x − m)·a + d).
     A CUDA tensor runs the kernel pair ``gn_nhwc_stats`` / ``gn_nhwc_apply``
-    (bf16, the widths :func:`channels_last_norms_route` takes), counted as
-    ``ldm_res.nhwc_norms``; a CPU tensor the same arithmetic in plain PyTorch."""
+    (float32 or bf16, the widths :func:`nhwc_norm_fits` takes), counting
+    ``gn_nhwc.launches``; a CPU tensor the same arithmetic in plain
+    PyTorch."""
     b, h, w, c = x.shape
     if x.device.type == "cpu":
         v = x.float() if addend is None else x.float() + addend.float()[:, None, None]
         var, mean = torch.var_mean(v.reshape(b, h * w, groups, c // groups), dim=(1, 3), unbiased=False)
-        a, d = norm_tables(mean, torch.rsqrt(var + eps), gamma, beta, addend, film)
-        return F.silu(x.float() * a[:, None, None] + d[:, None, None]).to(x.dtype)
-    _build.check_cuda("x", x, (torch.bfloat16,))
-    for name, t in (("gamma", gamma), ("beta", beta), ("addend", addend), ("film", film)):
+        m, a, d = (t[:, None, None] for t in norm_tables(mean, torch.rsqrt(var + eps), gamma, beta, addend, film))
+        return F.silu((x.float() - m) * a + d).to(x.dtype)
+    for name, t in (("x", x), ("gamma", gamma), ("beta", beta), ("addend", addend), ("film", film)):
         if t is not None:
             _build.check_cuda(name, t)
-    if (not channels_last_norms_route(x.dtype, "cuda", False, True, (c,), groups) or gamma.dtype != beta.dtype
-            or x.data_ptr() % 16):
-        raise ValueError(f"the channels-last GroupNorm takes C % (8·groups) == 0, C <= {8 * NORM_THREADS}, "
-                         f"groups <= 32, 16-byte aligned x and gamma, beta of one dtype; got C={c}, groups={groups}")
+    if not nhwc_norm_fits(x.dtype, c, groups) or gamma.dtype != beta.dtype or x.data_ptr() % 16:
+        v = norm_vec(x.dtype)
+        raise ValueError(f"the channels-last GroupNorm of {x.dtype} takes C % ({v}·groups) == 0, "
+                         f"C <= {v * NORM_THREADS}, groups <= 32, 16-byte aligned x and gamma, beta of one dtype; "
+                         f"got C={c}, groups={groups}")
     if (addend is not None and addend.shape != (b, c)) or (film is not None and film.shape != (b, 2 * c)):
         raise ValueError(f"addend must be (B, C) and film (B, 2C) for x {tuple(x.shape)}")
     out = torch.empty_like(x)
     if out.numel():
+        profiling.count("gn_nhwc.launches")
         _norm_kernels(x, gamma, beta, groups, eps, addend, film, out)
-        profiling.count("ldm_res.nhwc_norms")
     return out
 
 
@@ -743,15 +731,15 @@ def _norm_kernels(x, gamma, beta, groups, eps, addend, film, out) -> None:
     """The pair's launches: the statistics into a (B, splits, G, 3) float32
     scratch of partials, then the apply into ``out``."""
     b, h, w, c = x.shape
-    span, splits = norm_plan(b, h * w, c, _build.sm_count(x.device))
+    span, splits = norm_plan(b, h * w, c, _build.sm_count(x.device), norm_vec(x.dtype))
     part = torch.empty(b * splits * groups * 3, dtype=torch.float32, device=x.device)
     codes = _build.DTYPE_CODES
     add = (None, 0) if addend is None else (addend.data_ptr(), codes[addend.dtype])
     mod = (None, 0) if film is None else (film.data_ptr(), codes[film.dtype])
     shape = (b, h * w, c, groups, span, splits, _build.grid_y(b))
     with _build.launcher(x.device) as call:
-        call("nope_gn_nhwc_stats", x.data_ptr(), *add, part.data_ptr(), *shape)
-        call("nope_gn_nhwc_apply", x.data_ptr(), part.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        call("nope_gn_nhwc_stats", x.data_ptr(), codes[x.dtype], *add, part.data_ptr(), *shape)
+        call("nope_gn_nhwc_apply", x.data_ptr(), codes[x.dtype], part.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
              codes[gamma.dtype], *add, *mod, out.data_ptr(), *shape, eps)
 
 

@@ -8,7 +8,8 @@ reference's ``b (h c) ... -> b h c ...``.
 
 :func:`linear_attention_inner` runs the K2 CUDA kernels
 (``csrc/linear_attention.cu``) for CUDA tensors and
-:func:`linear_attention_inner_plain` for CPU tensors.  The kernels split
+:func:`linear_attention_inner_plain` for CPU tensors; each kernel call
+counts ``k2.launches`` (``utils.profiling.counters``).  The kernels split
 each item's tokens into chunks (:func:`attention_plan`), write per-chunk
 softmax partials, merge them in chunk order and apply q; with one chunk
 a single launch does the whole chain.  :func:`attention_partials_plain`,
@@ -157,11 +158,8 @@ def linear_attention_inner(qkv: torch.Tensor, heads: int, dim_head: int) -> torc
     if out.numel():
         plan = attention_plan(b, n, _build.sm_count(qkv.device), qkv.dtype == torch.float32)
         _launch(qkv, out, plan)
-        linear_attention_inner.launches += 1
+        profiling.count("k2.launches")
     return out
-
-
-linear_attention_inner.launches = 0
 
 
 class _LinearAttentionFn(torch.autograd.Function):

@@ -6,7 +6,8 @@ The reference "l2" metric is an L4-flavoured channel reduction:
 
 :func:`reference_similarity` runs the K1 CUDA kernel
 (``csrc/similarity.cu``) for CUDA tensors and
-:func:`reference_similarity_plain` for CPU tensors.  The kernel tiles
+:func:`reference_similarity_plain` for CPU tensors; each kernel call
+counts ``k1.launches`` (``utils.profiling.counters``).  The kernel tiles
 (query, template) pairs and, where the tiles do not fill the card,
 splits the pixels over blocks (:func:`similarity_plan`);
 :func:`similarity_partials_plain` is the plain version of its per-split
@@ -28,6 +29,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from nope_tpu_torch.ops import _build
+from nope_tpu_torch.utils import profiling
 
 
 def _check_shapes(query: torch.Tensor, bank: torch.Tensor) -> None:
@@ -157,11 +159,8 @@ def _kernel_similarity(query: torch.Tensor, bank: torch.Tensor) -> torch.Tensor:
     out = torch.empty(b, n, dtype=torch.float32, device=query.device)
     if out.numel():
         _launch(query, bank, out, plan_for(query, bank, _build.sm_count(query.device)))
-        reference_similarity.launches += 1
+        profiling.count("k1.launches")
     return out
-
-
-reference_similarity.launches = 0
 
 
 def _flat(query: torch.Tensor, bank: torch.Tensor):

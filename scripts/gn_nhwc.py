@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
 """The channels-last GroupNorm pair (``fused_resnet.group_norm_film_silu_nhwc``)
 on the card, alone, and the LDM's and the ADM's bf16 forward with and
-without it.
+without it.  The one script that times the pair, in both dtypes.
 
     python3 scripts/gn_nhwc.py [--items N M] [--top K]
 
 On one CUDA GPU, from the root of a checkout.  First ``chip_smoke.py``'s
 phase-2 counts of the pair over one bf16 forward of the published ADM and
-of the LDM and its checks (each distinct GroupNorm those forwards ran, and
-each of ``chip_smoke.NHWC_NORM_SHAPES`` with the FiLM and with the addend,
-against ``F.group_norm`` in float32 and twice for a bitwise repeat); then
-its phase-4 timings of the pair beside ATen's chain at each of their
-GroupNorms.  Last, a bf16 forward (no
+of the LDM, and of one float32 SD-VAE encode (whose routed convs it also
+checks), and its checks (each distinct GroupNorm those ran, and each of
+``chip_smoke.NHWC_NORM_SHAPES`` with the FiLM and with the addend, against
+``F.group_norm`` in float32 and twice for a bitwise repeat); then its
+phase-4 timings of the pair beside ATen's chain at each of their
+GroupNorms (the VAE's at 64 images, also per image).  Last, a bf16 forward (no
 gradient) of the ADM at N items and of the LDM at M (by default 1,984,
 a full-protocol chunk of the evaluation sweep, and 832, half the LDM
 cell's fast bank: the LDM's attention scores, heads x 1,024² an item,
@@ -39,6 +40,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 from nope_tpu_torch.models.adm_unet import ADMPoseUNet  # noqa: E402
 from nope_tpu_torch.models.ldm_unet import LDMPoseUNet  # noqa: E402
+from nope_tpu_torch.models.vae import StableDiffusionVAE  # noqa: E402
 from nope_tpu_torch.ops import fused_resnet as fr  # noqa: E402
 
 
@@ -101,6 +103,10 @@ def main() -> int:
 
     print("checks (chip_smoke.py phase 2):")
     seen = chip_smoke.nhwc_norm_counts(torch, fr, dev)
+    torch.manual_seed(0)
+    vae = StableDiffusionVAE().to(dev).eval()
+    seen["sd_vae_float32"] = chip_smoke.vae_route_checks(torch, F, fr, dev, vae, check)[1]
+    del vae
     n = chip_smoke.nhwc_norm_checks(torch, F, fr, dev, check, seen)
     print(f"  two launches bitwise equal at all {n} shapes")
     print("timings (chip_smoke.py phase 4; device alone):")

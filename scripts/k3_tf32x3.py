@@ -23,14 +23,15 @@ conv, then:
 - the float32 SD-VAE encode of 64 images at 256 px (the eval step's
   loss encodes them twice a step), on the device alone: the route
   (``models/vae.py``: its resnets' convs on ``conv_tf32x3`` in 128-column
-  N tiles, GroupNorm + SiLU over NHWC) against cuDNN's conv with TF32 off
+  N tiles, GroupNorm + SiLU before them on the channels-last pair
+  ``group_norm_film_silu_nhwc``) against cuDNN's conv with TF32 off
   (the route refused), each as ms an image, both against a float64
   encode of 4 of the images (rel 1e-5), the route bitwise repeatable,
   the counters ``vae.tf32x3_convs`` and ``vae.cudnn_convs`` of one encode
   (22 and 6); then each routed conv shape alone, its share of the 3xTF32
   bound (495 / 3 TFLOP/s) at the plan's tile height and the other, against
-  ``F.conv2d``; and the NHWC GroupNorm + SiLU at the first stage's shape
-  against ``nn.GroupNorm`` + ``F.silu``.
+  ``F.conv2d``.  ``scripts/gn_nhwc.py`` times the GroupNorm pair, the
+  VAE's norms included.
 
 It exits non-zero if any check fails.  ``chip_smoke.py`` phases 2 and 12
 hold the route at all its shapes; this is the quick check after an edit
@@ -137,8 +138,6 @@ def vae_phase(dev, gen, smi) -> int:
         shapes[key] = shapes.get(key, 0) + 1
         return conv(x, w, bias)
 
-    recording.launches = 0  # conv_tf32x3 counts its launches on the name it is called by
-
     def encode():
         return vae.encode_image(images)
 
@@ -199,19 +198,6 @@ def vae_phase(dev, gen, smi) -> int:
               flush=True)
         for key, us, n in rows[:14]:
             print(f"  {us / 1e3 / VAE_BATCH:7.3f} ms an image ({100 * us / total:4.1f}%) x{n:3d} {key[:110]}", flush=True)
-    # the first stage's GroupNorm + SiLU, NHWC and the module's
-    x = torch.randn(VAE_BATCH, VAE_PX, VAE_PX, 128, generator=gen, device=dev)
-    norm = vae.encoder.down_blocks[0].resnets[0].norm1
-    xc = x.permute(0, 3, 1, 2)
-    with torch.no_grad():
-        gn = {"nhwc": cs.device_ms(torch, lambda: fr.group_norm_silu_nhwc(x, norm.weight, norm.bias, 32, 1e-6), 3),
-              "var_mean": cs.device_ms(torch, lambda: torch.var_mean(x.view(VAE_BATCH, -1, 32, 4), dim=(1, 3)), 3),
-              "nn": cs.device_ms(torch, lambda: F.silu(norm(xc)), 3)}
-        _, gn_rel = cs.rel_err(fr.group_norm_silu_nhwc(x, norm.weight, norm.bias, 32, 1e-6).permute(0, 3, 1, 2),
-                               F.silu(norm(xc)))
-    print(f"GroupNorm + SiLU ({VAE_BATCH}, 128, {VAE_PX}, {VAE_PX}): NHWC {gn['nhwc']:.3f} ms (its var_mean "
-          f"{gn['var_mean']:.3f}), nn.GroupNorm + F.silu {gn['nn']:.3f} ms; rel {gn_rel:.2e}", flush=True)
-    del x, xc
     shape_list = [(xs, ws, n) for (xs, ws), n in shapes.items()]
     time_convs(shape_list, dev, gen, "VAE", smi)
     return fails

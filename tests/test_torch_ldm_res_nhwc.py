@@ -1,14 +1,16 @@
-"""The LDM's and the ADM's res blocks on the channels-last GroupNorm path
-(``LDMResBlock._forward_channels_last`` and
-``fused_resnet.group_norm_film_silu_nhwc``) on the CPU.
+"""The channels-last GroupNorm path on the CPU: the LDM's and the ADM's
+res blocks (``LDMResBlock._forward_channels_last``) and
+``fused_resnet.group_norm_film_silu_nhwc`` in bf16 and float32 (the
+float32 SD-VAE's norms).
 
 The CUDA kernel pair cannot run here: the wrapper's CPU branch (the same
 table folding) is held against the block's plain ``nn.GroupNorm``
-forward; the route predicate, the block's use of it and the counter are
-checked; and the pair's launches (``fused_resnet._norm_kernels``) run
-against an emulation of ``nope_gn_nhwc_stats`` / ``nope_gn_nhwc_apply``
+forward; the route predicate, the block's use of it and the block's
+counter are checked; and the pair's launches (``fused_resnet._norm_kernels``)
+run against an emulation of ``nope_gn_nhwc_stats`` / ``nope_gn_nhwc_apply``
 on host memory that computes by the kernels' own steps, spans and merge
-order.  On the card, ``chip_smoke.py`` phase 2 holds the kernels.
+order, in either dtype.  On the card, ``chip_smoke.py`` phase 2 holds the
+kernels.
 """
 
 from __future__ import annotations
@@ -124,30 +126,41 @@ def test_block_asks_the_route_what_it_sees(monkeypatch, mode):
                                              (torch.bfloat16, True, "forward"),
                                              (torch.bfloat16, False, "_forward_channels_last")])
 def test_counter_stays_zero_off_the_card(dtype, grad, call):
-    """``ldm_res.nhwc_norms`` counts only the kernel pair's GroupNorms: no
-    CPU forward, fp32, grad mode or the CPU branch itself moves it."""
+    """``ldm_res.nhwc_norms`` and ``gn_nhwc.launches`` count only the
+    kernel pair's GroupNorms: no CPU forward, fp32, grad mode or the CPU
+    branch itself moves them."""
     blk = _block(False, "down", 64, 64, dtype, seed=3)
     x, emb = _inputs(64, dtype, seed=4)
-    before = profiling.counters().get("ldm_res.nhwc_norms", 0)
+    names = ("ldm_res.nhwc_norms", "gn_nhwc.launches")
+    before = [profiling.counters().get(n, 0) for n in names]
     with contextlib.nullcontext() if grad else torch.no_grad():
         getattr(blk, call)(x, emb)
-    assert profiling.counters().get("ldm_res.nhwc_norms", 0) == before
+    assert [profiling.counters().get(n, 0) for n in names] == before
 
 
 @pytest.mark.parametrize("shape,launched", [((2, 1, 1, 256), 1), ((2, 0, 4, 256), 0), ((0, 2, 2, 256), 0)])
 def test_counter_counts_each_launch_of_the_pair(monkeypatch, shape, launched):
-    """Past the CPU branch (a meta tensor stands in for the card's) the
-    counter moves with the pair's launches: once a call, and not for an
-    empty input, which launches nothing."""
+    """Past the CPU branch (a meta tensor stands in for the card's) a call
+    launches the pair once (its two kernels, through the launcher) and
+    counts it in ``gn_nhwc.launches``; an empty input launches and counts
+    nothing.  No other counter moves: the count of a res block's
+    GroupNorms on the route belongs to the block."""
     monkeypatch.setattr(_build, "check_cuda", lambda *args, **kwargs: None)
+    monkeypatch.setattr(_build, "sm_count", lambda device: 132)
     calls = []
-    monkeypatch.setattr(fr, "_norm_kernels", lambda *args: calls.append(args))
+
+    @contextlib.contextmanager
+    def launcher(device):
+        yield lambda name, *args: calls.append(name)
+
+    monkeypatch.setattr(_build, "launcher", launcher)
     x = torch.empty(shape, dtype=torch.bfloat16, device="meta")
     gamma, beta = torch.ones(256, device="meta"), torch.zeros(256, device="meta")
-    before = profiling.counters().get("ldm_res.nhwc_norms", 0)
+    before = profiling.counters()
     fr.group_norm_film_silu_nhwc(x, gamma, beta, 32, 1e-5)
-    assert len(calls) == launched
-    assert profiling.counters().get("ldm_res.nhwc_norms", 0) - before == launched
+    assert calls == ["nope_gn_nhwc_stats", "nope_gn_nhwc_apply"] * launched
+    moved = {k: v - before.get(k, 0) for k, v in profiling.counters().items() if v != before.get(k, 0)}
+    assert moved == ({"gn_nhwc.launches": 1} if launched else {})
 
 
 def _tiny_adm():
@@ -182,20 +195,57 @@ def test_every_res_block_sees_a_channels_last_input(monkeypatch, make):
     assert all(a[2] is False and a[3] is True for a in asked)
 
 
+@pytest.mark.parametrize("make", ["adm", "ldm"])
+@pytest.mark.parametrize("routed", [True, False])
+def test_block_counts_its_two_norms_where_it_takes_the_route(monkeypatch, make, routed):
+    """``ldm_res.nhwc_norms`` moves by two for each res block that takes
+    the channels-last route, counted where the block takes it, through a
+    whole tiny bf16 forward (the route answering as on the card), and not
+    at all where the route says no."""
+    monkeypatch.setattr(fr, "channels_last_norms_route", lambda *args: routed)
+    net = (_tiny_adm if make == "adm" else _tiny_ldm)().to(torch.bfloat16).requires_grad_(False)
+    gen = torch.Generator().manual_seed(7)
+    before = profiling.counters().get("ldm_res.nhwc_norms", 0)
+    with torch.no_grad():
+        net(torch.randn(2, 4, 8, 8, generator=gen).to(torch.bfloat16),
+            torch.randn(2, 6, generator=gen).to(torch.bfloat16))
+    blocks = sum(isinstance(m, LDMResBlock) for m in net.modules())
+    assert blocks > 0
+    assert profiling.counters().get("ldm_res.nhwc_norms", 0) - before == (2 * blocks if routed else 0)
+
+
 # (B, H, W, C, SMs): samples split into spans of whole steps (several
 # steps a span where the batch fills the SMs halfway), a ragged last span,
-# 8, 16 and 24 channels a group (192 threads at 768), the widest block
-# (2048: one pixel a step), 1x1 samples
+# 8, 16 and 24 channels a group (192 threads at 768 in bf16), the widest
+# block (2048 bf16 channels: one pixel a step; 1024 float32), 1x1 samples
 PLANS = [(3, 32, 32, 256, 132), (8, 16, 16, 256, 1), (2, 16, 16, 512, 132), (3, 12, 12, 256, 2),
          (5, 8, 8, 256, 1), (3, 4, 4, 768, 132), (2, 2, 2, 2048, 132), (4, 1, 1, 1024, 132)]
+# the plans each dtype's pair takes at 32 groups (float32: C % 128 == 0, C <= 1024)
+DTYPE_PLANS = [(dtype, *plan) for dtype in (torch.bfloat16, torch.float32) for plan in PLANS
+               if fr.nhwc_norm_fits(dtype, plan[3], 32)]
 
 
-@pytest.mark.parametrize("batch,h,w,c,sms", PLANS + [(1984, 32, 32, 256, 132), (65_600, 1, 1, 1024, 132)])
-def test_norm_plan_covers_each_sample_once(batch, h, w, c, sms):
-    span, splits = fr.norm_plan(batch, h * w, c, sms)
-    step = max(1, fr.NORM_THREADS // (c // 8)) * fr.NORM_ROWS
+@pytest.mark.parametrize("dtype,batch,h,w,c,sms", DTYPE_PLANS + [
+    (torch.bfloat16, 1984, 32, 32, 256, 132), (torch.bfloat16, 65_600, 1, 1, 1024, 132),
+    (torch.float32, 64, 256, 256, 128, 132), (torch.float32, 64, 32, 32, 512, 132)])
+def test_norm_plan_covers_each_sample_once(dtype, batch, h, w, c, sms):
+    vec = fr.norm_vec(dtype)
+    span, splits = fr.norm_plan(batch, h * w, c, sms, vec)
+    step = max(1, fr.NORM_THREADS // (c // vec)) * fr.NORM_ROWS
     assert span % step == 0 and span * (splits - 1) < h * w <= span * splits
     assert splits == 1 or batch * (splits - 1) < fr.NORM_BLOCKS_PER_SM * sms
+
+
+# (dtype, C, groups, taken): whole 16-byte vectors a group, one block across a pixel, at most 32 groups
+FITS = [(torch.bfloat16, 256, 32, True), (torch.bfloat16, 2048, 32, True), (torch.bfloat16, 96, 32, False),
+        (torch.bfloat16, 4096, 32, False), (torch.float32, 128, 32, True), (torch.float32, 1024, 32, True),
+        (torch.float32, 64, 32, False), (torch.float32, 2048, 32, False), (torch.float32, 256, 64, False),
+        (torch.float32, 64, 16, True)]
+
+
+@pytest.mark.parametrize("dtype,c,groups,taken", FITS)
+def test_width_rule_of_each_dtype(dtype, c, groups, taken):
+    assert fr.nhwc_norm_fits(dtype, c, groups) is taken
 
 
 def _view(ptr, n, dt):
@@ -227,14 +277,15 @@ class _EmulatedNorms:
         getattr(self, name)(*args)
 
     @staticmethod
-    def _shape(b, hw, c, groups, span, splits, grid_y):
-        assert 1 <= groups <= 32 and c % (8 * groups) == 0 and c // 8 <= fr.NORM_THREADS
+    def _shape(xdt, b, hw, c, groups, span, splits, grid_y):
+        vec = 4 if xdt == 0 else 8  # channels of a thread's 16-byte vector
+        assert xdt in (0, 1) and 1 <= groups <= 32 and c % (vec * groups) == 0 and c // vec <= fr.NORM_THREADS
         assert span >= 1 and span * (splits - 1) < hw <= span * splits and 1 <= grid_y <= _build.MAX_GRID_Y
-        return max(1, fr.NORM_THREADS // (c // 8)) * fr.NORM_ROWS
+        return max(1, fr.NORM_THREADS // (c // vec)) * fr.NORM_ROWS
 
-    def nope_gn_nhwc_stats(self, x, addend, adt, part, b, hw, c, groups, span, splits, grid_y):
-        step = self._shape(b, hw, c, groups, span, splits, grid_y)
-        v = _view(x, b * hw * c, 1).double().reshape(b, hw, c)
+    def nope_gn_nhwc_stats(self, x, xdt, addend, adt, part, b, hw, c, groups, span, splits, grid_y):
+        step = self._shape(xdt, b, hw, c, groups, span, splits, grid_y)
+        v = _view(x, b * hw * c, xdt).double().reshape(b, hw, c)
         if addend is not None:
             v = v + _view(addend, b * c, adt).double().reshape(b, 1, c)
         out = _view(part, b * splits * groups * 3, 0).reshape(b, splits, groups, 3)
@@ -250,9 +301,9 @@ class _EmulatedNorms:
                         n, mu, m2 = _chan_merge(n, mu, m2, tile.numel(), mean, ((tile - mean) ** 2).sum().item())
                     out[i, k, g] = torch.tensor([n, mu, m2])
 
-    def nope_gn_nhwc_apply(self, x, part, gamma, beta, pdt, addend, adt, film, fdt, out, b, hw, c, groups, span,
-                           splits, grid_y, eps):
-        self._shape(b, hw, c, groups, span, splits, grid_y)
+    def nope_gn_nhwc_apply(self, x, xdt, part, gamma, beta, pdt, addend, adt, film, fdt, out, b, hw, c, groups,
+                           span, splits, grid_y, eps):
+        self._shape(xdt, b, hw, c, groups, span, splits, grid_y)
         parts = _view(part, b * splits * groups * 3, 0).double().reshape(b, splits, groups, 3)
         mean, rstd = torch.empty(b, groups, dtype=torch.float64), torch.empty(b, groups, dtype=torch.float64)
         for i in range(b):
@@ -261,20 +312,25 @@ class _EmulatedNorms:
                 for k in range(splits):
                     n, mu, m2 = _chan_merge(n, mu, m2, *parts[i, k, g].tolist())
                 mean[i, g], rstd[i, g] = mu, 1.0 / np.sqrt(m2 / n + eps)
-        a, d = fr.norm_tables(mean, rstd, _view(gamma, c, pdt).double(), _view(beta, c, pdt).double(),
+        m, a, d = fr.norm_tables(mean, rstd, _view(gamma, c, pdt).double(), _view(beta, c, pdt).double(),
                               None if addend is None else _view(addend, b * c, adt).double().reshape(b, c),
                               None if film is None else _view(film, b * 2 * c, fdt).double().reshape(b, 2 * c))
-        v = _view(x, b * hw * c, 1).double().reshape(b, hw, c)
-        _view(out, b * hw * c, 1).copy_(torch.nn.functional.silu(v * a[:, None] + d[:, None]).reshape(-1))
+        v = _view(x, b * hw * c, xdt).double().reshape(b, hw, c)
+        _view(out, b * hw * c, xdt).copy_(torch.nn.functional.silu((v - m[:, None]) * a[:, None] + d[:, None]).reshape(-1))
+
+
+# a bf16 output within one rounding of the CPU branch; a float32 one within a few
+TOLERANCE = {torch.bfloat16: 2 ** -7, torch.float32: 1e-6}
 
 
 @pytest.mark.parametrize("cond", ["film", "addend", "plain", "addend+film"])
-@pytest.mark.parametrize("batch,h,w,c,sms", PLANS)
-def test_pair_launches_equal_the_cpu_branch(monkeypatch, batch, h, w, c, sms, cond):
+@pytest.mark.parametrize("dtype,batch,h,w,c,sms", DTYPE_PLANS)
+def test_pair_launches_equal_the_cpu_branch(monkeypatch, dtype, batch, h, w, c, sms, cond):
     """``_norm_kernels`` against the emulated kernels: the plan's spans
-    (samples split over blocks, ragged last spans), the partials' layout
-    and merge, the FiLM's [scale | shift] and the addend reach the
-    output as the CPU branch computes it (within one bf16 rounding)."""
+    (samples split over blocks, ragged last spans), x's dtype code, the
+    partials' layout and merge, the FiLM's [scale | shift] and the addend
+    reach the output as the CPU branch computes it (within one rounding
+    of a bf16 output; float32 within a few of its own)."""
     emulated = _EmulatedNorms()
 
     @contextlib.contextmanager
@@ -284,18 +340,19 @@ def test_pair_launches_equal_the_cpu_branch(monkeypatch, batch, h, w, c, sms, co
     monkeypatch.setattr(_build, "launcher", launcher)
     monkeypatch.setattr(_build, "sm_count", lambda device: sms)
     gen = torch.Generator().manual_seed(batch * c + h)
-    x = (2 * torch.randn(batch, h, w, c, generator=gen) + 0.5).to(torch.bfloat16)
-    gamma = (1 + 0.2 * torch.randn(c, generator=gen)).to(torch.bfloat16)
-    beta = (0.2 * torch.randn(c, generator=gen)).to(torch.bfloat16)
-    addend = (0.5 * torch.randn(batch, c, generator=gen)).to(torch.bfloat16) if "addend" in cond else None
-    film = (0.5 * torch.randn(batch, 2 * c, generator=gen)).to(torch.bfloat16) if "film" in cond else None
+    x = (2 * torch.randn(batch, h, w, c, generator=gen) + 0.5).to(dtype)
+    gamma = (1 + 0.2 * torch.randn(c, generator=gen)).to(dtype)
+    beta = (0.2 * torch.randn(c, generator=gen)).to(dtype)
+    addend = (0.5 * torch.randn(batch, c, generator=gen)).to(dtype) if "addend" in cond else None
+    film = (0.5 * torch.randn(batch, 2 * c, generator=gen)).to(dtype) if "film" in cond else None
     out = torch.empty_like(x)
     fr._norm_kernels(x, gamma, beta, 32, 1e-5, addend, film, out)
     assert [name for name, _ in emulated.calls] == ["nope_gn_nhwc_stats", "nope_gn_nhwc_apply"]
-    span, splits = fr.norm_plan(batch, h * w, c, sms)
+    assert all(args[1] == _build.DTYPE_CODES[dtype] for _, args in emulated.calls)
+    span, splits = fr.norm_plan(batch, h * w, c, sms, fr.norm_vec(dtype))
     assert emulated.calls[0][1][-3:] == (span, splits, _build.grid_y(batch))
     want = fr.group_norm_film_silu_nhwc(x, gamma, beta, 32, 1e-5, addend=addend, film=film)
-    assert (out.float() - want.float()).abs().max() <= 2 ** -7 * want.float().abs().max()
+    assert (out.float() - want.float()).abs().max() <= TOLERANCE[dtype] * want.float().abs().max()
 
 
 def test_pair_strides_samples_past_the_grid(monkeypatch):

@@ -17,6 +17,7 @@ from nope_tpu.ops import similarity as jsim
 from nope_tpu.ops.experimental import pallas_similarity
 from nope_tpu_torch.ops import _build
 from nope_tpu_torch.ops import similarity as sim
+from nope_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -74,9 +75,9 @@ def test_retrieve_matches_jax(metric):
 
 def test_cpu_call_does_not_count_a_launch():
     q, t = _data()
-    before = sim.reference_similarity.launches
+    before = profiling.counters().get("k1.launches", 0)
     sim.reference_similarity(torch.from_numpy(q), torch.from_numpy(t))
-    assert sim.reference_similarity.launches == before == 0
+    assert profiling.counters().get("k1.launches", 0) == before
 
 
 # -- K1's tiled, pixel-split kernel, in plain torch ----------------------------
@@ -303,7 +304,7 @@ def test_card_path_takes_any_channel_count(monkeypatch, dtype, b, n, lead, side,
     monkeypatch.setattr(_build, "launcher", launcher)
     monkeypatch.setattr(_build, "check_cuda", lambda name, t: None)
     monkeypatch.setattr(_build, "sm_count", lambda device: 132)
-    monkeypatch.setattr(sim.reference_similarity, "launches", 0)
+    before = profiling.counters().get("k1.launches", 0)
     rng = np.random.default_rng(b * c + side)
     qt = torch.from_numpy(rng.normal(size=(b, side, side, c)).astype(np.float32)).to(dtype)
     tt = torch.from_numpy(rng.normal(size=(lead, n, side, side, c)).astype(np.float32)).to(dtype)
@@ -313,4 +314,4 @@ def test_card_path_takes_any_channel_count(monkeypatch, dtype, b, n, lead, side,
     want_vector = (dtype == torch.float32) if vector is None else vector
     want_step = sim.pixel_step(c, qt.element_size()) if want_vector else 0
     assert call[7:10] == (c, int(lead == b and b > 1), want_step)
-    assert sim.reference_similarity.launches == 1
+    assert profiling.counters().get("k1.launches", 0) - before == 1

@@ -10,6 +10,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from nope_tpu_torch.models import vae as vae_module
 from nope_tpu_torch.models.vae import StableDiffusionVAE
 from nope_tpu_torch.ops import fused_resnet as fr
 from nope_tpu_torch.utils import profiling
@@ -73,7 +74,7 @@ def test_sd_vae_encoder_routes_nothing_in_bf16_on_the_cpu_or_with_grad(dtype, de
 
 
 @pytest.mark.parametrize("c,side", [(128, 16), (256, 8), (512, 4)])
-def test_group_norm_silu_nhwc_matches_nn_group_norm(c, side):
+def test_group_norm_film_silu_nhwc_matches_nn_group_norm(c, side):
     gen = torch.Generator().manual_seed(c)
     norm = nn.GroupNorm(32, c, eps=1e-6)
     with torch.no_grad():
@@ -82,10 +83,31 @@ def test_group_norm_silu_nhwc_matches_nn_group_norm(c, side):
     x = 2.0 + 3.0 * torch.randn(3, c, side, side, generator=gen)  # an offset mean: the statistics must not cancel
     with torch.no_grad():
         want = F.silu(norm(x))
-        got = fr.group_norm_silu_nhwc(x.permute(0, 2, 3, 1).contiguous(), norm.weight, norm.bias, 32, 1e-6)
-    assert got.shape == (3, side, side, c) and got.is_contiguous()
+        got = fr.group_norm_film_silu_nhwc(x.permute(0, 2, 3, 1).contiguous(), norm.weight, norm.bias, 32, 1e-6)
+    assert got.shape == (3, side, side, c) and got.dtype == torch.float32 and got.is_contiguous()
     err = ((got.permute(0, 3, 1, 2) - want).abs().max() / want.abs().max()).item()
     assert err <= 1e-6, err
+
+
+@pytest.mark.parametrize("mean,std", [(50.0, 0.5), (500.0, 1.0)])
+def test_group_norm_film_silu_nhwc_centres_a_mean_far_above_its_spread(mean, std):
+    """Where a group's mean is 100 or 500 times its spread, the pair's
+    float32 GroupNorm + SiLU strays from a float64 one no more than
+    ``nn.GroupNorm``'s float32 does: x is centred before the scale, not
+    folded into x·a + d, whose error grows with mean / std."""
+    c, side = 128, 16
+    gen = torch.Generator().manual_seed(9)
+    norm = nn.GroupNorm(32, c, eps=1e-6)
+    with torch.no_grad():
+        norm.weight.copy_(0.5 + torch.rand(c, generator=gen))
+        norm.bias.copy_(0.1 * torch.randn(c, generator=gen))
+    x = mean + std * torch.randn(3, c, side, side, generator=gen)
+    with torch.no_grad():
+        exact = F.silu(F.group_norm(x.double(), 32, norm.weight.double(), norm.bias.double(), 1e-6))
+        nn_err = (F.silu(norm(x)).double() - exact).abs().max().item()
+        got = fr.group_norm_film_silu_nhwc(x.permute(0, 2, 3, 1).contiguous(), norm.weight, norm.bias, 32, 1e-6)
+    err = (got.permute(0, 3, 1, 2).double() - exact).abs().max().item()
+    assert err <= nn_err, (err, nn_err)
 
 
 def _small_vae():
@@ -149,6 +171,18 @@ def test_routed_encoder_keeps_training_on_f_conv2d(monkeypatch):
     before = profiling.counters().get("vae.tf32x3_convs", 0)
     vae.encode(torch.zeros(1, 16, 16, 3)).mean.sum().backward()
     assert profiling.counters().get("vae.tf32x3_convs", 0) == before
+
+
+@pytest.mark.parametrize("groups,routed", [(32, False), (16, True)])
+def test_conv_after_a_norm_routes_where_the_pair_takes_the_norm(monkeypatch, groups, routed):
+    """A routed conv behind a GroupNorm routes only where the channels-last
+    pair takes that norm in float32 (whole 4-channel vectors a group): 64
+    channels in 32 groups of 2 keep cuDNN and ``nn.GroupNorm``."""
+    _as_if_on_the_card(monkeypatch)
+    conv, x = nn.Conv2d(64, 128, 3, padding=1), torch.zeros(1, 64, 4, 4)
+    with torch.no_grad():
+        assert vae_module._routes(conv, x)
+        assert vae_module._routes(conv, x, nn.GroupNorm(groups, 64)) is routed
 
 
 @pytest.mark.parametrize("c_out,partials,tile", [
